@@ -1,0 +1,178 @@
+"""ConditionalNet: one conditional autoencoder with hyperprior and gains,
+eval path, NCHW (counterpart of aivc_tpu/models/conditional.py:163-321).
+
+  analyze:      y = g_a(x) * gain_enc;  z_q = clip(round(h_a(y)))
+  hyper_decode: mu, sigma = pdf_param(h_s(z_q))
+  synthesize:   x_hat = g_s(cat((y_cq + mu) * gain_dec, g_a_ref(shortcut)))
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from aivc_tpu_torch.config import (
+    AC_MAX_VAL,
+    FRAME_B,
+    FRAME_I,
+    FRAME_P,
+    ConditionalNetConfig,
+)
+from aivc_tpu_torch.ops.entropy_models import FactorizedPrior, pdf_parameterize
+from aivc_tpu_torch.ops.gain import GainMatrix
+from aivc_tpu_torch.ops.layers import (
+    DTYPES,
+    ConvBlock,
+    SimplifiedAttention,
+    UpBlock,
+)
+from aivc_tpu_torch.ops.quantizer import quantize
+
+
+def _gdn_name(base: str, clamp: float, lowp: bool) -> str:
+    name = base if not clamp else f"{base}@{clamp}"
+    return name + "!lp" if lowp else name
+
+
+class AnalysisTransform(nn.Module):
+    """g_a / g_a_ref: 4x stride-2 conv stack with GDN -> float32 latents."""
+
+    def __init__(self, in_c: int, nb_ft: int, out_ft: int, k_size: int = 5,
+                 use_attention: bool = True, dtype: str = "float32",
+                 gdn_clamp: float = 0.0, gdn_lowp: bool = False):
+        super().__init__()
+        gdn = _gdn_name("gdn", gdn_clamp, gdn_lowp)
+        self.dt = DTYPES[dtype]
+        self.ConvBlock_0 = ConvBlock(in_c, nb_ft, k_size, 2, gdn, dtype)
+        self.ConvBlock_1 = ConvBlock(nb_ft, nb_ft, k_size, 2, gdn, dtype)
+        self.use_attention = use_attention
+        if use_attention:
+            self.SimplifiedAttention_0 = SimplifiedAttention(nb_ft,
+                                                             dtype=dtype)
+        self.ConvBlock_2 = ConvBlock(nb_ft, nb_ft, k_size, 2, gdn, dtype)
+        self.ConvBlock_3 = ConvBlock(nb_ft, out_ft, k_size, 2, "no", dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.ConvBlock_1(self.ConvBlock_0(x.to(self.dt)))
+        if self.use_attention:
+            x = self.SimplifiedAttention_0(x)
+        x = self.ConvBlock_3(self.ConvBlock_2(x))
+        return x.float()
+
+
+class SynthesisTransform(nn.Module):
+    """g_s: 4x x2 upsampling with IGDN -> float32 output."""
+
+    def __init__(self, in_c: int, nb_ft: int, out_ft: int, k_size: int = 5,
+                 use_attention: bool = True, dtype: str = "float32",
+                 gdn_clamp: float = 0.0, gdn_lowp: bool = False):
+        super().__init__()
+        igdn = _gdn_name("gdn_inverse", gdn_clamp, gdn_lowp)
+        self.dt = DTYPES[dtype]
+        self.UpBlock_0 = UpBlock(in_c, nb_ft, k_size, igdn, dtype)
+        self.use_attention = use_attention
+        if use_attention:
+            self.SimplifiedAttention_0 = SimplifiedAttention(nb_ft,
+                                                             dtype=dtype)
+        self.UpBlock_1 = UpBlock(nb_ft, nb_ft, k_size, igdn, dtype)
+        self.UpBlock_2 = UpBlock(nb_ft, nb_ft, k_size, igdn, dtype)
+        self.UpBlock_3 = UpBlock(nb_ft, out_ft, k_size, "no", dtype)
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        y = self.UpBlock_0(y.to(self.dt))
+        if self.use_attention:
+            y = self.SimplifiedAttention_0(y)
+        y = self.UpBlock_3(self.UpBlock_2(self.UpBlock_1(y)))
+        return y.float()
+
+
+class HyperAnalysis(nn.Module):
+    def __init__(self, in_c: int, nb_ft: int, out_ft: int,
+                 dtype: str = "float32"):
+        super().__init__()
+        self.dt = DTYPES[dtype]
+        self.ConvBlock_0 = ConvBlock(in_c, nb_ft, 3, 1, "leaky_relu", dtype)
+        self.ConvBlock_1 = ConvBlock(nb_ft, nb_ft, 5, 2, "leaky_relu", dtype)
+        self.ConvBlock_2 = ConvBlock(nb_ft, out_ft, 5, 2, "no", dtype)
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        y = torch.abs(y).to(self.dt)
+        return self.ConvBlock_2(self.ConvBlock_1(self.ConvBlock_0(y))).float()
+
+
+class HyperSynthesis(nn.Module):
+    def __init__(self, in_c: int, nb_ft: int, out_ft: int,
+                 dtype: str = "float32"):
+        super().__init__()
+        self.dt = DTYPES[dtype]
+        self.UpBlock_0 = UpBlock(in_c, nb_ft, 5, "leaky_relu", dtype)
+        self.UpBlock_1 = UpBlock(nb_ft, nb_ft, 5, "leaky_relu", dtype)
+        self.ConvBlock_0 = ConvBlock(nb_ft, out_ft, 3, 1, "no", dtype)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        z = self.UpBlock_1(self.UpBlock_0(z.to(self.dt)))
+        return self.ConvBlock_0(z).float()
+
+
+class ConditionalNet(nn.Module):
+    def __init__(self, c: ConditionalNetConfig, gain_i: bool = True):
+        """gain_i=False leaves out the I-frame gains, which MOFNet never
+        uses (its checkpoints carry none)."""
+        super().__init__()
+        if c.mixture_k != 1:
+            raise NotImplementedError(
+                "mixture entropy models wait for a later slice")
+        self.cfg = c
+        d, clamp, lowp = c.dtype, c.gdn_clamp, c.gdn_lowp
+        self.g_a = AnalysisTransform(c.in_c, c.nb_ft, c.nb_ft_y, c.k_size,
+                                     c.use_attention, d, clamp, lowp)
+        if c.in_c_shortcut > 0:
+            self.g_a_ref = AnalysisTransform(
+                c.in_c_shortcut, c.nb_ft, c.out_c_shortcut_y, c.k_size,
+                False, d, clamp, lowp)
+        self.g_s = SynthesisTransform(c.nb_ft_y + c.out_c_shortcut_y,
+                                      c.nb_ft, c.out_c, c.k_size,
+                                      c.use_attention, d, clamp, lowp)
+        self.h_a = HyperAnalysis(c.nb_ft_y, c.nb_ft_z, c.nb_ft_z, d)
+        self.h_s = HyperSynthesis(c.nb_ft_z, c.nb_ft_y, c.sigma_cond_c, d)
+        self.pdf_z = FactorizedPrior(c.nb_ft_z)
+        if gain_i or not c.gain_p_b:
+            self.gain_I = GainMatrix(c.n_rates, c.nb_ft_y)
+        if c.gain_p_b:
+            self.gain_P = GainMatrix(c.n_rates, c.nb_ft_y)
+            self.gain_B = GainMatrix(c.n_rates, c.nb_ft_y)
+
+    def _gain(self, x, idx_rate: float, mode: str, frame_type: int):
+        if not self.cfg.gain_p_b or frame_type == FRAME_I:
+            return self.gain_I(x, idx_rate, mode)
+        if frame_type == FRAME_P:
+            return self.gain_P(x, idx_rate, mode)
+        if frame_type == FRAME_B:
+            return self.gain_B(x, idx_rate, mode)
+        raise ValueError(f"bad frame_type {frame_type}")
+
+    def analyze(self, x: torch.Tensor, idx_rate: float, frame_type: int):
+        """x [B, in_c, H, W] -> (gained y, integer-valued z_q), float32."""
+        y = self._gain(self.g_a(x), idx_rate, "enc", frame_type)
+        return y, quantize(self.h_a(y), AC_MAX_VAL)
+
+    def hyper_decode(self, z_q: torch.Tensor):
+        """Decoded z -> (mu, sigma), cropped to the y grid."""
+        h = self.h_s(z_q)
+        mu, sigma = pdf_parameterize(h, self.cfg.nb_ft_y)
+        hy, wy = z_q.shape[2] * 4, z_q.shape[3] * 4
+        return mu[:, :, :hy, :wy], sigma[:, :, :hy, :wy]
+
+    def synthesize(self, y_cq: torch.Tensor, mu: torch.Tensor,
+                   shortcut_in: Optional[torch.Tensor], idx_rate: float,
+                   frame_type: int) -> torch.Tensor:
+        y_hat = self._gain(y_cq + mu, idx_rate, "dec", frame_type)
+        if shortcut_in is not None and self.cfg.in_c_shortcut > 0:
+            y_shortcut = self.g_a_ref(shortcut_in)
+        else:
+            B, _, H, W = y_hat.shape
+            y_shortcut = torch.zeros((B, self.cfg.out_c_shortcut_y, H, W),
+                                     dtype=y_hat.dtype, device=y_hat.device)
+        return self.g_s(torch.cat([y_hat, y_shortcut], dim=1))

@@ -1,0 +1,107 @@
+"""FullNet: MOFNet + motion compensation + CodecNet, the eval stage
+methods of aivc_tpu/models/fullnet.py (fullnet.py:55-126 and the stage
+methods), NCHW.
+
+Maps are channel-major [B, 6, H, W] planes (alpha, beta, u_prev, v_prev,
+u_next, v_next), which is what the JAX package's ``maps_cm`` schedule
+computes: the port's pixel shuffle already yields that layout.
+
+  P/B:  x_warp = beta * warp(prev, v_prev) + (1 - beta) * warp(next, v_next)
+        pred = alpha * x_warp;  skip = (1 - alpha) * x_warp
+        (P-frames: beta = 1, v_next = 0)
+  I:    pred = skip = 0
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from aivc_tpu_torch.config import FRAME_B, FRAME_I, FRAME_P, ModelConfig
+from aivc_tpu_torch.models.conditional import ConditionalNet
+from aivc_tpu_torch.ops.warp import mc_warp, pack_yuv_u32
+
+
+def mofnet_maps(m: torch.Tensor, frame_type: int,
+                flow_bound: float = 0.0) -> torch.Tensor:
+    """MOFNet synthesis output [B, 6, H, W] -> processed maps.
+
+    flow_bound > 0: sigmoid(4x) masks and the softsign flow bound
+    v = raw / (1 + |raw| / bound); otherwise the reference's
+    clip(x + 0.5, 0, 1) masks and raw flows.  P-frames force beta = 1 and
+    v_next = 0."""
+    if flow_bound > 0.0:
+        alpha = torch.sigmoid(4.0 * m[:, 0:1])
+        beta = torch.sigmoid(4.0 * m[:, 1:2])
+        b = torch.tensor(flow_bound, dtype=m.dtype, device=m.device)
+        v_prev = m[:, 2:4]
+        v_next = m[:, 4:6]
+        v_prev = v_prev / (1.0 + torch.abs(v_prev) / b)
+        v_next = v_next / (1.0 + torch.abs(v_next) / b)
+    else:
+        alpha = torch.clamp(m[:, 0:1] + 0.5, 0.0, 1.0)
+        beta = torch.clamp(m[:, 1:2] + 0.5, 0.0, 1.0)
+        v_prev = m[:, 2:4]
+        v_next = m[:, 4:6]
+    if frame_type == FRAME_P:
+        beta = torch.ones_like(beta)
+        v_next = torch.zeros_like(v_next)
+    return torch.cat([alpha, beta, v_prev, v_next], dim=1)
+
+
+class FullNet(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.mofnet = ConditionalNet(cfg.mofnet, gain_i=False)
+        self.codecnet = ConditionalNet(cfg.codecnet)
+
+    def mof_analyze(self, frame, prev, nxt, idx_rate: float,
+                    frame_type: int):
+        return self.mofnet.analyze(torch.cat([frame, prev, nxt], dim=1),
+                                   idx_rate, frame_type)
+
+    def cod_analyze(self, frame, pred, idx_rate: float, frame_type: int):
+        return self.codecnet.analyze(torch.cat([frame, pred], dim=1),
+                                     idx_rate, frame_type)
+
+    def mofnet_hyper(self, z_q):
+        return self.mofnet.hyper_decode(z_q)
+
+    def codecnet_hyper(self, z_q):
+        return self.codecnet.hyper_decode(z_q)
+
+    def mofnet_synth_maps(self, y_cq, mu, prev, nxt, idx_rate: float,
+                          frame_type: int) -> torch.Tensor:
+        """MOFNet synthesis -> maps [B, 6, H, W] (no warp)."""
+        shortcut = (torch.cat([prev, nxt], dim=1)
+                    if frame_type == FRAME_B else None)
+        out = self.mofnet.synthesize(y_cq, mu, shortcut, idx_rate,
+                                     frame_type)
+        return mofnet_maps(out, frame_type, self.cfg.flow_bound)
+
+    @staticmethod
+    def motion_comp_stage(prev, nxt, maps6, frame_type: int,
+                          warp_engine: str = "packed"):
+        """Warp + blend -> pred, skip and the mask means."""
+        alpha = maps6[:, 0:1]
+        beta = maps6[:, 1:2]
+        pw = mc_warp(pack_yuv_u32(prev), maps6[:, 2], maps6[:, 3],
+                     warp_engine)
+        if frame_type == FRAME_P:
+            x_warp = pw
+        else:
+            nw = mc_warp(pack_yuv_u32(nxt), maps6[:, 4], maps6[:, 5],
+                         warp_engine)
+            x_warp = beta * pw + (1.0 - beta) * nw
+        x_warp = x_warp.to(prev.dtype)
+        return {"pred": alpha * x_warp, "skip": (1.0 - alpha) * x_warp,
+                "alpha_mean": alpha.mean(dim=(1, 2, 3)),
+                "beta_mean": beta.mean(dim=(1, 2, 3))}
+
+    def codecnet_synth(self, y_cq, mu, pred, skip, idx_rate: float,
+                       frame_type: int):
+        shortcut = pred if frame_type != FRAME_I else None
+        out = self.codecnet.synthesize(y_cq, mu, shortcut, idx_rate,
+                                       frame_type)
+        return out + skip

@@ -1,0 +1,60 @@
+"""Learned entropy models, eval path (counterpart of
+aivc_tpu/ops/entropy_models.py): the factorized prior's CDF for z and the
+Laplace parameterisation of y."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from aivc_tpu_torch.config import LOG_VAR_MAX, LOG_VAR_MIN
+
+SQRT2 = 1.4142135623730951
+
+
+class FactorizedPrior(nn.Module):
+    """Per-channel learned CDF (Balle 2018, K = 4 layers of width r = 3)."""
+
+    def __init__(self, nb_channel: int, K: int = 4, r: int = 3):
+        super().__init__()
+        self.nb_channel, self.K = nb_channel, K
+        dims = [1] + [r] * (K - 1) + [1]
+        for i in range(K):
+            setattr(self, f"h{i}", nn.Parameter(
+                torch.zeros(nb_channel, dims[i], dims[i + 1])))
+            setattr(self, f"b{i}", nn.Parameter(
+                torch.zeros(nb_channel, dims[i + 1])))
+        for i in range(K - 1):
+            setattr(self, f"a{i}", nn.Parameter(
+                torch.zeros(nb_channel, dims[i + 1])))
+
+    def cdf(self, x: torch.Tensor) -> torch.Tensor:
+        """x [C, N] evaluation points -> [C, N] CDF values (float32)."""
+        t = x[..., None].float()
+        for i in range(self.K):
+            h = F.softplus(getattr(self, f"h{i}"))
+            t = torch.einsum("cnd,cdr->cnr", t, h)
+            t = t + getattr(self, f"b{i}")[:, None, :]
+            if i != self.K - 1:
+                t = t + (torch.tanh(getattr(self, f"a{i}")[:, None, :])
+                         * torch.tanh(t))
+        return torch.sigmoid(t[..., 0])
+
+
+def laplace_cdf(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return 0.5 + 0.5 * torch.sign(x) * (1.0 - torch.exp(-torch.abs(x) / scale))
+
+
+def laplace_bin_prob(y: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """P(Y = y) for integer y under a Laplace of std sigma."""
+    b = sigma / SQRT2
+    return laplace_cdf(y + 0.5, b) - laplace_cdf(y - 0.5, b)
+
+
+def pdf_parameterize(x: torch.Tensor, nb_ft: int):
+    """Hyper-synthesis output [B, 2C, H, W] -> (mu, sigma), the K = 1
+    path: sigma = exp(0.5 * clamp(log-var))."""
+    mu = x[:, :nb_ft]
+    logvar = torch.clamp(x[:, nb_ft:2 * nb_ft], LOG_VAR_MIN, LOG_VAR_MAX)
+    return mu, torch.exp(0.5 * logvar)

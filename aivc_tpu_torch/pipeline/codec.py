@@ -1,0 +1,612 @@
+"""FrameCodec: the frame coding engine, device entropy backend
+(counterpart of aivc_tpu/pipeline/codec.py).
+
+  encode: to444 -> [P/B] mof_analyze -> mof_hyper -> quantize -> mof_synth
+          -> warp -> cod_analyze -> cod_hyper -> quantize -> cod_synth
+          -> cast + DC correction -> one fused rANS stream per frame (K1)
+  decode: staged rANS decode of the fused stream (K2) interleaved with the
+          hyper and synthesis stages, then the same cast.
+
+Encoder and decoder run the same module code on batches of the same
+composition (a wave of the GOP), with cuDNN deterministic and its
+benchmark search off, so the float inputs of entropy coding (sigma bins)
+and of the reference loop are bit-identical on both sides of one card.
+
+Format: v2 fused streams with all-zero y channels elided
+(codec.py:665-990,1221-1300), per-frame DC trailer (codec.py:494-541),
+schedule byte 0x1F.  The DC plane sums are int64 (the JAX sums are int32,
+which agree below ~8.4M luma pixels).
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+from typing import Dict, List
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from aivc_tpu_torch.coding import bitstream as bs
+from aivc_tpu_torch.coding import vrans
+from aivc_tpu_torch.coding.cdf import (
+    PROB_SCALE,
+    build_laplace_table,
+    build_z_table,
+    sigma_to_bin,
+)
+from aivc_tpu_torch.config import (
+    FRAME_I,
+    PAD_MULTIPLE,
+    Y_DOWNSCALE,
+    Z_DOWNSCALE,
+    ModelConfig,
+)
+from aivc_tpu_torch.device import resolve_device
+from aivc_tpu_torch.models.fullnet import FullNet
+from aivc_tpu_torch.ops.layers import x444_to_yuv420, yuv420_to_444
+from aivc_tpu_torch.ops.warp import warp_engine
+
+# Compute-schedule byte of the video header: the JAX package's defaults
+# (lane-packed heads, low-precision GDN, channel-major maps, s2d analysis,
+# DC correction).  The port computes lowp GDN (bit 1) and the DC trailer
+# (bit 4); bits 0, 2 and 3 only reschedule the same sums.
+SCHED_BITS = 0x1F
+
+
+def configure_determinism(cfg: ModelConfig) -> None:
+    """cuDNN deterministic with no benchmark search (same algorithms for
+    the same shapes on encoder and decoder).  TF32 is turned off for
+    float32 models so their convs and matmuls run in full float32; bf16
+    models compute in bf16 and are unaffected."""
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    if "float32" in (cfg.mofnet.dtype, cfg.codecnet.dtype):
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def canonical(x: torch.Tensor) -> torch.Tensor:
+    """A copy with default row-major strides.  A tensor with a size-1 dim
+    (the 1x1 z grid of a 64x64 frame) can carry other strides and still
+    count as contiguous; cuDNN and oneDNN may then run it in another
+    memory format and round differently.  Encoder and decoder normalise
+    the latents they feed the nets, so both run the same algorithms."""
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _pad_edge(x: torch.Tensor, mult: int) -> torch.Tensor:
+    """Edge-pad H, W of [B, C, H, W] up to a multiple of ``mult``."""
+    ph = (-x.shape[2]) % mult
+    pw = (-x.shape[3]) % mult
+    if ph or pw:
+        x = F.pad(x, (0, pw, 0, ph), mode="replicate")
+    return x
+
+
+class _BatchPlanes:
+    """uint8 planes of one coded wave on the device, pulled to the host
+    once, on first access."""
+
+    __slots__ = ("_dev", "_host")
+
+    def __init__(self, planes_dev: Dict[str, torch.Tensor]):
+        self._dev = planes_dev
+        self._host = None
+
+    def host(self) -> Dict[str, np.ndarray]:
+        if self._host is None:
+            self._host = {k: v.cpu().numpy() for k, v in self._dev.items()}
+            self._dev = None
+        return self._host
+
+
+class DecodedFrame:
+    """A decoded frame: the padded 444 reference on the device [1, 3, Hp,
+    Wp] and its wave's uint8 planes (host copy made lazily)."""
+
+    __slots__ = ("_batch", "_i", "ref")
+
+    def __init__(self, batch: _BatchPlanes, i: int, ref: torch.Tensor):
+        self._batch = batch
+        self._i = i
+        self.ref = ref
+
+    @property
+    def planes(self) -> Dict[str, np.ndarray]:
+        h = self._batch.host()
+        return {k: h[k][self._i] for k in ("y", "u", "v")}
+
+    def __getitem__(self, k: str) -> np.ndarray:
+        return self.planes[k]
+
+
+class FrameCodec:
+    """Per-resolution codec around a FullNet; device entropy backend."""
+
+    def __init__(self, cfg: ModelConfig, model: FullNet, height: int,
+                 width: int, device=None):
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            configure_determinism(cfg)
+        # Inference runs GDN with low-precision parameters (sched bit 1).
+        import dataclasses as dc
+
+        cfg = dc.replace(
+            cfg, mofnet=dc.replace(cfg.mofnet, gdn_lowp=True),
+            codecnet=dc.replace(cfg.codecnet, gdn_lowp=True))
+        self.cfg = cfg
+        self.model = FullNet(cfg)
+        self.model.load_state_dict(model.state_dict())
+        self.model = self.model.to(self.device).eval()
+
+        self.h, self.w = height, width
+        self.hp = math.ceil(height / PAD_MULTIPLE) * PAD_MULTIPLE
+        self.wp = math.ceil(width / PAD_MULTIPLE) * PAD_MULTIPLE
+        self.h_uv, self.w_uv = math.ceil(height / 2), math.ceil(width / 2)
+        self.hy, self.wy = self.hp // Y_DOWNSCALE, self.wp // Y_DOWNSCALE
+        self.hz, self.wz = self.hp // Z_DOWNSCALE, self.wp // Z_DOWNSCALE
+        self._n_z = {
+            "mofnet": self.hz * self.wz * cfg.mofnet.nb_ft_z,
+            "codecnet": self.hz * self.wz * cfg.codecnet.nb_ft_z,
+        }
+        self.warp_engine = warp_engine(cfg.flow_bound)
+
+        self.ac_max = int(cfg.ac_max_val or 256)
+        if self.ac_max & (self.ac_max - 1) or not 16 <= self.ac_max <= 256:
+            raise ValueError(f"ac_max_val must be a power of two in "
+                             f"[16, 256], got {self.ac_max}")
+
+        # Fused row space [mofnet-z channels | codecnet-z channels | y
+        # sigma bins] (codec.py:311-348).  The z rows are built from the
+        # prior on the host, so they do not depend on the device.
+        lap = build_laplace_table(scale=vrans.PROB_SCALE, ac_max=self.ac_max)
+        z = {}
+        for which in ("mofnet", "codecnet"):
+            prior = copy.deepcopy(getattr(self.model, which).pdf_z).cpu()
+            z[which] = build_z_table(prior, scale=PROB_SCALE,
+                                     ac_max=self.ac_max)
+        fused = np.concatenate([z["mofnet"], z["codecnet"], lap], axis=0)
+        self.fused_rows = fused
+        self.table = vrans.make_table(fused, self.device)
+        czm, czc = cfg.mofnet.nb_ft_z, cfg.codecnet.nb_ft_z
+        self._row_off = {"z_m": 0, "z_c": czm, "y": czm + czc}
+        freq = np.diff(fused.astype(np.int64), axis=1)
+        self._pad_sym = {f: int(np.argmax(freq[off]))
+                         for f, off in self._row_off.items()}
+        self._k_hint: Dict[int, int] = {}
+
+    # ------------------------------------------------------------------
+    # K policy (codec.py:382-424)
+    # ------------------------------------------------------------------
+    def _fused_n2(self, frame_type: int, k: int, bm: int, bc: int):
+        """(total padded symbols, per-segment padded lengths) of a frame's
+        elided fused stream at stream count k."""
+        hw = self.hy * self.wy
+        segs = []
+        if frame_type != FRAME_I:
+            segs.append(-(-self._n_z["mofnet"] // k) * k)
+            if bm:
+                segs.append(-(-(bm * hw) // k) * k)
+        segs.append(-(-self._n_z["codecnet"] // k) * k)
+        if bc:
+            segs.append(-(-(bc * hw) // k) * k)
+        return sum(segs), tuple(segs)
+
+    def _pick_k(self, frame_type: int, n_total: int) -> int:
+        """Stream count for the next frame of this type: the 4K-byte state
+        flush stays ~<5% of the previous frame's payload, floored so the
+        scan stays <= 2048 steps."""
+        max_steps, bytes_per_stream = 2048, 40
+        k_lo = 8
+        while n_total // k_lo > max_steps:
+            k_lo *= 2
+        hint = self._k_hint.get(frame_type)
+        if hint is None:
+            k = vrans.pick_k(n_total)
+        else:
+            k = 8
+            while k < vrans.K_MAX and k * 2 * bytes_per_stream <= hint:
+                k *= 2
+        return max(k_lo, min(k, vrans.K_MAX))
+
+    def _update_k_hint(self, frame_type: int, payload_bytes: int) -> None:
+        prev = self._k_hint.get(frame_type)
+        self._k_hint[frame_type] = (payload_bytes if prev is None
+                                    else (prev + payload_bytes) // 2)
+
+    # ------------------------------------------------------------------
+    # Planes, references, cast and DC correction (codec.py:451-541)
+    # ------------------------------------------------------------------
+    def _planes_to_ref(self, y, u, v) -> torch.Tensor:
+        """uint8 true-size planes [B, H, W] -> padded float 444 [B, 3, Hp,
+        Wp]; shared by encoder and decoder."""
+        y = _pad_edge(y[:, None].float() / 255.0, PAD_MULTIPLE)
+        u = _pad_edge(u[:, None].float() / 255.0, PAD_MULTIPLE // 2)
+        v = _pad_edge(v[:, None].float() / 255.0, PAD_MULTIPLE // 2)
+        return yuv420_to_444(y, u, v).contiguous()
+
+    def _to_device_planes(self, frames_u8):
+        return [torch.from_numpy(np.stack([np.asarray(f[c]) for f in
+                                           frames_u8])).to(self.device)
+                for c in ("y", "u", "v")]
+
+    def ref_to_444(self, frame_u8) -> torch.Tensor:
+        """uint8 YUV420 planes (true size) -> padded float 444 on device."""
+        return self._planes_to_ref(*self._to_device_planes([frame_u8]))
+
+    def _zero_ref(self) -> torch.Tensor:
+        return torch.zeros((1, 3, self.hp, self.wp), dtype=torch.float32,
+                           device=self.device)
+
+    def _stack_refs(self, refs) -> torch.Tensor:
+        arrs = [r if r is not None else self._zero_ref() for r in refs]
+        return torch.cat(arrs, dim=0).contiguous()
+
+    def _cast_planes(self, x444: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Crop, 444 -> 420, quantize to 256 levels: uint8 [B, h, w]."""
+        yf, uf, vf = x444_to_yuv420(x444)
+        crops = {"y": yf[:, 0, :self.h, :self.w],
+                 "u": uf[:, 0, :self.h_uv, :self.w_uv],
+                 "v": vf[:, 0, :self.h_uv, :self.w_uv]}
+        return {k: torch.clamp(torch.round(torch.clamp(p, 0.0, 1.0) * 255.0),
+                               0, 255).to(torch.uint8)
+                for k, p in crops.items()}
+
+    @staticmethod
+    def _apply_dc(out, dc: torch.Tensor):
+        """Per-plane signed offsets dc [B, 3] on uint8 planes, saturating."""
+        return {k: torch.clamp(out[k].to(torch.int32)
+                               + dc[:, i, None, None], 0, 255
+                               ).to(torch.uint8)
+                for i, k in enumerate(("y", "u", "v"))}
+
+    @staticmethod
+    def _measure_dc(out, orig) -> torch.Tensor:
+        """Per-plane offsets from exact int64 plane sums: round((sum(orig)
+        - sum(decoded)) / n) in float32, as the JAX f32 mean."""
+        ds = []
+        for k in ("y", "u", "v"):
+            so = orig[k].to(torch.int64).sum(dim=(1, 2))
+            sd = out[k].to(torch.int64).sum(dim=(1, 2))
+            n = float(out[k].shape[1] * out[k].shape[2])
+            ds.append(torch.round((so - sd).to(torch.float32) / n)
+                      .to(torch.int32))
+        return torch.stack(ds, dim=1)
+
+    def _dc_correct_enc(self, out, orig):
+        """Measure, apply, re-measure; the total offset is applied once to
+        the raw planes, as the decoder does with the trailer value."""
+        dc1 = self._measure_dc(out, orig)
+        out1 = self._apply_dc(out, torch.clamp(dc1, -127, 127))
+        dc = torch.clamp(dc1 + self._measure_dc(out1, orig), -127, 127)
+        return self._apply_dc(out, dc), dc
+
+    def _split_decoded(self, planes, ref444, k: int) -> List[DecodedFrame]:
+        batch = _BatchPlanes(planes)
+        return [DecodedFrame(batch, i, ref444[i:i + 1]) for i in range(k)]
+
+    # ------------------------------------------------------------------
+    # Fused stream segments
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _pad_seg(sym, rows, k: int, pad_sym: int, pad_row: int):
+        pad = (-sym.shape[1]) % k
+        if pad:
+            sym = F.pad(sym, (0, pad), value=pad_sym)
+            rows = F.pad(rows, (0, pad), value=pad_row)
+        return sym, rows
+
+    def _z_rows(self, B: int, C: int, off: int) -> torch.Tensor:
+        """Row index of each z symbol in (H, W, C) order."""
+        ch = torch.arange(C, dtype=torch.int32, device=self.device) + off
+        return ch.repeat(self.hz * self.wz).expand(B, -1)
+
+    def _z_seg(self, zq: torch.Tensor, fam: str, k: int):
+        """z [B, C, Hz, Wz] -> symbols/rows in the JAX (H, W, C) order."""
+        B, C = zq.shape[:2]
+        sym = (zq.permute(0, 2, 3, 1).reshape(B, -1).to(torch.int32)
+               + self.ac_max)
+        off = self._row_off[fam]
+        return self._pad_seg(sym, self._z_rows(B, C, off), k,
+                             self._pad_sym[fam], off)
+
+    def _y_slots(self, idx: torch.Tensor, nkeep: torch.Tensor, hw: int):
+        """[B, bucket * hw] mask of the slots of kept channels."""
+        bucket = idx.shape[1]
+        pos_ch = torch.arange(bucket * hw, device=self.device) // hw
+        return pos_ch[None, :] < nkeep[:, None]
+
+    def _gather_ch(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """x [B, C, H, W] -> kept channels, channel-major [B, bucket*H*W]."""
+        B, C, H, W = x.shape
+        g = torch.gather(x.reshape(B, C, H * W), 1,
+                         idx.long()[:, :, None].expand(-1, -1, H * W))
+        return g.reshape(B, -1)
+
+    def _y_seg_el(self, q, bins, idx, nkeep, k: int):
+        """Elided y segment: channel-major symbols of the kept channels;
+        slots beyond a frame's nkeep carry the pad symbol."""
+        hw = q.shape[2] * q.shape[3]
+        valid = self._y_slots(idx, nkeep, hw)
+        sym = self._gather_ch(q, idx).to(torch.int32) + self.ac_max
+        rows = self._gather_ch(bins, idx).to(torch.int32) + self._row_off["y"]
+        sym = torch.where(valid, sym, self._pad_sym["y"])
+        rows = torch.where(valid, rows, self._row_off["y"])
+        return self._pad_seg(sym, rows, k, self._pad_sym["y"],
+                             self._row_off["y"])
+
+    def _pack_idx(self, chans: List[np.ndarray], bucket: int):
+        k = len(chans)
+        idx = np.zeros((k, max(bucket, 1)), np.int32)
+        nk = np.zeros((k,), np.int32)
+        for i, ch in enumerate(chans):
+            nk[i] = ch.size
+            idx[i, :ch.size] = ch
+        return (torch.from_numpy(idx).to(self.device),
+                torch.from_numpy(nk).to(self.device))
+
+    # ------------------------------------------------------------------
+    # Encode
+    # ------------------------------------------------------------------
+    def _quantize_y(self, y, mu):
+        # "+ 0.0" turns -0.0 into +0.0, the value the decoder rebuilds
+        # from the integer symbols.
+        return torch.clamp(torch.round(y - mu), -self.ac_max,
+                           self.ac_max - 1) + 0.0
+
+    def _hyper(self, which: str, z_q):
+        mu, sigma = getattr(self.model, f"{which}_hyper")(z_q)
+        return mu, sigma_to_bin(sigma)
+
+    @torch.no_grad()
+    def encode_frames_batch(self, frames_u8, prev_refs, next_refs,
+                            frame_type: int, idx_rate: float):
+        """Code k same-type frames as one device batch.  Returns (frame
+        bytes list, DecodedFrame list, per-frame stats)."""
+        k = len(frames_u8)
+        m = self.model
+        acv = self.ac_max
+        orig_dev = self._to_device_planes(frames_u8)
+        orig = dict(zip(("y", "u", "v"), orig_dev))
+        frame = self._planes_to_ref(*orig_dev)
+        prev = self._stack_refs(prev_refs)
+        nxt = self._stack_refs(next_refs)
+
+        if frame_type == FRAME_I:
+            pred = torch.zeros_like(frame)
+            skip = torch.zeros_like(frame)
+            mof = None
+        else:
+            y_m, z_qm = m.mof_analyze(frame, prev, nxt, idx_rate, frame_type)
+            z_qm = canonical(torch.clamp(z_qm, -acv, acv - 1))
+            mu_m, bins_m = self._hyper("mofnet", z_qm)
+            q_m = canonical(self._quantize_y(y_m, mu_m))
+            maps = m.mofnet_synth_maps(q_m, mu_m, prev, nxt, idx_rate,
+                                       frame_type)
+            mof = m.motion_comp_stage(prev, nxt, maps, frame_type,
+                                      self.warp_engine)
+            pred, skip = mof["pred"], mof["skip"]
+
+        y_c, z_qc = m.cod_analyze(frame, pred, idx_rate, frame_type)
+        z_qc = canonical(torch.clamp(z_qc, -acv, acv - 1))
+        mu_c, bins_c = self._hyper("codecnet", z_qc)
+        q_c = canonical(self._quantize_y(y_c, mu_c))
+        x_hat = m.codecnet_synth(q_c, mu_c, pred, skip, idx_rate, frame_type)
+        out, dc = self._dc_correct_enc(self._cast_planes(x_hat), orig)
+        ref444 = self._planes_to_ref(out["y"], out["u"], out["v"])
+        decoded = self._split_decoded(out, ref444, k)
+
+        # v2 fused entropy coding: channel masks to the host, wave-shared
+        # buckets, one K1 launch for the wave.
+        cm, cc = self.cfg.mofnet.nb_ft_y, self.cfg.codecnet.nb_ft_y
+        mask_c = (q_c != 0).any(dim=3).any(dim=2).cpu().numpy()
+        mask_m = (None if frame_type == FRAME_I else
+                  (q_m != 0).any(dim=3).any(dim=2).cpu().numpy())
+        bc = vrans.elide_bucket(int(mask_c.sum(axis=1).max()), cc)
+        bm = (0 if mask_m is None else
+              vrans.elide_bucket(int(mask_m.sum(axis=1).max()), cm))
+        ch_c = [np.nonzero(mask_c[i])[0] for i in range(k)]
+        idxc, nkc = self._pack_idx(ch_c, bc)
+        bitmaps = []
+        for i in range(k):
+            per = []
+            if mask_m is not None:
+                per.append(vrans.chan_bitmap(mask_m[i]))
+            per.append(vrans.chan_bitmap(mask_c[i]))
+            bitmaps.append(per)
+
+        n8, _ = self._fused_n2(frame_type, 8, bm, bc)
+        kk = self._pick_k(frame_type, n8)
+        parts, cols = [], []
+        if frame_type != FRAME_I:
+            parts.append(self._z_seg(z_qm, "z_m", kk))
+            cols.append(0)
+            if bm:
+                ch_m = [np.nonzero(mask_m[i])[0] for i in range(k)]
+                idxm, nkm = self._pack_idx(ch_m, bm)
+                parts.append(self._y_seg_el(q_m, bins_m, idxm, nkm, kk))
+                cols.append(1)
+        parts.append(self._z_seg(z_qc, "z_c", kk))
+        cols.append(2)
+        if bc:
+            parts.append(self._y_seg_el(q_c, bins_c, idxc, nkc, kk))
+            cols.append(3)
+        sym = torch.cat([p[0] for p in parts], dim=1).contiguous()
+        rows = torch.cat([p[1] for p in parts], dim=1).contiguous()
+        segs = tuple(p[0].shape[1] // kk for p in parts)
+        buf, states, seg_g = vrans.encode_batch(sym, rows, self.table, kk,
+                                                segs)
+        n_pad = sym.shape[1]
+        seg_np = seg_g.cpu().numpy().astype(np.int64)
+        states_np = states.cpu().numpy()
+        totals = n_pad - seg_np[:, 0]
+        mmax = int(totals.max())
+        tail = buf[:, n_pad - mmax:].cpu().numpy() if mmax else None
+        bounds = np.concatenate([seg_np, np.full((k, 1), n_pad)], axis=1)
+        segw = np.zeros((k, 4), np.int64)
+        segw[:, cols] = np.diff(bounds, axis=1)
+        dc_np = dc.cpu().numpy()
+        if mof is not None:
+            a_means = mof["alpha_mean"].cpu().numpy()
+            b_means = mof["beta_mean"].cpu().numpy()
+        frame_bytes, stats = [], []
+        for i in range(k):
+            t = int(totals[i])
+            words = (tail[i, mmax - t:] if t else np.empty(0, np.uint16))
+            chunk = vrans.serialize_chunk_v2(kk, states_np[i], words,
+                                             bitmaps[i])
+            fb = bs.pack_frame({"codecnet_z": chunk}, None,
+                               dc=tuple(int(v) for v in dc_np[i]))
+            frame_bytes.append(fb)
+            stats.append({
+                "bytes": len(fb),
+                "mode_bytes": 2 * int(segw[i, :2].sum()),
+                "codec_bytes": 2 * int(segw[i, 2:].sum()),
+                "alpha_mean": 1.0 if mof is None else float(a_means[i]),
+                "beta_mean": 1.0 if mof is None else float(b_means[i]),
+                "k": kk,
+            })
+        self._update_k_hint(frame_type,
+                            int(np.mean([len(b) for b in frame_bytes])))
+        return frame_bytes, decoded, stats
+
+    # ------------------------------------------------------------------
+    # Decode
+    # ------------------------------------------------------------------
+    def _dec_z(self, words, st, g, n: int, k: int, C: int, fam: str):
+        """Decode one z segment -> float32 [B, C, Hz, Wz] and the carry."""
+        B = words.shape[0]
+        off = self._row_off[fam]
+        nraw = self.hz * self.wz * C
+        rows = F.pad(self._z_rows(B, C, off), (0, n - nraw), value=off)
+        syms, st, g = vrans.decode_batch(words, st, rows.contiguous(),
+                                         self.table, k, g)
+        z = (syms[:, :nraw] - self.ac_max).to(torch.float32)
+        z = z.reshape(B, self.hz, self.wz, C).permute(0, 3, 1, 2)
+        return canonical(z), st, g
+
+    def _dec_y_el(self, words, st, g, bins, idx, nkeep, n: int, k: int,
+                  C: int):
+        """Decode one elided y segment and scatter it back to a dense
+        float32 [B, C, Hy, Wy]."""
+        B = words.shape[0]
+        hw = self.hy * self.wy
+        bucket = idx.shape[1]
+        valid = self._y_slots(idx, nkeep, hw)
+        rows = self._gather_ch(bins, idx).to(torch.int32) + self._row_off["y"]
+        rows = torch.where(valid, rows, self._row_off["y"])
+        rows = F.pad(rows, (0, n - bucket * hw), value=self._row_off["y"])
+        syms, st, g = vrans.decode_batch(words, st, rows.contiguous(),
+                                         self.table, k, g)
+        yk = (syms[:, :bucket * hw] - self.ac_max).to(torch.float32)
+        yk = torch.where(valid, yk, 0.0).reshape(B, bucket, hw)
+        dense = torch.zeros((B, C, hw), dtype=torch.float32,
+                            device=self.device)
+        # Padded slots hold 0 and a padded idx 0: adding zeros is a no-op.
+        dense.scatter_add_(1, idx.long()[:, :, None].expand(-1, -1, hw), yk)
+        return canonical(dense.reshape(B, C, self.hy, self.wy)), st, g
+
+    @torch.no_grad()
+    def decode_frames_batch(self, frame_bytes_list, prev_refs, next_refs,
+                            frame_type: int, idx_rate: float):
+        """Decode k same-type frames as one batch.  Must be called with
+        the grouping the encoder used (the wave composition is part of
+        the bit-exactness contract)."""
+        k = len(frame_bytes_list)
+        m = self.model
+        chunks = [bs.unpack_frame(fb) for fb in frame_bytes_list]
+        parsed = [vrans.parse_chunk_v2(c["codecnet_z"]) for c in chunks]
+        kk = parsed[0][2]
+        if any(p[2] != kk for p in parsed):
+            raise ValueError("inconsistent vrans stream counts in a wave")
+        if any(p[3] is None for p in parsed):
+            raise ValueError("dense (v1) chunks wait for a later slice")
+        cm, cc = self.cfg.mofnet.nb_ft_y, self.cfg.codecnet.nb_ft_y
+        ch_m, ch_c = [], []
+        for _, _, _, bms in parsed:
+            if frame_type != FRAME_I:
+                ch_m.append(vrans.bitmap_channels(bms[0], cm))
+                ch_c.append(vrans.bitmap_channels(bms[1], cc))
+            else:
+                ch_c.append(vrans.bitmap_channels(bms[0], cc))
+        bc = vrans.elide_bucket(max(c.size for c in ch_c), cc)
+        bm = vrans.elide_bucket(max(c.size for c in ch_m), cm) if ch_m else 0
+        idxc, nkc = self._pack_idx(ch_c, bc)
+        _, segs = self._fused_n2(frame_type, kk, bm, bc)
+        seg_it = iter(segs)
+
+        mw = vrans.bucket(max(max(p[0].size for p in parsed), 1), 1 << 30)
+        wb = np.zeros((k, mw), np.uint16)
+        for i, p in enumerate(parsed):
+            wb[i, :p[0].size] = p[0]
+        words = torch.from_numpy(wb).to(self.device)
+        st = torch.from_numpy(np.stack([p[1] for p in parsed])).to(
+            self.device)
+        g = torch.zeros(k, dtype=torch.int32, device=self.device)
+        prev = self._stack_refs(prev_refs)
+        nxt = self._stack_refs(next_refs)
+
+        if frame_type == FRAME_I:
+            pred = torch.zeros((k, 3, self.hp, self.wp), dtype=torch.float32,
+                               device=self.device)
+            skip = torch.zeros_like(pred)
+        else:
+            z_qm, st, g = self._dec_z(words, st, g, next(seg_it), kk,
+                                      self.cfg.mofnet.nb_ft_z, "z_m")
+            mu_m, bins_m = self._hyper("mofnet", z_qm)
+            if bm:
+                idxm, nkm = self._pack_idx(ch_m, bm)
+                q_m, st, g = self._dec_y_el(words, st, g, bins_m, idxm, nkm,
+                                            next(seg_it), kk, cm)
+            else:
+                q_m = torch.zeros((k, cm, self.hy, self.wy),
+                                  dtype=torch.float32, device=self.device)
+            maps = m.mofnet_synth_maps(q_m, mu_m, prev, nxt, idx_rate,
+                                       frame_type)
+            mof = m.motion_comp_stage(prev, nxt, maps, frame_type,
+                                      self.warp_engine)
+            pred, skip = mof["pred"], mof["skip"]
+
+        z_qc, st, g = self._dec_z(words, st, g, next(seg_it), kk,
+                                  self.cfg.codecnet.nb_ft_z, "z_c")
+        mu_c, bins_c = self._hyper("codecnet", z_qc)
+        if bc:
+            q_c, st, g = self._dec_y_el(words, st, g, bins_c, idxc, nkc,
+                                        next(seg_it), kk, cc)
+        else:
+            q_c = torch.zeros((k, cc, self.hy, self.wy), dtype=torch.float32,
+                              device=self.device)
+        x_hat = m.codecnet_synth(q_c, mu_c, pred, skip, idx_rate, frame_type)
+        dcs = []
+        for c in chunks:
+            if c.get("__dc__") is None:
+                raise ValueError("frame carries no DC trailer")
+            dcs.append(c["__dc__"])
+        dc = torch.tensor(dcs, dtype=torch.int32, device=self.device)
+        out = self._apply_dc(self._cast_planes(x_hat), dc)
+        ref444 = self._planes_to_ref(out["y"], out["u"], out["v"])
+        return self._split_decoded(out, ref444, k)
+
+    # ------------------------------------------------------------------
+    @property
+    def sched_bits(self) -> int:
+        return SCHED_BITS
+
+    def check_sched(self, header: bs.VideoHeader) -> None:
+        """Raise if the stream's compute-schedule byte is not this
+        codec's (a mismatched decoder would drift through the GOP)."""
+        if header.sched != self.sched_bits:
+            raise ValueError(
+                f"bitstream compute schedule {header.sched:#04x} != this "
+                f"codec's {self.sched_bits:#04x}")
+
+    def video_header(self, nb_gop: int, idx_first: int, idx_last: int,
+                     wave_batch: int = 1) -> bs.VideoHeader:
+        return bs.VideoHeader(
+            h_x=self.h, w_x=self.w, h_y=self.hy, w_y=self.wy,
+            h_z=self.hz, w_z=self.wz, nb_gop=nb_gop,
+            idx_first_frame=idx_first, idx_last_frame=idx_last,
+            backend=bs.BACKEND_DEVICE, wave_batch=max(1, wave_batch),
+            ac_log2=self.ac_max.bit_length() - 1, sched=self.sched_bits)

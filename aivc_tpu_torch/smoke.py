@@ -1,0 +1,335 @@
+"""Phases of the port's smoke run (``chip_smoke.py`` at the repo root).
+
+Every phase is a function of the device and the frame size, so a CPU test
+can rehearse the whole sequence at a tiny size (there the kernel wrappers
+take their plain versions).  On the card:
+
+  device   name, count and power limit of the card
+  build    nvcc time and the ptxas register / shared-memory report
+  load     the checkpoint through the port's loader, the codec
+  kernels  K1, K2, K3 once at main-path shapes against their plain
+           versions on the same inputs, each timed beside its bound
+  main     a 9-frame RA clip (GOP 8) encoded then decoded through the
+           entry points, bit-exact, with every kernel's launch count
+  small    the same clip at 64x64 on the card and on the host, which
+           must agree within the stated tolerance
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+from typing import Callable, Dict, List
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from aivc_tpu_torch import kernels
+from aivc_tpu_torch.coding import vrans
+from aivc_tpu_torch.config import FRAME_B, CodingConfig
+from aivc_tpu_torch.ops import warp as warp_ops
+from aivc_tpu_torch.pipeline.codec import FrameCodec
+from aivc_tpu_torch.pipeline.video import (
+    decode_video,
+    encode_video,
+    evaluate_frames,
+    synthetic_frames,
+)
+from aivc_tpu_torch.utils.checkpoint import load_checkpoint
+
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Host-vs-card agreement of the small clip (bf16 convolutions round
+# differently on the two devices, so symbols may differ slightly).
+SMALL_BYTES_RTOL = 0.10
+SMALL_PSNR_ATOL_DB = 0.5
+
+KERNEL_SOURCES = {
+    "rans_encode": ("aivc_tpu_torch/csrc/kernels.cu",
+                    "aivc_tpu/coding/vrans.py:889"),
+    "rans_decode": ("aivc_tpu_torch/csrc/kernels.cu",
+                    "aivc_tpu/coding/vrans.py:630"),
+    "warp_packed": ("aivc_tpu_torch/csrc/kernels.cu",
+                    "aivc_tpu/ops/warp_pallas.py:303"),
+}
+
+
+class Phases:
+    """Runs the phases in order, printing each one's elapsed seconds."""
+
+    def __init__(self, log: Callable[[str], None] = print):
+        self.log = log
+        self.t0 = time.time()
+
+    def say(self, msg: str) -> None:
+        self.log(f"[{time.time() - self.t0:8.2f}s] {msg}")
+
+
+def sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def time_ms(fn, device: torch.device, reps: int, warmup: int = 1) -> float:
+    """Mean milliseconds of fn(): CUDA events on the card, the host clock
+    (after a synchronize) elsewhere."""
+    for _ in range(warmup):
+        fn()
+    sync(device)
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t) * 1000.0 / reps
+
+
+# ---------------------------------------------------------------------------
+# device / build
+# ---------------------------------------------------------------------------
+
+def device_info() -> Dict:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr}")
+    return {"kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+            "smi": smi.stdout.strip().splitlines()[0]}
+
+
+def build_report() -> Dict:
+    kernels.lib()
+    lines = [ln.strip() for ln in kernels.BUILD_INFO.get("ptxas", "")
+             .splitlines()
+             if "registers" in ln or "Compiling entry" in ln
+             or "bytes stack" in ln]
+    return {"seconds": kernels.BUILD_INFO.get("seconds", 0.0),
+            "cached": kernels.BUILD_INFO.get("cached", False),
+            "ptxas": lines}
+
+
+# ---------------------------------------------------------------------------
+# kernels at main-path shapes
+# ---------------------------------------------------------------------------
+
+def _sample_symbols(cdf: np.ndarray, rows: np.ndarray,
+                    rng: np.random.Generator) -> np.ndarray:
+    """Draw one symbol per element from its row's distribution."""
+    sym = np.empty(rows.shape, np.int32)
+    slots = rng.integers(0, vrans.PROB_SCALE, size=rows.shape)
+    for r in np.unique(rows):
+        sel = rows == r
+        sym[sel] = np.searchsorted(cdf[r], slots[sel], side="right") - 1
+    return sym
+
+
+def fused_inputs(codec: FrameCodec, batch: int, seed: int = 0):
+    """Symbols and rows of a dense (no channel elided) B-frame wave at the
+    codec's size: segments z_m, y_m, z_c, y_c in the fused row space, each
+    padded to a multiple of K, symbols drawn from their rows."""
+    rng = np.random.default_rng(seed)
+    hw_z = codec.hz * codec.wz
+    hw_y = codec.hy * codec.wy
+    cfg = codec.cfg
+    sizes = [hw_z * cfg.mofnet.nb_ft_z, hw_y * cfg.mofnet.nb_ft_y,
+             hw_z * cfg.codecnet.nb_ft_z, hw_y * cfg.codecnet.nb_ft_y]
+    k = codec._pick_k(FRAME_B, sum(sizes))
+    off = codec._row_off
+    syms, rows, segs = [], [], []
+    for i, n in enumerate(sizes):
+        if i in (0, 2):
+            fam = "z_m" if i == 0 else "z_c"
+            c = cfg.mofnet.nb_ft_z if i == 0 else cfg.codecnet.nb_ft_z
+            r = np.tile(np.arange(c) + off[fam], (batch, n // c))
+        else:
+            r = off["y"] + rng.integers(0, 48, size=(batch, n))
+        n_pad = -(-n // k) * k
+        r = np.pad(r, ((0, 0), (0, n_pad - n)), mode="edge")
+        syms.append(_sample_symbols(codec.fused_rows, r, rng))
+        rows.append(r.astype(np.int32))
+        segs.append(n_pad // k)
+    sym = torch.from_numpy(np.concatenate(syms, axis=1)).to(codec.device)
+    row = torch.from_numpy(np.concatenate(rows, axis=1)).to(codec.device)
+    return sym.contiguous(), row.contiguous(), k, tuple(segs)
+
+
+def _words_for_decode(buf: torch.Tensor, seg_g: torch.Tensor):
+    """Kernel-layout encode buffer -> [B, W] words from offset 0."""
+    B, n_pad = buf.shape
+    starts = seg_g[:, 0].cpu().tolist()
+    w = torch.zeros((B, vrans.bucket(max(n_pad - min(starts), 1), 1 << 30)),
+                    dtype=torch.uint16, device=buf.device)
+    for i, s in enumerate(starts):
+        w[i, :n_pad - s] = buf[i, s:]
+    return w
+
+
+def _record(name: str, err, ms, plain_ms, bound_bytes, bound_ops,
+            library_ms=None) -> Dict:
+    t_bytes = bound_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = bound_ops / F32_OPS_PER_S * 1e3
+    src, rep = KERNEL_SOURCES[name]
+    return {"name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": 0, "max_abs_err": float(err), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
+
+
+def check_rans(codec: FrameCodec, batch: int, reps: int = 5,
+               seed: int = 0) -> List[Dict]:
+    """K1 and K2 against their plain versions on one dense wave."""
+    dev = codec.device
+    sym, rows, k, segs = fused_inputs(codec, batch, seed)
+    t = codec.table
+    enc = lambda: vrans.encode_batch(sym, rows, t, k, segs)  # noqa: E731
+    buf, st, seg_g = enc()
+    pbuf, pst, pseg = vrans.encode_plain(sym, rows, t, k, segs)
+    n_pad = sym.shape[1]
+    if not torch.equal(seg_g, pseg) or not torch.equal(st, pst):
+        raise AssertionError("K1 states / segment cursors differ from the "
+                             "plain encode")
+    for i in range(batch):
+        s = int(seg_g[i, 0])
+        if not torch.equal(buf[i, s:], pbuf[i, s:]):
+            raise AssertionError(f"K1 words differ in chunk {i}")
+    total_words = int((n_pad - seg_g[:, 0].long()).sum())
+    ms_enc = time_ms(enc, dev, reps)
+    plain_enc = time_ms(lambda: vrans.encode_plain(sym, rows, t, k, segs),
+                        dev, 1, warmup=0)
+
+    words = _words_for_decode(buf, seg_g)
+    dec = lambda: vrans.decode_batch(words, st, rows, t, k)  # noqa: E731
+    syms, dst, dg = dec()
+    psyms, pdst, pdg = vrans.decode_plain(words, st, rows, t, k)
+    if not (torch.equal(syms, psyms) and torch.equal(dst, pdst)
+            and torch.equal(dg, pdg)):
+        raise AssertionError("K2 differs from the plain decode")
+    if not torch.equal(syms, sym):
+        raise AssertionError("decode(encode(x)) != x")
+    ms_dec = time_ms(dec, dev, reps)
+    plain_dec = time_ms(lambda: vrans.decode_plain(words, st, rows, t, k),
+                        dev, 1, warmup=0)
+    n = batch * n_pad
+    table_b = t.cdf16.numel() * 2
+    state_b = batch * k * 4
+    # ~20 32-bit integer operations per symbol (lookup, compare, shift,
+    # divide, scan share), counted at the card's f32 non-tensor rate.
+    int_ops = 20 * n
+    return [
+        _record("rans_encode", 0, ms_enc, plain_enc,
+                8 * n + table_b + 2 * total_words + state_b
+                + seg_g.numel() * 4, int_ops),
+        _record("rans_decode", 0, ms_dec, plain_dec,
+                2 * total_words + state_b + 4 * n + batch * 4 + table_b
+                + 4 * n + state_b + batch * 4, int_ops),
+    ]
+
+
+def check_warp(device: torch.device, batch: int, h: int, w: int, fb: int,
+               reps: int = 20, seed: int = 0) -> List[Dict]:
+    """K3 against the plain warp on a packed frame and bounded flows."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    packed = torch.randint(0, 1 << 24, (batch, h, w), generator=g,
+                           dtype=torch.int32).to(device)
+    u = ((torch.rand((batch, h, w), generator=g) * 2 - 1) * fb).to(device)
+    v = ((torch.rand((batch, h, w), generator=g) * 2 - 1) * fb).to(device)
+    run = lambda: warp_ops.mc_warp(packed, u, v, "bounded")  # noqa: E731
+    out = run()
+    ref = warp_ops.warp_packed(packed, u, v)
+    mism = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
+    if mism:
+        raise AssertionError(f"K3: {mism} values differ in bits from the "
+                             "plain warp")
+    err = float((out - ref).abs().max())
+    ms = time_ms(run, device, reps)
+    plain = time_ms(lambda: warp_ops.warp_packed(packed, u, v), device, 3)
+    # Yardstick: one library call of the same function, a float-frame
+    # bilinear border-clamped grid_sample (never called by the port).
+    frame = torch.rand((batch, 3, h, w), generator=g).to(device)
+    xs = torch.arange(w, device=device).view(1, 1, w) + u
+    ys = torch.arange(h, device=device).view(1, h, 1) + v
+    grid = torch.stack([xs / (w - 1) * 2 - 1, ys / (h - 1) * 2 - 1], dim=-1)
+    lib_ms = time_ms(lambda: F.grid_sample(
+        frame, grid, mode="bilinear", padding_mode="border",
+        align_corners=True), device, reps)
+    px = batch * h * w
+    return [_record("warp_packed", err, ms, plain, 24 * px, 45 * px,
+                    library_ms=lib_ms)]
+
+
+# ---------------------------------------------------------------------------
+# main path
+# ---------------------------------------------------------------------------
+
+def code_clip(codec: FrameCodec, frames, wave_batch: int = 8,
+              gop: int = 8) -> Dict:
+    """Encode then decode an RA clip through the entry points; the decode
+    must reproduce the encoder's reconstructions bit for bit."""
+    dev = codec.device
+    coding = CodingConfig(coding_config="RA", gop_size=gop,
+                          intra_period=gop)
+    sync(dev)
+    t0 = time.time()
+    enc = encode_video(codec, frames, coding, wave_batch=wave_batch)
+    sync(dev)
+    t1 = time.time()
+    dec = decode_video(codec, enc.bitstream)
+    for i in range(len(frames)):
+        dec[i]["y"]  # pulls the wave's planes to the host
+    sync(dev)
+    t2 = time.time()
+    for i in range(len(frames)):
+        for c in ("y", "u", "v"):
+            if not np.array_equal(dec[i][c], enc.decoded_frames[i][c]):
+                raise AssertionError(
+                    f"decoded frame {i} plane {c} differs from the "
+                    "encoder's reconstruction")
+    psnr = evaluate_frames(frames, dec)["psnr"]
+    if not np.isfinite(psnr):
+        raise AssertionError(f"PSNR is not finite: {psnr}")
+    n_pix = codec.h * codec.w * len(frames)
+    return {"bytes": len(enc.bitstream),
+            "bpp": len(enc.bitstream) * 8.0 / n_pix,
+            "psnr": float(psnr),
+            "encode_fps": len(frames) / (t1 - t0),
+            "decode_fps": len(frames) / (t2 - t1),
+            "frame_bytes": [r.bytes for r in enc.frame_results]}
+
+
+def small_agreement(ckpt: str, device: torch.device, size: int = 64,
+                    n_frames: int = 9) -> Dict:
+    """The same small clip coded on ``device`` and on the host."""
+    frames = synthetic_frames(n_frames, size, size, seed=1)
+    out = {}
+    for name, dev in (("device", device), ("host", torch.device("cpu"))):
+        cfg, model = load_checkpoint(ckpt, device=dev)
+        codec = FrameCodec(cfg, model, size, size, device=dev)
+        out[name] = code_clip(codec, frames)
+    a, b = out["device"], out["host"]
+    if abs(a["bytes"] - b["bytes"]) > SMALL_BYTES_RTOL * b["bytes"]:
+        raise AssertionError(f"small clip: {a['bytes']} B on the device vs "
+                             f"{b['bytes']} B on the host")
+    if abs(a["psnr"] - b["psnr"]) > SMALL_PSNR_ATOL_DB:
+        raise AssertionError(f"small clip: PSNR {a['psnr']:.3f} on the "
+                             f"device vs {b['psnr']:.3f} on the host")
+    return out
+
+
+def kernels_line(records: List[Dict], launches: Dict[str, int]) -> str:
+    for r in records:
+        r["launches"] = launches[r["name"]]
+    return json.dumps({"kernels": records})
