@@ -12,10 +12,15 @@
 //                 (through decode_pallas_batch).
 // K3 warp_packed  replaces aivc_tpu/ops/warp_pallas.py:_warp_bounded_kernel
 //                 (through warp_bounded_pallas).
+// K4 gdn_fused    replaces aivc_tpu/ops/gdn.py:_gdn_kernel
+//                 (through gdn_pallas).
+// K5 warp_vclamped replaces aivc_tpu/ops/warp_pallas.py:_warp_plane_kernel
+//                 (through warp_pallas).
 //
 // Each kernel is bit-identical to its plain PyTorch version beside its
-// wrapper (coding/vrans.py, ops/warp.py).
+// wrapper (coding/vrans.py, ops/warp.py, ops/gdn.py).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -303,6 +308,195 @@ __global__ void warp_packed_kernel(const int* __restrict__ packed,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4: fused (I)GDN, NCHW.
+//
+// out[b, o, p] = x / n (x * n for the inverse), n = to_xtype(sqrt(
+// sum_j x2[b, j, p] * gammaT[j, o] + beta[o])), x2 = to_xtype(x * x), the
+// sum in f32 over j in order, each product and sum rounded (no FMA), so it
+// is bit-identical to ops/gdn.py:gdn_fused_plain run op by op.
+//
+// What bounds it on the H100: operations.  2 * C flops per output element
+// (C = 128: 256 per element) against 4 bytes moved per bf16 element, far
+// above the card's ~20 flop/byte f32 balance; without FMA and tensor cores
+// a simple kernel sits at or above the f32 operation bound.  Design: one
+// block per SM slot (persistent) walks tiles of 64 pixels of one image for
+// 128 output channels; per tile it takes the input channels in chunks of
+// 128, staging gammaT[chunk, 128] (64 KB f32, loaded once per block when
+// C == 128) and the squared inputs x2[chunk, 64] (32 KB) in dynamic
+// shared memory.  256 threads: 64 pixels (consecutive threads, so x loads
+// and out stores coalesce) x 4 groups of 32 output channels; a warp shares
+// its output channels, so gamma reads are shared-memory broadcasts and
+// each thread keeps 32 sums in registers.
+// ---------------------------------------------------------------------------
+constexpr int kGdnPix = 64;
+constexpr int kGdnOut = 128;
+constexpr int kGdnChunk = 128;
+constexpr int kGdnGroups = 4;   // output-channel groups of 32 per block
+constexpr int kGdnPerThread = kGdnOut / kGdnGroups;
+constexpr size_t kGdnSmem =
+    (size_t)(kGdnChunk * kGdnOut + kGdnChunk * kGdnPix) * sizeof(float);
+
+template <bool kBf16>
+__device__ __forceinline__ float gdn_load(const void* p, size_t i) {
+  if (kBf16) {
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+  }
+  return static_cast<const float*>(p)[i];
+}
+
+// Rounds v to the activation type and back (identity for f32).
+template <bool kBf16>
+__device__ __forceinline__ float gdn_round(float v) {
+  if (kBf16) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
+
+template <bool kBf16>
+__device__ __forceinline__ void gdn_store(void* p, size_t i, float v) {
+  if (kBf16) {
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+  } else {
+    static_cast<float*>(p)[i] = v;
+  }
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kGdnPix * kGdnGroups)
+    gdn_fused_kernel(const void* __restrict__ x,
+                     const float* __restrict__ gamma_t,
+                     const float* __restrict__ beta, int C, int HW,
+                     int inverse, void* __restrict__ out) {
+  extern __shared__ float gdn_smem[];
+  float* gs = gdn_smem;                        // [kGdnChunk][kGdnOut]
+  float* xs = gdn_smem + kGdnChunk * kGdnOut;  // [kGdnChunk][kGdnPix]
+  const int tx = threadIdx.x % kGdnPix;
+  const int ty = threadIdx.x / kGdnPix;
+  const int o0 = blockIdx.y * kGdnOut;
+  const size_t img = (size_t)blockIdx.z * C * HW;
+  const int n_tiles = (HW + kGdnPix - 1) / kGdnPix;
+  // With one chunk of input channels (C == 128) gammaT stays resident
+  // across the block's pixel tiles; otherwise each chunk is reloaded.
+  const bool resident = C == kGdnChunk;
+  const float4* grow = reinterpret_cast<const float4*>(gs) +
+                       ty * (kGdnPerThread / 4);
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int p0 = tile * kGdnPix;
+    const int p = p0 + tx;
+    float acc[kGdnPerThread];
+#pragma unroll
+    for (int k = 0; k < kGdnPerThread; ++k) acc[k] = 0.0f;
+
+    for (int j0 = 0; j0 < C; j0 += kGdnChunk) {
+      if (!resident || tile == (int)blockIdx.x) {
+        for (int i = threadIdx.x; i < kGdnChunk * kGdnOut; i += blockDim.x) {
+          const int jj = i / kGdnOut;
+          const int oo = i - jj * kGdnOut;
+          gs[i] = gamma_t[(size_t)(j0 + jj) * C + o0 + oo];
+        }
+      }
+      for (int i = threadIdx.x; i < kGdnChunk * kGdnPix; i += blockDim.x) {
+        const int jj = i / kGdnPix;
+        const int pp = i - jj * kGdnPix;
+        float v = 0.0f;
+        if (p0 + pp < HW) {
+          const float xv = gdn_load<kBf16>(
+              x, img + (size_t)(j0 + jj) * HW + p0 + pp);
+          v = gdn_round<kBf16>(__fmul_rn(xv, xv));
+        }
+        xs[i] = v;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int jj = 0; jj < kGdnChunk; ++jj) {
+        const float xv = xs[jj * kGdnPix + tx];
+#pragma unroll
+        for (int k4 = 0; k4 < kGdnPerThread / 4; ++k4) {
+          const float4 g = grow[jj * (kGdnOut / 4) + k4];
+          acc[4 * k4 + 0] = __fadd_rn(acc[4 * k4 + 0], __fmul_rn(xv, g.x));
+          acc[4 * k4 + 1] = __fadd_rn(acc[4 * k4 + 1], __fmul_rn(xv, g.y));
+          acc[4 * k4 + 2] = __fadd_rn(acc[4 * k4 + 2], __fmul_rn(xv, g.z));
+          acc[4 * k4 + 3] = __fadd_rn(acc[4 * k4 + 3], __fmul_rn(xv, g.w));
+        }
+      }
+      __syncthreads();
+    }
+
+    if (p < HW) {
+#pragma unroll
+      for (int k = 0; k < kGdnPerThread; ++k) {
+        const int o = o0 + ty * kGdnPerThread + k;
+        const float n =
+            gdn_round<kBf16>(__fsqrt_rn(__fadd_rn(acc[k], beta[o])));
+        const size_t i = img + (size_t)o * HW + p;
+        const float xv = gdn_load<kBf16>(x, i);
+        gdn_store<kBf16>(out, i,
+                         inverse ? __fmul_rn(xv, n) : __fdiv_rn(xv, n));
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5: bilinear warp of float planes with the vertical flow clamped.
+//
+// out[b, c, y, x] = (1 - wy) * top + wy * bot, top / bot = h0 + (h1 - h0)
+// * wx on rows y0 and min(y0 + 1, H - 1), where sx = clip(x + u, 0, W - 1)
+// and sy = clip(y + clip(v, -vmax, vmax), 0, H - 1): the value that
+// warp_pallas's select-accumulate over row offsets leaves, since it adds
+// only exact zeros besides these two terms.  Explicit round-to-nearest
+// intrinsics keep the plain version's operation order (no FMA), so it is
+// bit-identical to ops/warp.py:warp_vclamped run op by op.
+//
+// What bounds it on the H100: bytes.  Per pixel it reads 8 B of flow and
+// C x 4 corner samples, writes C x 4 B, and does ~10 float ops per
+// channel.  Design: one thread per output pixel that loops over the
+// channels; the flow and coordinate math is done once per pixel, and
+// neighbouring threads read neighbouring flow values and (for small
+// flows) neighbouring source pixels, so loads coalesce.  The TPU kernel's
+// vertical window and lane-tile gathers were workarounds for Mosaic's
+// gather and have no counterpart here: a gather is one load.
+// ---------------------------------------------------------------------------
+__global__ void warp_vclamped_kernel(const float* __restrict__ x,
+                                     const float* __restrict__ flow, int B,
+                                     int C, int H, int W, float vmax,
+                                     float* __restrict__ out) {
+  const size_t hw = (size_t)H * W;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)B * hw) return;
+  const size_t b = i / hw;
+  const int p = (int)(i - b * hw);
+  const int y = p / W;
+  const int xq = p - y * W;
+  const float u = flow[(b * 2) * hw + p];
+  const float v = fminf(fmaxf(flow[(b * 2 + 1) * hw + p], -vmax), vmax);
+  const float sx = fminf(fmaxf(__fadd_rn((float)xq, u), 0.0f),
+                         (float)(W - 1));
+  const float sy = fminf(fmaxf(__fadd_rn((float)y, v), 0.0f),
+                         (float)(H - 1));
+  const float x0f = floorf(sx);
+  const float y0f = floorf(sy);
+  const float wx = __fsub_rn(sx, x0f);
+  const float wy = __fsub_rn(sy, y0f);
+  const float omwy = __fsub_rn(1.0f, wy);
+  const int x0 = (int)x0f;
+  const int y0 = (int)y0f;
+  const int x1 = min(x0 + 1, W - 1);
+  const int y1 = min(y0 + 1, H - 1);
+  for (int c = 0; c < C; ++c) {
+    const float* src = x + (b * C + c) * hw;
+    const float t0 = src[(size_t)y0 * W + x0];
+    const float t1 = src[(size_t)y0 * W + x1];
+    const float b0 = src[(size_t)y1 * W + x0];
+    const float b1 = src[(size_t)y1 * W + x1];
+    const float top = __fadd_rn(t0, __fmul_rn(__fsub_rn(t1, t0), wx));
+    const float bot = __fadd_rn(b0, __fmul_rn(__fsub_rn(b1, b0), wx));
+    out[(b * C + c) * hw + p] =
+        __fadd_rn(__fmul_rn(omwy, top), __fmul_rn(wy, bot));
+  }
+}
+
 int rans_threads(int K) {
   int t = K < 1024 ? K : 1024;
   return t < 32 ? 32 : t;
@@ -402,6 +596,68 @@ int aivc_warp_packed(const int* packed, const float* u, const float* v,
   if (blocks > 0) {
     warp_packed_kernel<<<blocks, threads, 0, stream>>>(packed, u, v, B, H,
                                                        W, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K4.  x [B, C, HW] f32 (bf16 = 0) or bf16 (bf16 = 1); gamma_t f32 [C, C]
+// (gamma transposed: [j, o]); beta f32 [C]; C % 128 == 0.  Out like x.
+int aivc_gdn_fused(const void* x, int bf16, const float* gamma_t,
+                   const float* beta, int B, int C, int HW, int inverse,
+                   void* out, cudaStream_t stream) {
+  if (C % kGdnOut != 0 || C % kGdnChunk != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int n_tiles = (HW + kGdnPix - 1) / kGdnPix;
+  const int threads = kGdnPix * kGdnGroups;
+  if (n_tiles == 0 || B == 0) return (int)cudaGetLastError();
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return (int)err;
+  if (bf16) {
+    err = set_smem(gdn_fused_kernel<true>, kGdnSmem);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, gdn_fused_kernel<true>, threads, kGdnSmem);
+    }
+  } else {
+    err = set_smem(gdn_fused_kernel<false>, kGdnSmem);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, gdn_fused_kernel<false>, threads, kGdnSmem);
+    }
+  }
+  if (err != cudaSuccess) return (int)err;
+  // Enough blocks to fill every SM once over all images and channel tiles.
+  const long slots = (long)sms * (per_sm > 0 ? per_sm : 1);
+  const long per_image = (slots + (long)B * (C / kGdnOut) - 1) /
+                         ((long)B * (C / kGdnOut));
+  const dim3 grid((unsigned)(per_image < n_tiles ? per_image : n_tiles),
+                  (unsigned)(C / kGdnOut), (unsigned)B);
+  if (bf16) {
+    gdn_fused_kernel<true><<<grid, threads, kGdnSmem, stream>>>(
+        x, gamma_t, beta, C, HW, inverse, out);
+  } else {
+    gdn_fused_kernel<false><<<grid, threads, kGdnSmem, stream>>>(
+        x, gamma_t, beta, C, HW, inverse, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K5.  x f32 [B, C, H, W]; flow f32 [B, 2, H, W] (u, v planes); vmax the
+// vertical clamp in rows.  Out: f32 [B, C, H, W].
+int aivc_warp_vclamped(const float* x, const float* flow, int B, int C,
+                       int H, int W, int vmax, float* out,
+                       cudaStream_t stream) {
+  const size_t total = (size_t)B * H * W;
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  if (blocks > 0) {
+    warp_vclamped_kernel<<<blocks, threads, 0, stream>>>(
+        x, flow, B, C, H, W, (float)vmax, out);
   }
   return (int)cudaGetLastError();
 }

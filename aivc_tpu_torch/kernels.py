@@ -6,8 +6,9 @@ it.  The library is built at first use into ``aivc_tpu_torch/_build/``,
 keyed by a hash of the source and the flags, so a fresh checkout builds it
 itself.  Nothing here runs at import time.
 
-Each wrapper of a kernel (coding/vrans.py, ops/warp.py) adds one to its
-entry of ``LAUNCHES`` where it launches the kernel, and nowhere else.
+Each wrapper of a kernel (coding/vrans.py, ops/warp.py, ops/gdn.py) adds
+one to its entry of ``LAUNCHES`` where it launches the kernel, and nowhere
+else.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ NVCC_TIMEOUT_S = 600
 # Shared memory one block may use on the H100 (227 KB).
 MAX_SMEM = 232448
 
-LAUNCHES = {"rans_encode": 0, "rans_decode": 0, "warp_packed": 0}
+LAUNCHES = {"rans_encode": 0, "rans_decode": 0, "warp_packed": 0,
+            "gdn_fused": 0, "warp_vclamped": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: dict = {}
@@ -105,6 +107,12 @@ def lib() -> ctypes.CDLL:
         handle.aivc_rans_decode.restype = _I
         handle.aivc_warp_packed.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P]
         handle.aivc_warp_packed.restype = _I
+        handle.aivc_gdn_fused.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I,
+                                          _P, _P]
+        handle.aivc_gdn_fused.restype = _I
+        handle.aivc_warp_vclamped.argtypes = [_P, _P, _I, _I, _I, _I, _I,
+                                              _P, _P]
+        handle.aivc_warp_vclamped.restype = _I
         _lib = handle
     return _lib
 

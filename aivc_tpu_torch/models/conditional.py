@@ -1,9 +1,11 @@
 """ConditionalNet: one conditional autoencoder with hyperprior and gains,
 eval path, NCHW (counterpart of aivc_tpu/models/conditional.py:163-321).
 
-  analyze:      y = g_a(x) * gain_enc;  z_q = clip(round(h_a(y)))
-  hyper_decode: mu, sigma = pdf_param(h_s(z_q))
-  synthesize:   x_hat = g_s(cat((y_cq + mu) * gain_dec, g_a_ref(shortcut)))
+  analyze:         y = g_a(x) * gain_enc;  z_q = clip(round(h_a(y)))
+  hyper_decode:    mu, sigma = pdf_param(h_s(z_q))
+  synthesize:      x_hat = g_s(cat((y_cq + mu) * gain_dec, g_a_ref(shortcut)))
+  encode_latents:  analyze + hyper_decode + y_cq = clip(round(y - mu)) and
+                   the rates -log2 p of z_q and y_cq (the RD forward)
 """
 
 from __future__ import annotations
@@ -20,7 +22,12 @@ from aivc_tpu_torch.config import (
     FRAME_P,
     ConditionalNetConfig,
 )
-from aivc_tpu_torch.ops.entropy_models import FactorizedPrior, pdf_parameterize
+from aivc_tpu_torch.ops.entropy_models import (
+    FactorizedPrior,
+    bin_prob,
+    pdf_parameterize,
+    rate_bits,
+)
 from aivc_tpu_torch.ops.gain import GainMatrix
 from aivc_tpu_torch.ops.layers import (
     DTYPES,
@@ -123,7 +130,8 @@ class ConditionalNet(nn.Module):
         super().__init__()
         if c.mixture_k != 1:
             raise NotImplementedError(
-                "mixture entropy models wait for a later slice")
+                f"ec_mode {c.ec_mode!r} ({c.mixture_k} components): mixture "
+                "entropy models wait for a later slice (ROADMAP A.4)")
         self.cfg = c
         d, clamp, lowp = c.dtype, c.gdn_clamp, c.gdn_lowp
         self.g_a = AnalysisTransform(c.in_c, c.nb_ft, c.nb_ft_y, c.k_size,
@@ -158,12 +166,35 @@ class ConditionalNet(nn.Module):
         y = self._gain(self.g_a(x), idx_rate, "enc", frame_type)
         return y, quantize(self.h_a(y), AC_MAX_VAL)
 
+    def _pdf_components(self, z_q: torch.Tensor, hy: int, wy: int):
+        """Hyper-synthesis -> (mu, sigma) cropped to a y grid of hy x wy
+        (conditional.py:277-291; one component)."""
+        mu, sigma = pdf_parameterize(self.h_s(z_q), self.cfg.nb_ft_y)
+        return mu[:, :, :hy, :wy], sigma[:, :, :hy, :wy]
+
     def hyper_decode(self, z_q: torch.Tensor):
         """Decoded z -> (mu, sigma), cropped to the y grid."""
-        h = self.h_s(z_q)
-        mu, sigma = pdf_parameterize(h, self.cfg.nb_ft_y)
-        hy, wy = z_q.shape[2] * 4, z_q.shape[3] * 4
-        return mu[:, :, :hy, :wy], sigma[:, :, :hy, :wy]
+        return self._pdf_components(z_q, z_q.shape[2] * 4, z_q.shape[3] * 4)
+
+    def encode_latents(self, x: torch.Tensor, idx_rate: float,
+                       frame_type: int, training: bool = False):
+        """x [B, in_c, H, W] -> quantized latents, distribution parameters
+        and rate maps in bits (conditional.py:212-256, eval branch)."""
+        if training:
+            raise NotImplementedError(
+                "training quantization waits for the training slice "
+                "(ROADMAP A.7)")
+        y, z_q = self.analyze(x, idx_rate, frame_type)
+        mu, sigma = self._pdf_components(z_q, y.shape[2], y.shape[3])
+        y_cq = quantize(y - mu, AC_MAX_VAL)
+        return {
+            "y_cq": y_cq,
+            "z_q": z_q,
+            "mu": mu,
+            "sigma": sigma,
+            "rate_y": rate_bits(bin_prob(y_cq, sigma, self.cfg.pdf_family)),
+            "rate_z": rate_bits(self.pdf_z(z_q)),
+        }
 
     def synthesize(self, y_cq: torch.Tensor, mu: torch.Tensor,
                    shortcut_in: Optional[torch.Tensor], idx_rate: float,
@@ -176,3 +207,12 @@ class ConditionalNet(nn.Module):
             y_shortcut = torch.zeros((B, self.cfg.out_c_shortcut_y, H, W),
                                      dtype=y_hat.dtype, device=y_hat.device)
         return self.g_s(torch.cat([y_hat, y_shortcut], dim=1))
+
+    def forward(self, x: torch.Tensor, shortcut_in: Optional[torch.Tensor],
+                idx_rate: float, frame_type: int, training: bool = False):
+        """Coding round trip -> (synthesis output, latents)
+        (conditional.py:315-321)."""
+        lat = self.encode_latents(x, idx_rate, frame_type, training)
+        out = self.synthesize(lat["y_cq"], lat["mu"], shortcut_in, idx_rate,
+                              frame_type)
+        return out, lat

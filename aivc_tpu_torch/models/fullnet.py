@@ -1,6 +1,7 @@
-"""FullNet: MOFNet + motion compensation + CodecNet, the eval stage
-methods of aivc_tpu/models/fullnet.py (fullnet.py:55-126 and the stage
-methods), NCHW.
+"""FullNet: MOFNet + motion compensation + CodecNet, NCHW: the RD
+forward ``forward_frame`` (eval) and the stage methods of the coding
+pipeline (aivc_tpu/models/fullnet.py:45-91,139-199 and the stage
+methods).
 
 Maps are channel-major [B, 6, H, W] planes (alpha, beta, u_prev, v_prev,
 u_next, v_next), which is what the JAX package's ``maps_cm`` schedule
@@ -19,7 +20,20 @@ from torch import nn
 
 from aivc_tpu_torch.config import FRAME_B, FRAME_I, FRAME_P, ModelConfig
 from aivc_tpu_torch.models.conditional import ConditionalNet
-from aivc_tpu_torch.ops.warp import mc_warp, pack_yuv_u32
+from aivc_tpu_torch.ops.warp import (
+    mc_warp,
+    motion_compensation,
+    pack_yuv_u32,
+    warp,
+)
+
+
+def _motion_comp(prev, nxt, v_prev, v_next, beta, frame_type: int):
+    """P-frames warp only the previous reference (beta = 1, v_next = 0);
+    B-frames blend both (fullnet.py:45-52)."""
+    if frame_type == FRAME_P:
+        return warp(prev, v_prev)
+    return motion_compensation(prev, nxt, v_prev, v_next, beta)
 
 
 def mofnet_maps(m: torch.Tensor, frame_type: int,
@@ -55,6 +69,49 @@ class FullNet(nn.Module):
         self.cfg = cfg
         self.mofnet = ConditionalNet(cfg.mofnet, gain_i=False)
         self.codecnet = ConditionalNet(cfg.codecnet)
+
+    def forward_frame(self, frame, prev, nxt, idx_rate: float,
+                      frame_type: int, training: bool = False):
+        """Code one padded 4:4:4 frame [B, 3, H, W] given (possibly zero)
+        references, float warp included (fullnet.py:139-199).
+
+        Returns (x_hat, aux) with JAX's aux keys: ``mof`` and ``cod`` (the
+        latents of ConditionalNet.encode_latents; ``mof`` is None for an
+        I-frame), ``alpha``, ``beta``, ``x_warp`` and, for P/B frames,
+        ``v_prev``, ``v_next`` and ``flow_raw`` (the MOFNet output before
+        the maps)."""
+        B, _, H, W = frame.shape
+        aux = {}
+        if frame_type == FRAME_I:
+            alpha = torch.ones((B, 1, H, W), dtype=frame.dtype,
+                               device=frame.device)
+            x_warp = torch.zeros_like(frame)
+            skip = torch.zeros_like(frame)
+            pred = torch.zeros_like(frame)
+            aux["mof"] = None
+        else:
+            shortcut = (torch.cat([prev, nxt], dim=1)
+                        if frame_type == FRAME_B else None)
+            out6, mof_lat = self.mofnet(torch.cat([frame, prev, nxt], dim=1),
+                                        shortcut, idx_rate, frame_type,
+                                        training)
+            maps = mofnet_maps(out6, frame_type, self.cfg.flow_bound)
+            alpha, beta = maps[:, 0:1], maps[:, 1:2]
+            v_prev, v_next = maps[:, 2:4], maps[:, 4:6]
+            x_warp = _motion_comp(prev, nxt, v_prev, v_next, beta,
+                                  frame_type)
+            skip = (1.0 - alpha) * x_warp
+            pred = alpha * x_warp
+            aux.update(mof=mof_lat, beta=beta, v_prev=v_prev, v_next=v_next,
+                       flow_raw=out6)
+        cod_out, cod_lat = self.codecnet(
+            torch.cat([frame, pred], dim=1),
+            pred if frame_type != FRAME_I else None, idx_rate, frame_type,
+            training)
+        aux.update(cod=cod_lat, alpha=alpha, x_warp=x_warp)
+        if frame_type == FRAME_I:
+            aux["beta"] = torch.ones_like(alpha)
+        return cod_out + skip, aux
 
     def mof_analyze(self, frame, prev, nxt, idx_rate: float,
                     frame_type: int):

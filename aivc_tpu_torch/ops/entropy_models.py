@@ -1,6 +1,7 @@
 """Learned entropy models, eval path (counterpart of
-aivc_tpu/ops/entropy_models.py): the factorized prior's CDF for z and the
-Laplace parameterisation of y."""
+aivc_tpu/ops/entropy_models.py:29-147): the factorized prior of z, the
+Laplace / normal bin probabilities of y and the rate proxy.  Layout NCHW;
+the mixture parameterisation waits for a later slice."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from aivc_tpu_torch.config import LOG_VAR_MAX, LOG_VAR_MIN
+from aivc_tpu_torch.config import LOG_VAR_MAX, LOG_VAR_MIN, PROBA_MIN
 
 SQRT2 = 1.4142135623730951
 
@@ -41,6 +42,14 @@ class FactorizedPrior(nn.Module):
                          * torch.tanh(t))
         return torch.sigmoid(t[..., 0])
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Bin probability cdf(x + .5) - cdf(x - .5) of the quantized
+        hyper-latent x [B, C, H, W] (entropy_models.py:107-118)."""
+        B, C, H, W = x.shape
+        flat = x.transpose(0, 1).reshape(C, B * H * W)
+        p = self.cdf(flat + 0.5) - self.cdf(flat - 0.5)
+        return p.reshape(C, B, H, W).transpose(0, 1)
+
 
 def laplace_cdf(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return 0.5 + 0.5 * torch.sign(x) * (1.0 - torch.exp(-torch.abs(x) / scale))
@@ -50,6 +59,25 @@ def laplace_bin_prob(y: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
     """P(Y = y) for integer y under a Laplace of std sigma."""
     b = sigma / SQRT2
     return laplace_cdf(y + 0.5, b) - laplace_cdf(y - 0.5, b)
+
+
+def normal_bin_prob(y: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    ndtr = torch.special.ndtr
+    return ndtr((y + 0.5) / sigma) - ndtr((y - 0.5) / sigma)
+
+
+def bin_prob(y: torch.Tensor, sigma: torch.Tensor,
+             pdf_family: str) -> torch.Tensor:
+    if "laplace" in pdf_family.split("_"):
+        return laplace_bin_prob(y, sigma)
+    if "normal" in pdf_family.split("_"):
+        return normal_bin_prob(y, sigma)
+    raise ValueError(f"unknown pdf family {pdf_family!r}")
+
+
+def rate_bits(p: torch.Tensor) -> torch.Tensor:
+    """Rate proxy in bits: -log2 of the probability clamped at 2^-16."""
+    return -torch.log2(torch.clamp(p, PROBA_MIN, 1.0))
 
 
 def pdf_parameterize(x: torch.Tensor, nb_ft: int):

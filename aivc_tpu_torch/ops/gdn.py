@@ -2,11 +2,17 @@
 
 y[i] = x[i] / sqrt(beta[i] + sum_j gamma[i, j] * x[j]^2)   (inverse: multiply)
 
-The counterpart of aivc_tpu/ops/gdn.py:gdn_apply (gdn.py:57-97), with its
-``clamp`` and its low-precision rule.  The channel mixing is a 1x1
-convolution (cuDNN), accumulated in float32 whatever the activation type.
-The JAX package's fused Pallas GDN (gdn.py:gdn_pallas) is not called by
-its models and has no counterpart here yet.
+``gdn_apply`` is the counterpart of aivc_tpu/ops/gdn.py:gdn_apply
+(gdn.py:57-97), with its ``clamp`` and its low-precision rule; the channel
+mixing is a 1x1 convolution (cuDNN), accumulated in float32 whatever the
+activation type.
+
+``gdn_fused`` is the counterpart of the fused Pallas GDN,
+aivc_tpu/ops/gdn.py:gdn_pallas (body _gdn_kernel, gdn.py:121-165):
+kernel K4 (csrc/kernels.cu:gdn_fused_kernel) on the card,
+``gdn_fused_plain`` on the host, under JAX's shape rule.  Like
+gdn_pallas it is an exported function with no caller in the models: the
+GDN layers use ``gdn_apply``, as the JAX models do.
 """
 
 from __future__ import annotations
@@ -15,9 +21,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from aivc_tpu_torch import kernels
+
 REPARAM_OFFSET = 2.0 ** -18
 PEDESTAL = REPARAM_OFFSET ** 2
 BETA_MIN = 1e-6
+# gdn_pallas's shape rule: rows in tiles of 512, channels a multiple of 128.
+FUSED_ROWS = 512
+FUSED_CHANNELS = 128
+
+
+def reparam(beta_r: torch.Tensor, gamma_r: torch.Tensor):
+    """LowerBound reparameterisation -> (beta [C], gamma [C, C])."""
+    beta_bound = (BETA_MIN + PEDESTAL) ** 0.5
+    beta = torch.clamp_min(beta_r, beta_bound) ** 2 - PEDESTAL
+    gamma = torch.clamp_min(gamma_r, REPARAM_OFFSET) ** 2 - PEDESTAL
+    return beta, gamma
 
 
 def gdn_apply(x: torch.Tensor, beta_r: torch.Tensor, gamma_r: torch.Tensor,
@@ -29,9 +48,7 @@ def gdn_apply(x: torch.Tensor, beta_r: torch.Tensor, gamma_r: torch.Tensor,
     unless ``lowp`` and ``x`` is not float32, in which case they are cast
     to ``x``'s type; the normaliser is accumulated in float32, cast to
     ``x``'s type, and the sum with beta promotes as JAX does."""
-    beta_bound = (BETA_MIN + PEDESTAL) ** 0.5
-    beta = torch.clamp_min(beta_r, beta_bound) ** 2 - PEDESTAL
-    gamma = torch.clamp_min(gamma_r, REPARAM_OFFSET) ** 2 - PEDESTAL
+    beta, gamma = reparam(beta_r, gamma_r)
     x2 = torch.square(x)
     if lowp and x.dtype != torch.float32:
         gamma = gamma.to(x.dtype)
@@ -46,6 +63,76 @@ def gdn_apply(x: torch.Tensor, beta_r: torch.Tensor, gamma_r: torch.Tensor,
     if clamp > 0.0:
         norm = torch.clamp(norm, 1.0 / clamp, clamp)
     return x * norm if inverse else x / norm
+
+
+def gdn_fused_plain(x: torch.Tensor, beta: torch.Tensor, gamma: torch.Tensor,
+                    inverse: bool) -> torch.Tensor:
+    """Plain version of kernel K4 on x [B, C, H, W] (f32 or bf16) and the
+    reparameterised beta [C], gamma [C, C] (f32).
+
+    The body of gdn_pallas: x2 = x * x in x's type; norm[o] =
+    sqrt(sum_j x2[j] * gamma[o, j] + beta[o]) in f32, summed over j in
+    order (each product and each sum rounded, no FMA, as the kernel
+    does; elementwise ops only, so no TF32 matmul or convolution), cast
+    to x's type; then x / norm (x * norm for the inverse)."""
+    x2 = torch.square(x).float()
+    g = gamma.float()
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for j in range(x.shape[1]):
+        acc = acc + x2[:, j:j + 1] * g[:, j].view(1, -1, 1, 1)
+    norm = torch.sqrt(acc + beta.float().view(1, -1, 1, 1)).to(x.dtype)
+    return x * norm if inverse else x / norm
+
+
+def gdn_fused_cuda(x: torch.Tensor, beta: torch.Tensor, gamma: torch.Tensor,
+                   inverse: bool) -> torch.Tensor:
+    """Kernel K4 on the card: same contract as ``gdn_fused_plain`` for a
+    contiguous f32 or bf16 x with C % 128 == 0.  Forward only (it has no
+    backward yet), so an input that requires grad is refused."""
+    B, C, H, W = x.shape
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.requires_grad or beta.requires_grad or gamma.requires_grad:
+        raise ValueError("gdn_fused_cuda is forward-only; its inputs must "
+                         "not require grad")
+    kernels.require(x, "x", x.dtype, (B, C, H, W))
+    if C % FUSED_CHANNELS:
+        raise ValueError(f"C={C} must be a multiple of {FUSED_CHANNELS}")
+    gamma_t = gamma.float().t().contiguous()      # [j, o]
+    beta = beta.float().contiguous()
+    kernels.require(gamma_t, "gamma", torch.float32, (C, C))
+    kernels.require(beta, "beta", torch.float32, (C,))
+    out = torch.empty_like(x)
+    rc = kernels.lib().aivc_gdn_fused(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), gamma_t.data_ptr(),
+        beta.data_ptr(), B, C, H * W, int(inverse), out.data_ptr(),
+        kernels.stream_ptr())
+    kernels.check("gdn_fused", rc)
+    kernels.LAUNCHES["gdn_fused"] += 1
+    return out
+
+
+def fused_shape(x: torch.Tensor) -> bool:
+    """gdn_pallas's shape rule on NCHW x: B*H*W rows a multiple of 512
+    and C of 128."""
+    B, C, H, W = x.shape
+    return (B * H * W) % FUSED_ROWS == 0 and C % FUSED_CHANNELS == 0
+
+
+def gdn_fused(x: torch.Tensor, beta_r: torch.Tensor, gamma_r: torch.Tensor,
+              inverse: bool = False) -> torch.Tensor:
+    """Fused (I)GDN of NCHW x, the counterpart of
+    aivc_tpu/ops/gdn.py:gdn_pallas.  Rows are the B*H*W pixels; when
+    their count is not a multiple of 512 or C not of 128 this is
+    ``gdn_apply(x, beta_r, gamma_r, inverse)``, as in JAX (gdn.py:143).
+    Otherwise kernel K4 for a tensor on the card, its plain version on
+    the host."""
+    if not fused_shape(x):
+        return gdn_apply(x, beta_r, gamma_r, inverse)
+    beta, gamma = reparam(beta_r, gamma_r)
+    if x.device.type == "cuda":
+        return gdn_fused_cuda(x.contiguous(), beta, gamma, inverse)
+    return gdn_fused_plain(x, beta, gamma, inverse)
 
 
 class GDN(nn.Module):

@@ -1,20 +1,36 @@
-"""Bilinear motion-compensation warp of byte-packed frames (NCHW output).
+"""Bilinear motion-compensation warps, NCHW.
 
-Counterpart of aivc_tpu/ops/warp.py:pack_yuv_u32 and warp_packed
-(warp.py:96-169) and of the bounded-flow kernel that flow-bounded models
-take on the TPU (ops/warp_pallas.py:warp_bounded_pallas).
+The coding path (counterpart of aivc_tpu/ops/warp.py:pack_yuv_u32 and
+warp_packed, warp.py:96-169, and of the bounded-flow kernel that
+flow-bounded models take on the TPU, ops/warp_pallas.py:
+warp_bounded_pallas): ``warp_packed`` is the plain PyTorch version;
+``warp_packed_cuda`` wraps kernel K3 (csrc/kernels.cu:warp_packed_kernel),
+which is bit-identical to it on the card.  ``mc_warp`` takes the plain
+version for a tensor on the host and the kernel for a tensor on the card.
 
-``warp_packed`` is the plain PyTorch version; ``warp_packed_cuda`` wraps
-kernel K3 (csrc/kernels.cu:warp_packed_kernel), which is bit-identical to
-it on the card.  ``mc_warp`` takes the plain version for a tensor on the
-host and the kernel for a tensor on the card.
+The RD forward path (counterpart of warp.py:32-94,221-234): the float
+``warp`` and ``motion_compensation``.  With ``AIVC_WARP=pallas`` in the
+environment at import, ``warp`` takes the vertically clamped warp of
+ops/warp_pallas.py:warp_pallas where JAX's shape rule allows it
+(W % 128 == 0 and H % min(H, 256) == 0, warp.py:51):
+``warp_vclamped`` on the host, kernel K5
+(csrc/kernels.cu:warp_vclamped_kernel, bit-identical) on the card.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from aivc_tpu_torch import kernels
+
+# AIVC_WARP=pallas routes the float warp through the vertically clamped
+# warp (K5 on the card) where shapes allow, as aivc_tpu/ops/warp.py:29.
+_USE_PALLAS = os.environ.get("AIVC_WARP", "") == "pallas"
+# ops/warp_pallas.py: vertical reach of the clamped warp and lane width.
+V_RADIUS = 16
+LANE = 128
 
 # Largest flow bound the bounded-warp engine serves
 # (aivc_tpu/ops/warp_pallas.py:FB_MAX).
@@ -106,3 +122,139 @@ def mc_warp(packed: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
         return warp_packed_cuda(packed.contiguous(), u.contiguous(),
                                 v.contiguous())
     return warp_packed(packed, u, v)
+
+
+# ---------------------------------------------------------------------------
+# Float warp of the RD forward path
+# ---------------------------------------------------------------------------
+
+def _sample_grid(flow: torch.Tensor, vclamp: bool):
+    """Sample coordinates of a backward warp by flow [B, 2, H, W] (plane 0
+    horizontal, 1 vertical), border-clamped; with ``vclamp`` the vertical
+    flow is first clamped to +-(V_RADIUS - 1) rows."""
+    _, _, H, W = flow.shape
+    dev = flow.device
+    f32 = torch.float32
+    xx = torch.arange(W, dtype=f32, device=dev).view(1, 1, W)
+    yy = torch.arange(H, dtype=f32, device=dev).view(1, H, 1)
+    fy = flow[:, 1].to(f32)
+    if vclamp:
+        fy = torch.clamp(fy, -V_RADIUS + 1, V_RADIUS - 1)
+    sx = torch.clamp(xx + flow[:, 0].to(f32), 0.0, float(W - 1))
+    sy = torch.clamp(yy + fy, 0.0, float(H - 1))
+    x0 = torch.floor(sx)
+    y0 = torch.floor(sy)
+    x0i = x0.to(torch.int64)
+    y0i = y0.to(torch.int64)
+    return (sx - x0, sy - y0, x0i, torch.clamp_max(x0i + 1, W - 1), y0i,
+            torch.clamp_max(y0i + 1, H - 1))
+
+
+def _corners(x: torch.Tensor, yi, x0i, x1i):
+    """x [B, C, H, W] at rows yi and columns x0i / x1i ([B, H, W])."""
+    B, C, H, W = x.shape
+    flat = x.reshape(B, C, H * W)
+
+    def at(xi):
+        idx = (yi * W + xi).reshape(B, 1, H * W).expand(B, C, H * W)
+        return torch.gather(flat, 2, idx).reshape(B, C, H, W)
+
+    return at(x0i), at(x1i)
+
+
+def warp_plain(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """The XLA warp of aivc_tpu/ops/warp.py:53-94 on x [B, C, H, W]:
+    border-clamped bilinear, ``top + (bot - top) * wy``."""
+    wx, wy, x0i, x1i, y0i, y1i = _sample_grid(flow, vclamp=False)
+    wx = wx.to(x.dtype).unsqueeze(1)
+    wy = wy.to(x.dtype).unsqueeze(1)
+    v00, v01 = _corners(x, y0i, x0i, x1i)
+    v10, v11 = _corners(x, y1i, x0i, x1i)
+    top = v00 + (v01 - v00) * wx
+    bot = v10 + (v11 - v10) * wx
+    return top + (bot - top) * wy
+
+
+def _pick_row_block(h: int):
+    """Largest divisor of h in [8, 256] (warp_pallas.py:_pick_row_block)."""
+    for hb in range(min(h, 256), 7, -1):
+        if h % hb == 0:
+            return hb
+    return None
+
+
+def _check_vclamped(x: torch.Tensor, flow: torch.Tensor) -> None:
+    B, C, H, W = x.shape
+    if tuple(flow.shape) != (B, 2, H, W):
+        raise ValueError(f"flow must have shape {(B, 2, H, W)}, got "
+                         f"{tuple(flow.shape)}")
+    if W % LANE != 0:
+        raise ValueError(f"W={W} must be a multiple of {LANE}")
+    if _pick_row_block(H) is None:
+        raise ValueError(f"H={H} has no row-block divisor in [8, 256]")
+
+
+def warp_vclamped(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel K5 (ops/warp_pallas.py:warp_pallas and its
+    body _warp_plane_kernel :70-109) on x [B, C, H, W], flow [B, 2, H, W].
+
+    Horizontal displacement unrestricted and border-clamped; vertical flow
+    clamped to +-(V_RADIUS - 1) rows, then to the frame; edge rows stand
+    in for rows outside it.  The Pallas kernel's select-accumulate over
+    row offsets adds only exact zeros besides its two row terms, so it
+    computes (1 - wy) * top + wy * bot, top and bot being
+    ``h0 + (h1 - h0) * wx`` on the two rows; every float op here is a
+    separate eager op, so nothing is contracted into an FMA."""
+    _check_vclamped(x, flow)
+    wx, wy, x0i, x1i, y0i, y1i = _sample_grid(flow, vclamp=True)
+    wx = wx.unsqueeze(1)
+    wy = wy.unsqueeze(1)
+    h0, h1 = _corners(x, y0i, x0i, x1i)
+    top = h0 + (h1 - h0) * wx
+    h0, h1 = _corners(x, y1i, x0i, x1i)
+    bot = h0 + (h1 - h0) * wx
+    return (1.0 - wy) * top + wy * bot
+
+
+def warp_vclamped_cuda(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Kernel K5 on the card: same contract as ``warp_vclamped`` for f32
+    x and flow.  Forward only: JAX cannot differentiate warp_pallas
+    either, so an input that requires grad is refused."""
+    _check_vclamped(x, flow)
+    B, C, H, W = x.shape
+    kernels.require(x, "x", torch.float32, (B, C, H, W))
+    kernels.require(flow, "flow", torch.float32, (B, 2, H, W))
+    if x.requires_grad or flow.requires_grad:
+        raise ValueError("warp_vclamped_cuda is forward-only; its inputs "
+                         "must not require grad")
+    out = torch.empty_like(x)
+    rc = kernels.lib().aivc_warp_vclamped(
+        x.data_ptr(), flow.data_ptr(), B, C, H, W, V_RADIUS - 1,
+        out.data_ptr(), kernels.stream_ptr())
+    kernels.check("warp_vclamped", rc)
+    kernels.LAUNCHES["warp_vclamped"] += 1
+    return out
+
+
+def warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Backward-warp x [B, C, H, W] by flow [B, 2, H, W]:
+    out(y, x) = x(y + v, x + u) (aivc_tpu/ops/warp.py:32-94).
+
+    Under ``AIVC_WARP=pallas`` and JAX's shape rule (W % 128 == 0 and
+    H % min(H, 256) == 0) the vertically clamped warp: kernel K5 for a
+    tensor on the card, its plain version on the host.  Other shapes, or
+    no switch, take the plain border-clamped warp, as in JAX."""
+    H, W = x.shape[2], x.shape[3]
+    if _USE_PALLAS and W % LANE == 0 and H % min(H, 256) == 0:
+        if x.device.type == "cuda":
+            return warp_vclamped_cuda(x.contiguous(), flow.contiguous())
+        return warp_vclamped(x, flow)
+    return warp_plain(x, flow)
+
+
+def motion_compensation(prev: torch.Tensor, nxt: torch.Tensor,
+                        v_prev: torch.Tensor, v_next: torch.Tensor,
+                        beta: torch.Tensor) -> torch.Tensor:
+    """beta * warp(prev, v_prev) + (1 - beta) * warp(next, v_next)
+    (warp.py:221-234)."""
+    return beta * warp(prev, v_prev) + (1.0 - beta) * warp(nxt, v_next)

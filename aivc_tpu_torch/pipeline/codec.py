@@ -85,6 +85,16 @@ def _pad_edge(x: torch.Tensor, mult: int) -> torch.Tensor:
     return x
 
 
+def planes_to_444(y: torch.Tensor, u: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    """uint8 true-size planes [B, H, W] -> edge-padded float 444 [B, 3, Hp,
+    Wp]; shared by encoder, decoder and the RD forward."""
+    y = _pad_edge(y[:, None].float() / 255.0, PAD_MULTIPLE)
+    u = _pad_edge(u[:, None].float() / 255.0, PAD_MULTIPLE // 2)
+    v = _pad_edge(v[:, None].float() / 255.0, PAD_MULTIPLE // 2)
+    return yuv420_to_444(y, u, v).contiguous()
+
+
 class _BatchPlanes:
     """uint8 planes of one coded wave on the device, pulled to the host
     once, on first access."""
@@ -219,14 +229,6 @@ class FrameCodec:
     # ------------------------------------------------------------------
     # Planes, references, cast and DC correction (codec.py:451-541)
     # ------------------------------------------------------------------
-    def _planes_to_ref(self, y, u, v) -> torch.Tensor:
-        """uint8 true-size planes [B, H, W] -> padded float 444 [B, 3, Hp,
-        Wp]; shared by encoder and decoder."""
-        y = _pad_edge(y[:, None].float() / 255.0, PAD_MULTIPLE)
-        u = _pad_edge(u[:, None].float() / 255.0, PAD_MULTIPLE // 2)
-        v = _pad_edge(v[:, None].float() / 255.0, PAD_MULTIPLE // 2)
-        return yuv420_to_444(y, u, v).contiguous()
-
     def _to_device_planes(self, frames_u8):
         return [torch.from_numpy(np.stack([np.asarray(f[c]) for f in
                                            frames_u8])).to(self.device)
@@ -234,7 +236,7 @@ class FrameCodec:
 
     def ref_to_444(self, frame_u8) -> torch.Tensor:
         """uint8 YUV420 planes (true size) -> padded float 444 on device."""
-        return self._planes_to_ref(*self._to_device_planes([frame_u8]))
+        return planes_to_444(*self._to_device_planes([frame_u8]))
 
     def _zero_ref(self) -> torch.Tensor:
         return torch.zeros((1, 3, self.hp, self.wp), dtype=torch.float32,
@@ -370,7 +372,7 @@ class FrameCodec:
         acv = self.ac_max
         orig_dev = self._to_device_planes(frames_u8)
         orig = dict(zip(("y", "u", "v"), orig_dev))
-        frame = self._planes_to_ref(*orig_dev)
+        frame = planes_to_444(*orig_dev)
         prev = self._stack_refs(prev_refs)
         nxt = self._stack_refs(next_refs)
 
@@ -395,7 +397,7 @@ class FrameCodec:
         q_c = canonical(self._quantize_y(y_c, mu_c))
         x_hat = m.codecnet_synth(q_c, mu_c, pred, skip, idx_rate, frame_type)
         out, dc = self._dc_correct_enc(self._cast_planes(x_hat), orig)
-        ref444 = self._planes_to_ref(out["y"], out["u"], out["v"])
+        ref444 = planes_to_444(out["y"], out["u"], out["v"])
         decoded = self._split_decoded(out, ref444, k)
 
         # v2 fused entropy coding: channel masks to the host, wave-shared
@@ -586,7 +588,7 @@ class FrameCodec:
             dcs.append(c["__dc__"])
         dc = torch.tensor(dcs, dtype=torch.int32, device=self.device)
         out = self._apply_dc(self._cast_planes(x_hat), dc)
-        ref444 = self._planes_to_ref(out["y"], out["u"], out["v"])
+        ref444 = planes_to_444(out["y"], out["u"], out["v"])
         return self._split_decoded(out, ref444, k)
 
     # ------------------------------------------------------------------

@@ -11,11 +11,18 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from aivc_tpu_torch.coding import bitstream as bs
 from aivc_tpu_torch.config import CodingConfig
+from aivc_tpu_torch.device import resolve_device
 from aivc_tpu_torch.gop import GopStruct, generate_gop_struct
-from aivc_tpu_torch.pipeline.codec import DecodedFrame, FrameCodec
+from aivc_tpu_torch.ops.metrics import msssim
+from aivc_tpu_torch.pipeline.codec import (
+    DecodedFrame,
+    FrameCodec,
+    planes_to_444,
+)
 
 
 @dataclass
@@ -164,19 +171,45 @@ def decode_video(codec: FrameCodec, data: bytes) -> Dict[int, DecodedFrame]:
 
 
 def evaluate_frames(orig: Sequence[Dict[str, np.ndarray]],
-                    decoded: Dict[int, DecodedFrame]) -> Dict[str, float]:
-    """PSNR between original and decoded uint8 YUV420 frames, pixel-count
-    weighted over the planes."""
+                    decoded: Dict[int, DecodedFrame],
+                    device=None) -> Dict[str, float]:
+    """PSNR / MS-SSIM between original and decoded uint8 YUV420 frames,
+    pixel-count weighted over the planes (aivc_tpu/pipeline/video.py:
+    401-448).  MS-SSIM is taken per frame and per plane, averaged over the
+    frames, then weighted by the plane's pixel count; it runs in float32
+    on the card unless ``device`` names another."""
+    dev = resolve_device(device)
     tot_se = 0.0
     tot_n = 0
+    ms_num = 0.0
+    ms_den = 0
     for k in ("y", "u", "v"):
         a = np.stack([f[k] for f in orig]).astype(np.float64) / 255.0
         b = np.stack([decoded[i][k] for i in range(len(orig))]
                      ).astype(np.float64) / 255.0
         tot_se += ((a - b) ** 2).sum()
         tot_n += a.size
+        ta = torch.from_numpy(a.astype(np.float32)).to(dev)
+        tb = torch.from_numpy(b.astype(np.float32)).to(dev)
+        ms_k = [float(msssim(ta[i][None, None], tb[i][None, None]))
+                for i in range(len(orig))]
+        ms_num += float(np.mean(ms_k)) * a[0].size
+        ms_den += a[0].size
     mse = tot_se / tot_n
-    return {"psnr": 10.0 * np.log10(1.0 / max(mse, 1e-12))}
+    ms_mean = ms_num / ms_den
+    return {
+        "psnr": 10.0 * np.log10(1.0 / max(mse, 1e-12)),
+        "ms_ssim": ms_mean,
+        "ms_ssim_db": -10.0 * np.log10(max(1.0 - ms_mean, 1e-12)),
+    }
+
+
+def frames_444(frames: Sequence[Dict[str, np.ndarray]],
+                device) -> List[torch.Tensor]:
+    """uint8 YUV420 frames -> edge-padded float 444 [1, 3, Hp, Wp] each
+    on ``device``: the input of FullNet.forward_frame and gop_rd_loss."""
+    return [planes_to_444(*[torch.from_numpy(np.ascontiguousarray(
+        f[c][None])).to(device) for c in ("y", "u", "v")]) for f in frames]
 
 
 def synthetic_frames(n: int, h: int, w: int, seed: int = 0):

@@ -1,0 +1,135 @@
+"""Where the RD forward's time goes on the card, run on demand.
+
+    python -m aivc_tpu_torch.profile_forward [--height 720] [--width 1280]
+
+Runs gop_rd_loss in eval mode (the forward phase of chip_smoke.py:
+bf16-r5, a 9-frame 1_GOP_8 of synthetic frames, AIVC_WARP=pallas) once to
+warm up, then times the forward in turns with the GDN layers on their own
+gdn_apply and on the fused GDN (kernel K4; an experiment of this script
+only, the models always take gdn_apply), ROUNDS rounds of (gdn_apply, K4,
+K4, gdn_apply), and one forward under torch.profiler.  Prints one JSON
+object: the card's name and power limit, the seconds of each turn, the
+profiled wall time, the device's busy time (the union of its kernels'
+spans) and the kernels that took the most device time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import time
+from pathlib import Path
+from typing import Dict, List
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+ROUNDS = 5
+
+
+def busy_us(spans: List[tuple]) -> float:
+    """Length of the union of [start, end) spans."""
+    spans = sorted(spans)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    return busy + cur_e - cur_s
+
+
+@contextlib.contextmanager
+def gdn_on_k4(model: torch.nn.Module):
+    """Sends each GDN layer without clamp or low-precision parameters
+    (which gdn_pallas lacks) through gdn_fused while the block runs;
+    yields the number of layers sent."""
+    from aivc_tpu_torch.ops.gdn import GDN, gdn_fused
+
+    sent = [m for m in model.modules()
+            if isinstance(m, GDN) and not m.clamp and not m.lowp]
+    for m in sent:
+        m.forward = (lambda m: lambda x: gdn_fused(
+            x, m.beta, m.gamma, m.inverse))(m)
+    try:
+        yield len(sent)
+    finally:
+        for m in sent:
+            del m.forward
+
+
+def profile_forward(model, cfg, frames444: List[torch.Tensor],
+                    idx_rate: float, top: int = 8) -> Dict:
+    """One forward under torch.profiler: device time by kernel (the top
+    ones), the device's busy time and the wall time.  Returns
+    {"error": ...} where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aivc_tpu_torch import smoke
+
+    dev = frames444[0].device
+    smoke.sync(dev)
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        smoke.rd_forward(model, cfg, frames444, idx_rate)
+    wall = time.time() - t0
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        return {"error": "the profiler recorded no device events"}
+    by_name: Dict[str, float] = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    busy = busy_us([(e.time_range.start, e.time_range.end) for e in kern])
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
+            "kernel_ms": sum(by_name.values()) / 1e3,
+            "top": [(n[:60], t / 1e3) for n, t in ranked]}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--height", type=int, default=720)
+    ap.add_argument("--width", type=int, default=1280)
+    ap.add_argument("--idx_rate", type=float, default=0.0)
+    args = ap.parse_args()
+    os.environ["AIVC_WARP"] = "pallas"   # read when the package loads
+    from aivc_tpu_torch import smoke
+    from aivc_tpu_torch.pipeline.video import frames_444, synthetic_frames
+    from aivc_tpu_torch.utils.checkpoint import load_checkpoint
+
+    dev = torch.device("cuda")
+    cfg, model = load_checkpoint(ROOT / "models_ckpt" / "bf16-r5",
+                                 device=dev)
+    f444 = frames_444(synthetic_frames(9, args.height, args.width, seed=3),
+                      dev)
+    smoke.rd_forward(model, cfg, f444, args.idx_rate)        # warm-up
+    with gdn_on_k4(model) as n_k4:
+        smoke.rd_forward(model, cfg, f444, args.idx_rate)
+    secs: Dict[str, List[float]] = {"gdn_apply": [], "k4": []}
+    for _ in range(ROUNDS):
+        for route in ("gdn_apply", "k4", "k4", "gdn_apply"):
+            with (gdn_on_k4(model) if route == "k4"
+                  else contextlib.nullcontext()):
+                secs[route].append(smoke.rd_forward(
+                    model, cfg, f444, args.idx_rate)["seconds"])
+    prof = profile_forward(model, cfg, f444, args.idx_rate)
+    out = {"card": smoke.device_info()["smi"],
+           "frame": [args.width, args.height],
+           "padded": list(f444[0].shape[2:]), "k4_layers": n_k4,
+           "forward_s": secs,
+           "mean_s": {k: sum(v) / len(v) for k, v in secs.items()}, **prof}
+    if "device_busy_ms" in prof:
+        out["busy_share"] = (prof["device_busy_ms"] / 1e3
+                             / out["mean_s"]["gdn_apply"])
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -13,11 +13,22 @@ take their plain versions).  On the card:
            entry points, bit-exact, with every kernel's launch count
   small    the same clip at 64x64 on the card and on the host, which
            must agree within the stated tolerance
+  forward  the RD forward (gop_rd_loss, eval) of a 9-frame GOP with the
+           float warp under AIVC_WARP=pallas (kernel K5), with the inputs
+           of six CodecNet GDN layers captured on the way
+  forward-small
+           the forward at 128x128 on the card and on the host, which
+           must agree within the stated tolerance
+  kernels  K5 at the forward path's shapes and K4 (the exported
+           gdn_fused, which no model calls) on the six captured GDN
+           inputs, against their plain versions on the same inputs, each
+           timed beside its bound
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import time
 from typing import Callable, Dict, List
@@ -28,15 +39,19 @@ import torch.nn.functional as F
 
 from aivc_tpu_torch import kernels
 from aivc_tpu_torch.coding import vrans
-from aivc_tpu_torch.config import FRAME_B, CodingConfig
+from aivc_tpu_torch.config import FRAME_B, FRAME_P, CodingConfig
+from aivc_tpu_torch.gop import generate_gop_struct
+from aivc_tpu_torch.ops import gdn as gdn_ops
 from aivc_tpu_torch.ops import warp as warp_ops
 from aivc_tpu_torch.pipeline.codec import FrameCodec
 from aivc_tpu_torch.pipeline.video import (
     decode_video,
     encode_video,
     evaluate_frames,
+    frames_444,
     synthetic_frames,
 )
+from aivc_tpu_torch.train.loss import gop_rd_loss
 from aivc_tpu_torch.utils.checkpoint import load_checkpoint
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
@@ -46,6 +61,19 @@ F32_OPS_PER_S = 67e12
 # differently on the two devices, so symbols may differ slightly).
 SMALL_BYTES_RTOL = 0.10
 SMALL_PSNR_ATOL_DB = 0.5
+# K4 against the layer's own gdn_apply, elementwise |a - b| <= RTOL *
+# (|b| + ATOL).  bf16 rounds to within 2^-8 relative.  K4 rounds its
+# normaliser and its output to bf16 (gdn_pallas's types); gdn_apply rounds
+# the channel sum to bf16 before beta and the square root (half of 2^-8
+# after the root) and keeps the rest in f32: 2.5 * 2^-8 at most.
+GDN_APPLY_RTOL = 2.0 ** -6
+GDN_APPLY_ATOL = 1e-3
+# forward-small: bf16-r5 at 128x128 on the card and on the host, whose
+# bf16 convolutions round differently: (kind, limit) per log, about ten
+# times the difference measured on the H100 (chip_smoke.py: rate_bpp
+# 2.9e-4 relative, PSNR 0.013 dB, dist_pure 2.9e-4).
+FORWARD_SMALL_TOL = {"rate_bpp": ("rel", 0.003), "psnr": ("abs", 0.1),
+                     "dist_pure": ("abs", 0.003)}
 
 KERNEL_SOURCES = {
     "rans_encode": ("aivc_tpu_torch/csrc/kernels.cu",
@@ -54,7 +82,12 @@ KERNEL_SOURCES = {
                     "aivc_tpu/coding/vrans.py:630"),
     "warp_packed": ("aivc_tpu_torch/csrc/kernels.cu",
                     "aivc_tpu/ops/warp_pallas.py:303"),
+    "gdn_fused": ("aivc_tpu_torch/csrc/kernels.cu",
+                  "aivc_tpu/ops/gdn.py:133"),
+    "warp_vclamped": ("aivc_tpu_torch/csrc/kernels.cu",
+                      "aivc_tpu/ops/warp_pallas.py:113"),
 }
+FORWARD_GOP = "1_GOP_8"
 
 
 class Phases:
@@ -298,13 +331,15 @@ def code_clip(codec: FrameCodec, frames, wave_batch: int = 8,
                 raise AssertionError(
                     f"decoded frame {i} plane {c} differs from the "
                     "encoder's reconstruction")
-    psnr = evaluate_frames(frames, dec)["psnr"]
-    if not np.isfinite(psnr):
-        raise AssertionError(f"PSNR is not finite: {psnr}")
+    quality = evaluate_frames(frames, dec, device=dev)
+    psnr, ms_ssim = quality["psnr"], quality["ms_ssim"]
+    if not (np.isfinite(psnr) and np.isfinite(ms_ssim)):
+        raise AssertionError(f"PSNR / MS-SSIM not finite: {quality}")
     n_pix = codec.h * codec.w * len(frames)
     return {"bytes": len(enc.bitstream),
             "bpp": len(enc.bitstream) * 8.0 / n_pix,
             "psnr": float(psnr),
+            "ms_ssim": float(ms_ssim),
             "encode_fps": len(frames) / (t1 - t0),
             "decode_fps": len(frames) / (t2 - t1),
             "frame_bytes": [r.bytes for r in enc.frame_results]}
@@ -329,7 +364,194 @@ def small_agreement(ckpt: str, device: torch.device, size: int = 64,
     return out
 
 
+# ---------------------------------------------------------------------------
+# RD forward path
+# ---------------------------------------------------------------------------
+
+# The six CodecNet GDN layers whose inputs feed the K4 check: g_a's three
+# GDNs and g_s's three IGDNs.
+GDN_LAYERS = tuple(f"codecnet.g_a.ConvBlock_{i}.GDN_0" for i in range(3)) + \
+    tuple(f"codecnet.g_s.UpBlock_{i}.GDN_0" for i in range(3))
+
+
+def warp_calls(gop_name: str) -> int:
+    """Float warps of one forward over a GOP: one per P-frame, two per
+    B-frame (fullnet.py:_motion_comp)."""
+    gop = generate_gop_struct(gop_name)
+    return sum({FRAME_P: 1, FRAME_B: 2}.get(f.frame_type, 0)
+               for f in gop.frames)
+
+
+class GdnWatch:
+    """Forward pre-hooks on a model's GDN layers that capture the first
+    input of each layer named in ``capture``, with the layer."""
+
+    def __init__(self, model: torch.nn.Module, capture=()):
+        self.inputs: Dict[str, tuple] = {}
+        self._handles = [
+            mod.register_forward_pre_hook(self._hook(name, mod))
+            for name, mod in model.named_modules() if name in capture]
+
+    def _hook(self, name, mod):
+        def hook(_, args):
+            if name not in self.inputs:
+                self.inputs[name] = (args[0].detach().clone(), mod)
+        return hook
+
+    def close(self) -> None:
+        for h in self._handles:
+            h.remove()
+
+
+def rd_forward(model, cfg, frames444: List[torch.Tensor],
+               idx_rate: float, gop_name: str = FORWARD_GOP) -> Dict:
+    """gop_rd_loss in eval mode over the GOP (the trainer's weights:
+    l_codec = l_mof = lambda_tradeoff[idx_rate]); every log finite."""
+    dev = frames444[0].device
+    lam = float(cfg.lambda_tradeoff[int(idx_rate)])
+    sync(dev)
+    t0 = time.time()
+    with torch.inference_mode():
+        loss, logs = gop_rd_loss(
+            model, frames444, generate_gop_struct(gop_name), idx_rate,
+            lam, lam, dist_loss=cfg.dist_loss,
+            weight_i_frame_loss=cfg.weight_i_frame_loss)
+    sync(dev)
+    dt = time.time() - t0
+    out = {k: float(v) for k, v in logs.items()}
+    out["loss"] = float(loss)
+    bad = [k for k, v in out.items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite forward logs: {bad} ({out})")
+    return {"logs": out, "seconds": dt, "fps": len(frames444) / dt}
+
+
+def forward_small(ckpt: str, device: torch.device, idx_rate: float,
+                  size: int = 128, gop_name: str = FORWARD_GOP) -> Dict:
+    """The RD forward of a small GOP on ``device`` and on the host."""
+    frames = synthetic_frames(len(generate_gop_struct(gop_name)), size,
+                              size, seed=2)
+    out = {}
+    for name, dev in (("device", device), ("host", torch.device("cpu"))):
+        cfg, model = load_checkpoint(ckpt, device=dev)
+        out[name] = rd_forward(model, cfg, frames_444(frames, dev),
+                               idx_rate, gop_name)["logs"]
+    return out
+
+
+def compare_logs(a: Dict[str, float], b: Dict[str, float], tol: Dict,
+                 what: str) -> Dict[str, float]:
+    """Differences of the logs named in ``tol`` (relative or absolute);
+    raises if one exceeds its limit."""
+    diffs = {}
+    for k, (kind, lim) in tol.items():
+        d = abs(a[k] - b[k])
+        if kind == "rel":
+            d /= max(abs(b[k]), 1e-12)
+        diffs[k] = d
+        if d > lim:
+            raise AssertionError(f"{what}: {k} {a[k]} vs {b[k]} ({kind} "
+                                 f"difference {d} > {lim})")
+    return diffs
+
+
+def check_warp_vclamped(device: torch.device, h: int, w: int, c: int = 3,
+                        batch: int = 1, reps: int = 20,
+                        seed: int = 0) -> Dict:
+    """K5 against its plain version on a float frame and flows whose
+    vertical part reaches +-30 rows, so the +-15 clamp engages."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.rand((batch, c, h, w), generator=g).to(device)
+    flow = ((torch.rand((batch, 2, h, w), generator=g) * 2 - 1)
+            * torch.tensor([40.0, 30.0]).view(1, 2, 1, 1)).to(device)
+    clamped = float((flow[:, 1].abs() > warp_ops.V_RADIUS - 1).float()
+                    .mean())
+    if clamped == 0.0:
+        raise AssertionError("K5 check: no vertical flow beyond the clamp")
+    kern = (warp_ops.warp_vclamped_cuda if device.type == "cuda"
+            else warp_ops.warp_vclamped)
+    run = lambda: kern(x, flow)  # noqa: E731
+    out = run()
+    ref = warp_ops.warp_vclamped(x, flow)
+    mism = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
+    if mism:
+        raise AssertionError(f"K5: {mism} values differ in bits from the "
+                             "plain warp")
+    err = float((out - ref).abs().max())
+    ms = time_ms(run, device, reps)
+    plain = time_ms(lambda: warp_ops.warp_vclamped(x, flow), device, 3)
+    # Yardstick: the library's bilinear border-clamped sampler on the
+    # same frame and flow (no vertical clamp; never called by the port).
+    xs = torch.arange(w, device=device).view(1, 1, w) + flow[:, 0]
+    ys = torch.arange(h, device=device).view(1, h, 1) + flow[:, 1]
+    grid = torch.stack([xs / (w - 1) * 2 - 1, ys / (h - 1) * 2 - 1], dim=-1)
+    lib_ms = time_ms(lambda: F.grid_sample(
+        x, grid, mode="bilinear", padding_mode="border",
+        align_corners=True), device, reps)
+    px = batch * h * w
+    rec = _record("warp_vclamped", err, ms, plain, (8 + 8 * c) * px,
+                  (16 + 10 * c) * px, library_ms=lib_ms)
+    rec["clamped_share"] = clamped
+    return rec
+
+
+@torch.inference_mode()
+def check_gdn(inputs: Dict[str, tuple], reps: int = 10) -> Dict:
+    """K4 through the exported ``gdn_fused`` on captured GDN inputs, each
+    with its layer's own beta / gamma: its launches there counted from 0,
+    each output against the plain version on the same input (gdn_apply
+    itself where the shape rule sends gdn_fused there) and within
+    GDN_APPLY_RTOL of the layer's own gdn_apply; timed at the largest
+    input."""
+    worst, apply_err, shapes = 0.0, 0.0, []
+    dev = next(iter(inputs.values()))[0].device
+    kernels.reset_launches()
+    outs = {name: gdn_ops.gdn_fused(x, mod.beta, mod.gamma, mod.inverse)
+            for name, (x, mod) in inputs.items()}
+    launches = kernels.LAUNCHES["gdn_fused"]
+    for name, (x, mod) in inputs.items():
+        out = outs[name]
+        beta, gamma = gdn_ops.reparam(mod.beta, mod.gamma)
+        lib = gdn_ops.gdn_apply(x, mod.beta, mod.gamma, mod.inverse)
+        ref = (gdn_ops.gdn_fused_plain(x, beta, gamma, mod.inverse)
+               if gdn_ops.fused_shape(x) else lib)
+        err = float((out.float() - ref.float()).abs().max())
+        worst = max(worst, err)
+        rel = float(((out.float() - lib.float()).abs()
+                     / (lib.float().abs() + GDN_APPLY_ATOL)).max())
+        apply_err = max(apply_err, rel)
+        shapes.append((name, tuple(x.shape), err, rel))
+        if err > 0.0:
+            raise AssertionError(f"K4 on {name}: {err} from its plain "
+                                 "version")
+        if rel > GDN_APPLY_RTOL:
+            raise AssertionError(f"K4 on {name}: relative error {rel} "
+                                 "from the layer's gdn_apply")
+    name = max(inputs, key=lambda k: inputs[k][0].numel())
+    x, mod = inputs[name]
+    beta, gamma = gdn_ops.reparam(mod.beta, mod.gamma)
+    kern = (gdn_ops.gdn_fused_cuda if dev.type == "cuda"
+            else gdn_ops.gdn_fused_plain)
+    ms = time_ms(lambda: kern(x, beta, gamma, mod.inverse), dev, reps)
+    plain = time_ms(lambda: gdn_ops.gdn_fused_plain(x, beta, gamma,
+                                                    mod.inverse), dev, 1)
+    lib_ms = time_ms(lambda: gdn_ops.gdn_apply(x, mod.beta, mod.gamma,
+                                               mod.inverse), dev, reps)
+    B, C, H, W = x.shape
+    n = B * H * W
+    rec = _record("gdn_fused", worst, ms, plain,
+                  2 * n * C * x.element_size() + 4 * C * C + 4 * C,
+                  2 * n * C * C + 6 * n * C, library_ms=lib_ms)
+    rec["timed_on"] = f"{name} {list(x.shape)} {str(x.dtype)[6:]}"
+    rec["inputs"] = shapes
+    rec["apply_rel_err"] = apply_err
+    rec["launches"] = launches
+    return rec
+
+
 def kernels_line(records: List[Dict], launches: Dict[str, int]) -> str:
-    for r in records:
-        r["launches"] = launches[r["name"]]
-    return json.dumps({"kernels": records})
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return json.dumps({"kernels": [
+        {**{k: r[k] for k in keys}, "launches": launches[r["name"]]}
+        for r in records]})

@@ -1,17 +1,30 @@
-"""Smoke run of the port's main path on one NVIDIA card.
+"""Smoke run of the port's paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from aivc_tpu_torch/csrc, checks each against its
-plain PyTorch version at the 1080p shapes of bf16-r5, then encodes and
-decodes a 9-frame 1080p RA clip (GOP 8) of models_ckpt/bf16-r5 through
-the port's entry points and checks the decode bit for bit.  Every phase
-prints its elapsed seconds.  The last two lines are the kernels' JSON
-record and the result; any failed check raises (nonzero exit).  Exits
-nonzero, printing no result, when there is no CUDA device.
+Builds the CUDA kernels from aivc_tpu_torch/csrc and drives, through the
+port's entry points with models_ckpt/bf16-r5:
+
+* the coding path: K1-K3 checked against their plain PyTorch versions at
+  the 1080p shapes, then a 9-frame 1080p RA clip (GOP 8) encoded and
+  decoded, the decode checked bit for bit, and a 64x64 clip on the card
+  against the host;
+* the RD forward path: gop_rd_loss in eval mode on a 9-frame 720p GOP
+  (edge-padded to 1280x768) with AIVC_WARP=pallas, whose float warps
+  launch K5; a 128x128 GOP on the card against the host; then K5 checked
+  against its plain version at the forward path's shapes, and K4 (the
+  exported gdn_fused, which no model calls, as gdn_pallas in JAX) run on
+  the inputs of six CodecNet GDN layers captured during the forward and
+  checked against its plain version.
+
+Every phase prints its elapsed seconds.  The last lines are the card's
+name and power limit, the kernels' JSON record and the result; any failed
+check raises (nonzero exit).  Exits nonzero, printing no result, when
+there is no CUDA device.
 """
 
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -21,17 +34,24 @@ import torch
 CKPT = "models_ckpt/bf16-r5"
 H, W = 1080, 1920
 N_FRAMES, GOP, WAVE_BATCH = 9, 8, 8
+FH, FW = 720, 1280
+IDX_RATE = 0.0
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # Read when the package's warp module is imported, as in JAX.
+    os.environ["AIVC_WARP"] = "pallas"
     from aivc_tpu_torch import kernels, smoke
+    from aivc_tpu_torch.ops import warp as warp_ops
     from aivc_tpu_torch.pipeline.codec import FrameCodec
-    from aivc_tpu_torch.pipeline.video import synthetic_frames
+    from aivc_tpu_torch.pipeline.video import frames_444, synthetic_frames
     from aivc_tpu_torch.utils.checkpoint import load_checkpoint
 
+    if not warp_ops._USE_PALLAS:
+        raise RuntimeError("AIVC_WARP=pallas was not read at import")
     root = Path(__file__).resolve().parent
     ckpt = str(root / CKPT)
     ph = smoke.Phases(lambda m: print(m, flush=True))
@@ -62,28 +82,88 @@ def main() -> int:
                f"{r['bound_ms']:.4f} ms by {r['bound_by']}, library "
                f"{r['library_ms']})")
 
+    # -- coding path ------------------------------------------------------
     frames = synthetic_frames(N_FRAMES, H, W)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     res = smoke.code_clip(codec, frames, wave_batch=WAVE_BATCH, gop=GOP)
-    launches = dict(kernels.LAUNCHES)
+    main_launches = dict(kernels.LAUNCHES)
     ph.say(f"main: {N_FRAMES} frames {W}x{H} RA GOP{GOP}: {res['bytes']} B, "
-           f"{res['bpp']:.5f} bpp, PSNR {res['psnr']:.4f} dB, encode "
-           f"{res['encode_fps']:.3f} fps, decode {res['decode_fps']:.3f} "
-           f"fps, peak memory "
+           f"{res['bpp']:.5f} bpp, PSNR {res['psnr']:.4f} dB, MS-SSIM "
+           f"{res['ms_ssim']:.6f}, encode {res['encode_fps']:.3f} fps, "
+           f"decode {res['decode_fps']:.3f} fps, peak memory "
            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-           f"launches {launches}")
+           f"launches {main_launches}")
     ph.say(f"main: frame bytes {res['frame_bytes']}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in ("rans_encode", "rans_decode", "warp_packed")
+               if main_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
+    del codec
 
     small = smoke.small_agreement(ckpt, dev)
     ph.say(f"small: 64x64 device {small['device']['bytes']} B / "
            f"{small['device']['psnr']:.4f} dB vs host "
            f"{small['host']['bytes']} B / {small['host']['psnr']:.4f} dB")
 
+    # -- RD forward path --------------------------------------------------
+    fcfg, fmodel = load_checkpoint(ckpt, device=dev)
+    f444 = frames_444(synthetic_frames(N_FRAMES, FH, FW, seed=3), dev)
+    n_warps = smoke.warp_calls(smoke.FORWARD_GOP)
+    warm = smoke.rd_forward(fmodel, fcfg, f444, IDX_RATE)
+    ph.say(f"forward: warm-up {warm['seconds']:.3f} s (first use of every "
+           f"shape)")
+    watch = smoke.GdnWatch(fmodel, capture=smoke.GDN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    fwd = smoke.rd_forward(fmodel, fcfg, f444, IDX_RATE)
+    fwd_launches = dict(kernels.LAUNCHES)
+    watch.close()
+    ph.say(f"forward: gop_rd_loss eval, {smoke.FORWARD_GOP}, {FW}x{FH} "
+           f"padded to {f444[0].shape[3]}x{f444[0].shape[2]}, idx_rate "
+           f"{IDX_RATE}, dist {fcfg.dist_loss}: {fwd['fps']:.3f} frames/s "
+           f"({fwd['seconds']:.3f} s), peak memory "
+           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+           f"launches {fwd_launches}")
+    ph.say(f"forward: logs {json.dumps(fwd['logs'])}")
+    if fwd_launches["warp_vclamped"] != n_warps:
+        raise AssertionError(f"warp_vclamped launched "
+                             f"{fwd_launches['warp_vclamped']} times for "
+                             f"{n_warps} float warps")
+    if sorted(watch.inputs) != sorted(smoke.GDN_LAYERS):
+        raise AssertionError(f"captured GDN inputs: {sorted(watch.inputs)}")
+
+    fsmall = smoke.forward_small(ckpt, dev, IDX_RATE)
+    diffs = smoke.compare_logs(fsmall["device"], fsmall["host"],
+                               smoke.FORWARD_SMALL_TOL, "forward-small")
+    ph.say(f"forward-small: 128x128 device {json.dumps(fsmall['device'])}")
+    ph.say(f"forward-small: 128x128 host {json.dumps(fsmall['host'])}")
+    ph.say(f"forward-small: differences {diffs}")
+
+    rec5 = smoke.check_warp_vclamped(dev, f444[0].shape[2],
+                                     f444[0].shape[3])
+    rec4 = smoke.check_gdn(watch.inputs)
+    ph.say(f"kernel warp_vclamped: bit-identical to its plain version "
+           f"({rec5['clamped_share']:.3f} of the pixels past the vertical "
+           f"clamp); {rec5['ms']:.4f} ms (plain {rec5['plain_ms']:.3f} ms, "
+           f"bound {rec5['bound_ms']:.4f} ms by {rec5['bound_by']}, library "
+           f"{rec5['library_ms']:.4f} ms)")
+    for name, shape, err, rel in rec4["inputs"]:
+        ph.say(f"kernel gdn_fused on {name} {list(shape)}: {err} from its "
+               f"plain version, {rel:.3e} relative from gdn_apply")
+    ph.say(f"kernel gdn_fused: {rec4['ms']:.4f} ms on {rec4['timed_on']} "
+           f"(plain {rec4['plain_ms']:.3f} ms, bound {rec4['bound_ms']:.4f} "
+           f"ms by {rec4['bound_by']}, library {rec4['library_ms']:.4f} ms)")
+    if rec4["launches"] != len(smoke.GDN_LAYERS):
+        raise AssertionError(f"gdn_fused launched {rec4['launches']} times "
+                             f"on {len(smoke.GDN_LAYERS)} GDN inputs")
+    records += [rec4, rec5]
+
+    launches = {k: main_launches[k]
+                for k in ("rans_encode", "rans_decode", "warp_packed")}
+    launches["warp_vclamped"] = fwd_launches["warp_vclamped"]
+    launches["gdn_fused"] = rec4["launches"]
     print(info["smi"], flush=True)
     print(smoke.kernels_line(records, launches), flush=True)
     print(json.dumps({"ok": True, "device": {

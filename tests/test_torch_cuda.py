@@ -1,5 +1,5 @@
-"""Kernels K1-K3 on the card against their plain versions, and the codec's
-closed loop on the card.  Imports no JAX, so it runs on the card's
+"""Kernels K1-K5 on the card against their plain versions, the codec's
+closed loop and the RD forward's launches on the card.  Imports no JAX, so it runs on the card's
 machine:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -16,6 +16,7 @@ import torch
 from aivc_tpu_torch import kernels
 from aivc_tpu_torch.coding import vrans
 from aivc_tpu_torch.coding.cdf import build_laplace_table
+from aivc_tpu_torch.ops import gdn as tg
 from aivc_tpu_torch.ops import warp as tw
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -128,4 +129,98 @@ def test_codec_closed_loop_on_card(card):
     for i in range(5):
         for c in ("y", "u", "v"):
             assert np.array_equal(dec[i][c], enc.decoded_frames[i][c])
-    assert all(v > 0 for v in kernels.LAUNCHES.values())
+    assert all(kernels.LAUNCHES[k] > 0
+               for k in ("rans_encode", "rans_decode", "warp_packed"))
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 64, 128), (2, 5, 72, 256)])
+def test_warp_vclamped_kernel_bit_identical(card, shape):
+    g = torch.Generator().manual_seed(shape[3])
+    x = torch.randn(shape, generator=g).to(card)
+    b, _, h, w = shape
+    flow = ((torch.rand((b, 2, h, w), generator=g) * 2 - 1)
+            * torch.tensor([50.0, 30.0]).view(1, 2, 1, 1)).to(card)
+    before = kernels.LAUNCHES["warp_vclamped"]
+    out = tw.warp_vclamped_cuda(x, flow)
+    assert kernels.LAUNCHES["warp_vclamped"] == before + 1
+    ref = tw.warp_vclamped(x, flow)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 128, 32, 48), (2, 256, 10, 30)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_gdn_kernel_bit_identical(card, dtype, shape, inverse):
+    g = torch.Generator().manual_seed(shape[1] + shape[3])
+    c = shape[1]
+    x = (torch.randn(shape, generator=g) * 2).to(dtype).to(card)
+    beta_r = (torch.rand(c, generator=g) + 0.5).sqrt().to(card)
+    gamma_r = (torch.rand((c, c), generator=g) * 0.05).sqrt().to(card)
+    beta, gamma = tg.reparam(beta_r, gamma_r)
+    out = tg.gdn_fused_cuda(x, beta, gamma, inverse)
+    ref = tg.gdn_fused_plain(x, beta, gamma, inverse)
+    assert out.dtype == dtype and torch.equal(out, ref)
+
+
+def test_gdn_fused_routes_on_card(card):
+    """Rows % 512 == 0 and C % 128 == 0 launch K4; other shapes are
+    gdn_apply, as gdn_pallas's shape rule says."""
+    g = torch.Generator().manual_seed(0)
+    beta_r = (torch.rand(128, generator=g) + 0.5).to(card)
+    gamma_r = (torch.rand((128, 128), generator=g) * 0.2).to(card)
+    before = kernels.LAUNCHES["gdn_fused"]
+    tg.gdn_fused(torch.randn((1, 128, 16, 32), generator=g).to(card),
+                 beta_r, gamma_r)
+    assert kernels.LAUNCHES["gdn_fused"] == before + 1
+    x = torch.randn((1, 128, 10, 10), generator=g).to(card)
+    assert torch.equal(tg.gdn_fused(x, beta_r, gamma_r),
+                       tg.gdn_apply(x, beta_r, gamma_r, False))
+    assert kernels.LAUNCHES["gdn_fused"] == before + 1
+
+
+def test_new_wrappers_reject_bad_inputs(card):
+    x = torch.zeros((1, 3, 64, 128), device=card, requires_grad=True)
+    flow = torch.zeros((1, 2, 64, 128), device=card)
+    with pytest.raises(ValueError):
+        tw.warp_vclamped_cuda(x, flow)
+    with pytest.raises(ValueError):
+        tw.warp_vclamped_cuda(torch.zeros((1, 3, 64, 200), device=card),
+                              torch.zeros((1, 2, 64, 200), device=card))
+    beta = torch.ones(96, device=card)
+    with pytest.raises(ValueError):
+        tg.gdn_fused_cuda(torch.zeros((1, 96, 8, 64), device=card), beta,
+                          torch.eye(96, device=card), False)
+    with pytest.raises(ValueError):
+        tg.gdn_fused_cuda(torch.zeros((1, 128, 8, 64), device=card,
+                                      dtype=torch.float16),
+                          torch.ones(128, device=card),
+                          torch.eye(128, device=card), False)
+    with pytest.raises(ValueError):     # forward only
+        tg.gdn_fused_cuda(torch.zeros((1, 128, 8, 64), device=card,
+                                      requires_grad=True),
+                          torch.ones(128, device=card),
+                          torch.eye(128, device=card), False)
+
+
+def test_rd_forward_launches_on_card(card, monkeypatch):
+    """The forward launches K5 once per float warp and K4 never (no model
+    calls gdn_fused); K4 launches once per captured GDN input in its
+    check, each output equal to its plain version."""
+    from aivc_tpu_torch import smoke
+    from aivc_tpu_torch.pipeline import video
+    from aivc_tpu_torch.utils.checkpoint import load_checkpoint
+
+    monkeypatch.setattr(tw, "_USE_PALLAS", True)
+    cfg, model = load_checkpoint(ROOT / "models_ckpt" / "bf16-r5",
+                                 device=card)
+    # 128x256: every captured GDN input has rows % 512 == 0.
+    f444 = video.frames_444(video.synthetic_frames(3, 128, 256), card)
+    watch = smoke.GdnWatch(model, capture=smoke.GDN_LAYERS)
+    kernels.reset_launches()
+    smoke.rd_forward(model, cfg, f444, 1.0, "1_GOP_2")
+    watch.close()
+    assert kernels.LAUNCHES["warp_vclamped"] == smoke.warp_calls("1_GOP_2")
+    assert kernels.LAUNCHES["gdn_fused"] == 0
+    rec = smoke.check_gdn(watch.inputs, reps=1)
+    assert rec["launches"] == len(smoke.GDN_LAYERS)
+    assert rec["max_abs_err"] == 0.0

@@ -13,12 +13,17 @@ import pytest
 import torch
 
 from aivc_tpu_torch import smoke
+from aivc_tpu_torch.ops import warp as warp_ops
 from aivc_tpu_torch.pipeline.codec import FrameCodec
-from aivc_tpu_torch.pipeline.video import synthetic_frames
+from aivc_tpu_torch.pipeline.video import frames_444, synthetic_frames
 from aivc_tpu_torch.utils.checkpoint import load_checkpoint
 
 ROOT = Path(__file__).resolve().parents[1]
 CKPT = ROOT / "models_ckpt" / "tiny-toy"
+BF16 = ROOT / "models_ckpt" / "bf16-r5"
+LOG_KEYS = {"rate_bpp", "mode_rate_bpp", "codec_rate_bpp", "mse", "dist",
+            "dist_pure", "psnr", "flow_mag", "flow_max", "alpha_mean",
+            "loss"}
 KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
 
@@ -46,6 +51,7 @@ def test_phases_rehearsed_on_host(codec):
                                             "warp_packed"]
     res = smoke.code_clip(codec, synthetic_frames(9, 128, 128))
     assert res["bytes"] > 0 and res["psnr"] > 10
+    assert 0.0 < res["ms_ssim"] < 1.0
     line = json.loads(smoke.kernels_line(records, {"rans_encode": 5,
                                                    "rans_decode": 14,
                                                    "warp_packed": 14}))
@@ -59,6 +65,50 @@ def test_small_agreement_rehearsed_on_host():
     out = smoke.small_agreement(str(CKPT), torch.device("cpu"), size=64,
                                 n_frames=5)
     assert out["device"]["bytes"] == out["host"]["bytes"]
+
+
+def test_forward_phases_rehearsed_on_host(monkeypatch):
+    """forward and the K4 / K5 checks at 128x128 on a GOP of three frames
+    of bf16-r5 (the kernels' plain versions on the host)."""
+    monkeypatch.setattr(warp_ops, "_USE_PALLAS", True)
+    cpu = torch.device("cpu")
+    cfg, model = load_checkpoint(BF16, device=cpu)
+    f444 = frames_444(synthetic_frames(3, 120, 128, seed=3), cpu)
+    assert f444[0].shape == (1, 3, 128, 128)
+    watch = smoke.GdnWatch(model, capture=smoke.GDN_LAYERS)
+    fwd = smoke.rd_forward(model, cfg, f444, 0.0, "1_GOP_2")
+    watch.close()
+    assert set(fwd["logs"]) == LOG_KEYS
+    assert sorted(watch.inputs) == sorted(smoke.GDN_LAYERS)
+    rec4 = smoke.check_gdn(watch.inputs, reps=1)
+    rec5 = smoke.check_warp_vclamped(cpu, 64, 128, reps=1)
+    assert rec4["max_abs_err"] == 0.0 and rec5["max_abs_err"] == 0.0
+    assert rec4["launches"] == 0          # plain versions on the host
+    assert [s[0] for s in rec4["inputs"]] == list(watch.inputs)
+    assert rec5["clamped_share"] > 0.0
+    assert smoke.warp_calls("1_GOP_2") == 3
+    assert smoke.warp_calls(smoke.FORWARD_GOP) == 15
+    line = json.loads(smoke.kernels_line(
+        [rec4, rec5], {"gdn_fused": 6, "warp_vclamped": 3}))
+    for r in line["kernels"]:
+        assert set(r) == KEYS and r["launches"] > 0
+        assert r["bound_by"] in ("bytes", "operations")
+
+
+def test_profile_busy_time_is_the_union_of_spans():
+    from aivc_tpu_torch.profile_forward import busy_us
+
+    assert busy_us([(0, 10)]) == 10
+    assert busy_us([(5, 8), (0, 10), (12, 15)]) == 13
+    assert busy_us([(0, 4), (4, 6), (7, 9)]) == 8
+
+
+def test_forward_small_rehearsed_on_host():
+    out = smoke.forward_small(str(BF16), torch.device("cpu"), 0.0,
+                              size=64, gop_name="1_GOP_2")
+    diffs = smoke.compare_logs(out["device"], out["host"],
+                               smoke.FORWARD_SMALL_TOL, "forward-small")
+    assert all(d == 0.0 for d in diffs.values())
 
 
 def _load_chip_smoke():
@@ -84,3 +134,23 @@ def test_chip_smoke_alone_fails(tmp_path):
                                "HOME": str(tmp_path)})
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_profile_k4_route_is_scoped():
+    """profile_forward's gdn_on_k4 sends the eligible GDN layers through
+    gdn_fused only inside its block."""
+    from aivc_tpu_torch.ops import gdn as tg
+    from aivc_tpu_torch.profile_forward import gdn_on_k4
+
+    model = torch.nn.Sequential(tg.GDN(128), tg.GDN(128, clamp=16.0),
+                                tg.GDN(128, lowp=True))
+    x = torch.randn((1, 128, 16, 32), generator=torch.Generator()
+                    .manual_seed(0))
+    with torch.no_grad(), gdn_on_k4(model) as n:
+        assert n == 1
+        assert torch.equal(model[0](x), tg.gdn_fused(
+            x, model[0].beta, model[0].gamma, False))
+    assert all("forward" not in vars(m) for m in model)
+    with torch.no_grad():
+        assert torch.equal(model[0](x), tg.gdn_apply(
+            x, model[0].beta, model[0].gamma, False))
