@@ -113,10 +113,15 @@ def unpack_frame(data: bytes) -> Dict[str, bytes]:
     while pos < len(data) and data[pos] in (DC_TRAILER_MAGIC,
                                             DEBUG_TRAILER_MAGIC):
         if data[pos] == DC_TRAILER_MAGIC:
+            if len(data) - pos < 4:
+                raise ValueError("truncated DC trailer")
             chunks["__dc__"] = tuple(
                 v - 256 if v > 127 else v for v in data[pos + 1:pos + 4])
             pos += 4
             continue
+        left = len(data) - pos
+        if left < 2 or left < 2 + 17 * data[pos + 1]:
+            raise ValueError("truncated debug trailer")
         count = data[pos + 1]
         pos += 2
         digests = {}

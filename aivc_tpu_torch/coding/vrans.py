@@ -34,6 +34,50 @@ RANS_L = 1 << 16
 K_MIN = 8
 K_MAX = 2048
 _MASK32 = 0xFFFFFFFF
+# K2's slot -> symbol index of each CDF row: u8 entries over at most 2^9
+# buckets for rows of at most SMALL_ALPHABET symbols, u16 over at most
+# 2^8 otherwise; the top bit of an entry flags a bucket that holds one
+# symbol.
+SMALL_ALPHABET = 128
+# Chunks of max(K, 8) words in K2's shared-memory word ring
+# (csrc/kernels.cu:kRing).
+RING_CHUNKS = 8
+
+
+def index_format(n_sym: int):
+    """(most bucket bits, torch dtype, single flag) of a table's slot
+    index."""
+    if n_sym <= SMALL_ALPHABET:
+        return 9, torch.uint8, 1 << 7
+    return 8, torch.int16, 1 << 15
+
+
+def decode_smem_bytes(n_rows: int, n_sym: int, k: int, wide: bool,
+                      bits: int) -> int:
+    """Shared memory of a K2 block (csrc/kernels.cu:rans_decode_smem):
+    warp totals, the word ring, the table (start_freq if ``wide``, else
+    cdf16) and the index of 2^bits + 1 entries per row."""
+    chunk = max(k, 8)
+    chunk = 1 << (chunk - 1).bit_length()
+    ix_bytes = torch.empty((), dtype=index_format(n_sym)[1]).element_size()
+    return (64 * 4 + RING_CHUNKS * chunk * 2
+            + n_rows * n_sym * (4 if wide else 2)
+            + n_rows * ((1 << bits) + 1) * ix_bytes)
+
+
+def decode_layout(n_rows: int, n_sym: int) -> Tuple[bool, int]:
+    """(wide, index bits) of K2's table: the first that fits a block at
+    K_MAX of start_freq with the finest index, else cdf16 with the
+    finest index that fits (0 bits: a binary search of the whole row).
+    Where even that does not fit, decode_cuda raises."""
+    top = index_format(n_sym)[0]
+    if decode_smem_bytes(n_rows, n_sym, K_MAX, True, top) <= kernels.MAX_SMEM:
+        return True, top
+    bits = top
+    while bits > 0 and decode_smem_bytes(n_rows, n_sym, K_MAX, False,
+                                         bits) > kernels.MAX_SMEM:
+        bits -= 1
+    return False, bits
 
 
 def pick_k(n: int) -> int:
@@ -67,10 +111,17 @@ class RansTable(NamedTuple):
 
     cdf64: int64 [R, N_SYM + 1] (the plain versions);
     cdf16: uint16 [R, N_SYM] = cdf[:, :N_SYM] (the kernels; the last edge
-    is PROB_SCALE implicitly, so every stored value fits 16 bits)."""
+    is PROB_SCALE implicitly, so every stored value fits 16 bits);
+    start_freq: int32 [R, N_SYM], start | (freq - 1) << 16 of each symbol
+    (K2's wide layout: one 32-bit word per lookup; the bits read as u32);
+    index: ``slot_index(cdf64, bits)``, [R, 2^bits + 1] of
+    ``index_format``'s type at ``decode_layout``'s bits (K2's slot ->
+    symbol lookup)."""
 
     cdf64: torch.Tensor
     cdf16: torch.Tensor
+    start_freq: torch.Tensor
+    index: torch.Tensor
 
     @property
     def n_rows(self) -> int:
@@ -79,6 +130,41 @@ class RansTable(NamedTuple):
     @property
     def n_symbols(self) -> int:
         return self.cdf64.shape[1] - 1
+
+
+def slot_index(cdf64: torch.Tensor, bits: int) -> torch.Tensor:
+    """[R, 2^bits + 1] of ``index_format(n_sym)``'s type, read unsigned:
+    entry u < 2^bits is the symbol whose interval holds the first slot
+    of bucket u (slots u * 2^(16 - bits) on), plus the single flag where
+    that symbol also holds the bucket's last slot (the bucket is one
+    symbol's); the last entry is the symbol of slot PROB_SCALE - 1.
+    Without the flag, the symbol of any slot in bucket u lies in
+    [index[u], index[u + 1]] (flags masked off)."""
+    n_rows, n_edges = cdf64.shape
+    _, dtype, single = index_format(n_edges - 1)
+    width = 1 << (PROB_BITS - bits)
+    first = torch.arange((1 << bits) + 1, dtype=torch.int64,
+                         device=cdf64.device) * width
+    first = first.clamp_max(PROB_SCALE - 1).expand(n_rows, -1)
+    edges = cdf64[:, 1:n_edges - 1].contiguous()
+    # The symbol of slot v is the count of inner edges cdf[1:n_sym] <= v.
+    sym = torch.searchsorted(edges, first.contiguous(), right=True)
+    last = torch.searchsorted(edges, (first[:, :-1] + width - 1)
+                              .contiguous(), right=True)
+    entry = sym.clone()
+    entry[:, :-1] += (last == sym[:, :-1]).to(torch.int64) * single
+    if dtype == torch.int16:      # the u16 bits in an int16
+        entry = entry - (entry >= 1 << 15).to(torch.int64) * (1 << 16)
+    return entry.to(dtype)
+
+
+def start_freq(cdf64: torch.Tensor) -> torch.Tensor:
+    """int32 [R, N_SYM]: start | (freq - 1) << 16 per symbol, the u32
+    bits stored in an int32."""
+    start = cdf64[:, :-1]
+    word = start + ((cdf64[:, 1:] - start - 1) << 16)
+    return (word - (word >= 1 << 31).to(torch.int64) * (1 << 32)).to(
+        torch.int32)
 
 
 def make_table(cdf_rows: np.ndarray, device) -> RansTable:
@@ -90,9 +176,13 @@ def make_table(cdf_rows: np.ndarray, device) -> RansTable:
         raise ValueError("CDF rows must start at 0")
     if np.diff(cdf, axis=1).min() < 1:
         raise ValueError("zero-frequency symbol in CDF row")
+    cdf64 = torch.from_numpy(cdf).to(device)
+    _, bits = decode_layout(*cdf[:, 1:].shape)
     return RansTable(
-        cdf64=torch.from_numpy(cdf).to(device),
-        cdf16=torch.from_numpy(cdf[:, :-1].astype(np.uint16)).to(device))
+        cdf64=cdf64,
+        cdf16=torch.from_numpy(cdf[:, :-1].astype(np.uint16)).to(device),
+        start_freq=start_freq(cdf64),
+        index=slot_index(cdf64, bits))
 
 
 def _segment_starts(segment_steps: Sequence[int], steps: int) -> list:
@@ -191,14 +281,11 @@ def decode_plain(words: torch.Tensor, states: torch.Tensor,
 # Kernel wrappers (K1, K2)
 # ---------------------------------------------------------------------------
 
-def _check_table(table: RansTable) -> None:
-    smem = kernels.lib().aivc_rans_smem_bytes(table.n_rows,
-                                              table.n_symbols)
+def _check_smem(smem: int) -> None:
+    """Raise unless a kernel's ``smem`` bytes for a table fit a block."""
     if smem > kernels.MAX_SMEM:
         raise ValueError(f"CDF table needs {smem} B of shared memory, "
                          f"more than the card's {kernels.MAX_SMEM}")
-    kernels.require(table.cdf16, "cdf16", torch.uint16,
-                    (table.n_rows, table.n_symbols))
 
 
 def _check_k(k: int) -> None:
@@ -215,7 +302,10 @@ def encode_cuda(sym: torch.Tensor, rows: torch.Tensor, table: RansTable,
         raise ValueError("n_pad must be a multiple of k")
     kernels.require(sym, "sym", torch.int32, (B, n_pad))
     kernels.require(rows, "rows", torch.int32, (B, n_pad))
-    _check_table(table)
+    _check_smem(kernels.lib().aivc_rans_encode_smem_bytes(
+        table.n_rows, table.n_symbols))
+    kernels.require(table.cdf16, "cdf16", torch.uint16,
+                    (table.n_rows, table.n_symbols))
     starts = _segment_starts(segment_steps, n_pad // k)
     seg4 = starts + [-1] * (4 - len(starts))
     dev = sym.device
@@ -229,6 +319,7 @@ def encode_cuda(sym: torch.Tensor, rows: torch.Tensor, table: RansTable,
         kernels.stream_ptr())
     kernels.check("rans_encode", rc)
     kernels.LAUNCHES["rans_encode"] += 1
+    kernels.STEPS["rans_encode"] += n_pad // k
     return buf, states, seg_g
 
 
@@ -247,17 +338,28 @@ def decode_cuda(words: torch.Tensor, states: torch.Tensor,
     kernels.require(states, "states", torch.uint32, (B, k))
     kernels.require(rows, "rows", torch.int32, (B, n_pad))
     kernels.require(g0, "g0", torch.int32, (B,))
-    _check_table(table)
+    wide, bits = decode_layout(table.n_rows, table.n_symbols)
+    ix_bytes = table.index.element_size()
+    _check_smem(kernels.lib().aivc_rans_decode_smem_bytes(
+        table.n_rows, table.n_symbols, k, ix_bytes, bits, int(wide)))
+    tab = table.start_freq if wide else table.cdf16
+    kernels.require(tab, "start_freq" if wide else "cdf16",
+                    torch.int32 if wide else torch.uint16,
+                    (table.n_rows, table.n_symbols))
+    kernels.require(table.index, "index", index_format(table.n_symbols)[1],
+                    (table.n_rows, (1 << bits) + 1))
     syms = torch.empty((B, n_pad), dtype=torch.int32, device=dev)
     st_out = torch.empty((B, k), dtype=torch.uint32, device=dev)
     g_out = torch.empty((B,), dtype=torch.int32, device=dev)
     rc = kernels.lib().aivc_rans_decode(
         words.data_ptr(), words.shape[1], states.data_ptr(),
-        rows.data_ptr(), g0.data_ptr(), table.cdf16.data_ptr(),
-        table.n_rows, table.n_symbols, B, n_pad, k, syms.data_ptr(),
-        st_out.data_ptr(), g_out.data_ptr(), kernels.stream_ptr())
+        rows.data_ptr(), g0.data_ptr(), tab.data_ptr(), int(wide),
+        table.index.data_ptr(), ix_bytes, bits, table.n_rows,
+        table.n_symbols, B, n_pad, k, syms.data_ptr(), st_out.data_ptr(),
+        g_out.data_ptr(), kernels.stream_ptr())
     kernels.check("rans_decode", rc)
     kernels.LAUNCHES["rans_decode"] += 1
+    kernels.STEPS["rans_decode"] += n_pad // k
     return syms, st_out, g_out
 
 

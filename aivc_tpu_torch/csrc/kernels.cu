@@ -13,16 +13,21 @@
 // K3 warp_packed  replaces aivc_tpu/ops/warp_pallas.py:_warp_bounded_kernel
 //                 (through warp_bounded_pallas).
 // K4 gdn_fused    replaces aivc_tpu/ops/gdn.py:_gdn_kernel
-//                 (through gdn_pallas).
+//                 (through gdn_pallas): bf16 on the tensor cores, f32 on
+//                 CUDA cores.
 // K5 warp_vclamped replaces aivc_tpu/ops/warp_pallas.py:_warp_plane_kernel
 //                 (through warp_pallas).
 //
 // Each kernel is bit-identical to its plain PyTorch version beside its
-// wrapper (coding/vrans.py, ops/warp.py, ops/gdn.py).
+// wrapper (coding/vrans.py, ops/warp.py, ops/gdn.py), except K4's bf16
+// path, whose tensor cores sum in their own order: within 2 bf16 ulps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -30,7 +35,7 @@ constexpr uint32_t kProbScale = 1u << 16;   // PROB_BITS = 16
 constexpr uint32_t kRansL = 1u << 16;       // state lower bound, 16-bit words
 
 // ---------------------------------------------------------------------------
-// Shared helpers of K1 and K2
+// Helpers of K1
 // ---------------------------------------------------------------------------
 
 // Block-wide exclusive prefix sum of one int per thread, in thread order.
@@ -169,79 +174,264 @@ __global__ void rans_encode_kernel(const int* __restrict__ sym,
 // ---------------------------------------------------------------------------
 // K2: batched K-stream rANS decode with a resumable (states, g) carry.
 //
-// Bound, as K1: the serial step chain.  Design: one block per chunk, the
-// same lane ownership and shared-memory table as K1; slot -> symbol by a
-// binary search of the row in shared memory (the TPU's one-hot MXU
-// lookups were a workaround); renormalisation words are fed by a
-// block-wide exclusive prefix count of the lanes that need one.  Words
-// past w_cap read as 0, like the zero-padded buffer of the JAX decoder.
+// Bound, as K1: the serial step chain (a step needs the previous step's
+// states and word cursor g).  Design: one block per chunk, each thread
+// owning L adjacent lanes, and only the lookup, the rank and the word read
+// on the chain:
+// * the rows of step t + 2 are loaded into registers during step t;
+// * the word stream sits in a shared-memory ring of kRing chunks of
+//   max(K, 8) words: the reads of a step lie in [g, g + K) and g grows by
+//   at most K per step, so each chunk is refilled by cp.async at least
+//   kRing - 2 steps before it is read (words past w_cap are written as 0,
+//   like the zero-padded buffer of the JAX decoder);
+// * slot -> symbol through a per-row index of the symbol holding each
+//   bucket's first slot, flagged where the bucket holds that symbol alone
+//   (RansTable.index): most lookups end there, the others search only
+//   between two neighbouring entries (the TPU's one-hot MXU lookups were
+//   a workaround);
+// * the table in one of two layouts, the first that fits a block
+//   (coding/vrans.py:decode_layout): kWide, each symbol's start and
+//   frequency in one 32-bit word (RansTable.start_freq), so the common
+//   lookup is two shared-memory loads; else the u16 CDF (cdf16), start
+//   and next edge in two loads, for the larger alphabets (ac 128 and 256),
+//   with as many index bits as still fit;
+// * one barrier per step: lanes are ranked within a warp by __ballot_sync
+//   and __popc, across warps through double-buffered warp totals.
 // ---------------------------------------------------------------------------
-template <int L>
-__global__ void rans_decode_kernel(const uint16_t* __restrict__ words,
-                                   int w_cap,
-                                   const uint32_t* __restrict__ states_in,
-                                   const int* __restrict__ rows,
-                                   const int* __restrict__ g0,
-                                   const uint16_t* __restrict__ cdf_g,
-                                   int n_rows, int n_sym, int n_pad, int K,
-                                   int* __restrict__ syms,
-                                   uint32_t* __restrict__ states_out,
-                                   int* __restrict__ g_out) {
+constexpr int kRing = 8;            // ring chunks of max(K, 8) words
+// The slot index (RansTable.index; coding/vrans.py:index_format picks
+// the entry type): 2^bits + 1 entries per row, u8 (rows of at most 128
+// symbols, bits <= 9) or u16 (bits <= 8); the top bit flags a bucket
+// that holds one symbol.
+template <typename IndexT>
+struct SlotIndex {
+  static constexpr uint32_t kSingle = sizeof(IndexT) == 1 ? 0x80u : 0x8000u;
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Issues the copy of words [c W, c W + W), W = 2^cshift, of one chunk's
+// stream into its ring slot: 16-byte cp.async where the words are
+// aligned and inside [0, w_cap), plain copies (0 outside) elsewhere.
+__device__ __forceinline__ void ring_fill(uint16_t* ring, int ring_mask,
+                                          const uint16_t* wb, int w_cap,
+                                          bool vec, int c, int cshift) {
+  const int segs = 1 << (cshift - 3);
+  for (int i = threadIdx.x; i < segs; i += blockDim.x) {
+    const int p = (c << cshift) + (i << 3);
+    uint16_t* dst = ring + (p & ring_mask);
+    if (vec && p >= 0 && p + 8 <= w_cap) {
+      cp_async16(dst, wb + p);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int q = p + e;
+        dst[e] = (q >= 0 && q < w_cap) ? wb[q] : (uint16_t)0;
+      }
+    }
+  }
+}
+
+// A thread's L (1 or 2) adjacent ints at p: one 8-byte access where
+// every thread owns two lanes (kAll; the launcher checks alignment), else
+// one by one where the lanes exist.
+template <int L, bool kAll>
+__device__ __forceinline__ void load_lanes(int (&r)[L], const int* p,
+                                           bool active) {
+  if (kAll && L == 2) {
+    const int2 v = active ? __ldg(reinterpret_cast<const int2*>(p))
+                          : make_int2(0, 0);
+    r[0] = v.x;
+    r[1 % L] = v.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < L; ++j) r[j] = active ? p[j] : 0;
+  }
+}
+
+template <int L, bool kAll>
+__device__ __forceinline__ void store_lanes(int* p, const int (&v)[L],
+                                            bool active) {
+  if (!active) return;
+  if (kAll && L == 2) {
+    *reinterpret_cast<int2*>(p) = make_int2(v[0], v[1 % L]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < L; ++j) p[j] = v[j];
+  }
+}
+
+template <int L, bool kAll, typename IndexT, bool kWide>
+__global__ void __launch_bounds__(1024)
+    rans_decode_kernel(const uint16_t* __restrict__ words, int w_cap,
+                       int vec, const uint32_t* __restrict__ states_in,
+                       const int* __restrict__ rows,
+                       const int* __restrict__ g0,
+                       const void* __restrict__ tab_g,
+                       const IndexT* __restrict__ index_g, int ix_bits,
+                       int n_rows, int n_sym, int n_pad, int K, int cshift,
+                       int* __restrict__ syms,
+                       uint32_t* __restrict__ states_out,
+                       int* __restrict__ g_out) {
+  // kWide: start | (freq - 1) << 16 of each symbol; else the u16 CDF.
+  using TabT = typename std::conditional<kWide, uint32_t, uint16_t>::type;
   extern __shared__ __align__(16) unsigned char smem[];
-  int* warp_sums = reinterpret_cast<int*>(smem);
-  uint16_t* cdf = reinterpret_cast<uint16_t*>(smem + 32 * sizeof(int));
-  load_table(cdf, cdf_g, n_rows * n_sym);
+  int* warp_tot = reinterpret_cast<int*>(smem);              // [2][32]
+  uint16_t* ring = reinterpret_cast<uint16_t*>(smem + 64 * sizeof(int));
+  TabT* tab = reinterpret_cast<TabT*>(ring + (kRing << cshift));
+  constexpr uint32_t kSingle = SlotIndex<IndexT>::kSingle;
+  const int ix_shift = 16 - ix_bits;
+  const int ix_stride = (1 << ix_bits) + 1;
+  IndexT* sidx = reinterpret_cast<IndexT*>(tab + n_rows * n_sym);
+  const TabT* tg = static_cast<const TabT*>(tab_g);
+  for (int i = threadIdx.x; i < n_rows * n_sym; i += blockDim.x)
+    tab[i] = tg[i];
+  for (int i = threadIdx.x; i < n_rows * ix_stride; i += blockDim.x)
+    sidx[i] = index_g[i];
 
   const int b = blockIdx.x;
   const uint16_t* wb = words + (size_t)b * w_cap;
   const int* rb = rows + (size_t)b * n_pad;
   int* ob = syms + (size_t)b * n_pad;
   const int steps = n_pad / K;
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const unsigned lt_mask = (1u << lane) - 1u;
   const int lane0 = threadIdx.x * L;
-  const bool active = lane0 < K;
+  const bool active = kAll || lane0 < K;
+  const int ring_mask = (kRing << cshift) - 1;
 
   uint32_t x[L];
 #pragma unroll
   for (int j = 0; j < L; ++j)
     x[j] = active ? states_in[(size_t)b * K + lane0 + j] : 0u;
   int g = g0[b];
+  int issued = g >> cshift;            // floor: the chunk holding g
+  for (int c = issued; c < issued + kRing; ++c)
+    ring_fill(ring, ring_mask, wb, w_cap, vec != 0, c, cshift);
+  issued += kRing;
+  cp_async_commit();
+  cp_async_wait<0>();
 
-  for (int t = 0; t < steps; ++t) {
-    bool need[L];
-    int cnt = 0;
+  // Rows of step t + 2 at rq, symbols of step t at oq.
+  const int* rq = rb + lane0;
+  int* oq = ob + lane0;
+  int r0[L], r1[L];
+  load_lanes<L, kAll>(r0, rq, active && steps > 0);
+  load_lanes<L, kAll>(r1, rq + K, active && steps > 1);
+  rq += 2 * K;
+  __syncthreads();
+
+  for (int t = 0; t < steps; ++t, rq += K, oq += K) {
+    int rc[L];
 #pragma unroll
     for (int j = 0; j < L; ++j) {
-      need[j] = false;
-      if (active) {
-        const int idx = t * K + lane0 + j;
-        const uint16_t* row = cdf + clamp_index(rb[idx], n_rows) * n_sym;
-        const uint32_t slot = x[j] & (kProbScale - 1);
-        int lo = 0, hi = n_sym - 1;      // row[0] == 0 <= slot
+      rc[j] = r0[j];
+      r0[j] = r1[j];
+    }
+    load_lanes<L, kAll>(r1, rq, active && t + 2 < steps);
+
+    // The L lookups side by side: index entries, then the rare bounded
+    // searches, then the start / frequency words.
+    bool need[L];
+    int sy[L];
+    uint32_t e[L], slot[L];
+    const TabT* row[L];
+    const IndexT* ix[L];
+    bool search = false;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const int r = active ? clamp_index(rc[j], n_rows) : 0;
+      row[j] = tab + r * n_sym;
+      ix[j] = sidx + r * ix_stride;
+      slot[j] = x[j] & (kProbScale - 1);
+      e[j] = ix[j][slot[j] >> ix_shift];
+      sy[j] = (int)(e[j] & ~kSingle);
+      search |= !(e[j] & kSingle);
+    }
+    if (search) {
+#pragma unroll
+      for (int j = 0; j < L; ++j) {
+        if (e[j] & kSingle) continue;
+        // start(lo) <= slot < start(hi + 1)
+        int lo = sy[j];
+        int hi = (int)(ix[j][(slot[j] >> ix_shift) + 1] & ~kSingle);
         while (lo < hi) {
           const int mid = (lo + hi + 1) >> 1;
-          if (row[mid] <= slot) lo = mid; else hi = mid - 1;
+          if ((row[j][mid] & 0xFFFFu) <= slot[j]) lo = mid; else hi = mid - 1;
         }
-        const uint32_t start = row[lo];
-        const uint32_t next = lo + 1 < n_sym ? row[lo + 1] : kProbScale;
-        const uint32_t xs = (next - start) * (x[j] >> 16) + slot - start;
-        need[j] = xs < kRansL;
-        x[j] = xs;
-        ob[idx] = lo;
-        cnt += need[j] ? 1 : 0;
+        sy[j] = lo;
       }
     }
-    int total;
-    int rank = block_exclusive_scan(cnt, warp_sums, &total);
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      uint32_t start, freq;
+      if constexpr (kWide) {
+        const uint32_t w = row[j][sy[j]];
+        start = w & 0xFFFFu;
+        freq = (w >> 16) + 1;
+      } else {
+        start = row[j][sy[j]];
+        freq = (sy[j] + 1 < n_sym ? (uint32_t)row[j][sy[j] + 1] : kProbScale)
+               - start;
+      }
+      const uint32_t xs = freq * (x[j] >> 16) + slot[j] - start;
+      need[j] = active && xs < kRansL;
+      if (active) x[j] = xs;
+    }
+    store_lanes<L, kAll>(oq, sy, active);
+    // Rank in lane order: the lanes of lower threads of the warp, then
+    // this thread's lower lanes.
+    int rank = 0, warp_cnt = 0;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const unsigned m = __ballot_sync(0xffffffffu, need[j]);
+      rank += __popc(m & lt_mask);
+      warp_cnt += __popc(m);
+    }
+    int* tot = warp_tot + (t & 1) * 32;
+    if (lane == 0) tot[wid] = warp_cnt;
+    cp_async_wait<kRing - 3>();   // chunks issued kRing - 2 steps ago
+    __syncthreads();
+    const unsigned v = lane < n_warps ? (unsigned)tot[lane] : 0u;
+    const int base = (int)__reduce_add_sync(0xffffffffu, lane < wid ? v : 0u);
+    const int total = (int)__reduce_add_sync(0xffffffffu, v);
+
+    // Every read of step t - 1 is behind the barrier, so the slot of the
+    // chunk before g's may be refilled.
+    const int c_cur = g >> cshift;
+    while (issued < c_cur + kRing) {
+      ring_fill(ring, ring_mask, wb, w_cap, vec != 0, issued, cshift);
+      ++issued;
+    }
+    cp_async_commit();
+
+    int p = g + base + rank;
 #pragma unroll
     for (int j = 0; j < L; ++j) {
       if (need[j]) {
-        const int p = g + rank++;
-        const uint32_t w = (p >= 0 && p < w_cap) ? wb[p] : 0u;
-        x[j] = (x[j] << 16) | w;
+        x[j] = (x[j] << 16) | ring[p & ring_mask];
+        ++p;
       }
     }
     g += total;
   }
+  cp_async_wait<0>();
   if (active) {
 #pragma unroll
     for (int j = 0; j < L; ++j) states_out[(size_t)b * K + lane0 + j] = x[j];
@@ -312,22 +502,41 @@ __global__ void warp_packed_kernel(const int* __restrict__ packed,
 // K4: fused (I)GDN, NCHW.
 //
 // out[b, o, p] = x / n (x * n for the inverse), n = to_xtype(sqrt(
-// sum_j x2[b, j, p] * gammaT[j, o] + beta[o])), x2 = to_xtype(x * x), the
-// sum in f32 over j in order, each product and sum rounded (no FMA), so it
-// is bit-identical to ops/gdn.py:gdn_fused_plain run op by op.
+// sum_j x2[b, j, p] * gamma[o, j] + beta[o])), x2 = to_xtype(x * x).
 //
-// What bounds it on the H100: operations.  2 * C flops per output element
-// (C = 128: 256 per element) against 4 bytes moved per bf16 element, far
-// above the card's ~20 flop/byte f32 balance; without FMA and tensor cores
-// a simple kernel sits at or above the f32 operation bound.  Design: one
-// block per SM slot (persistent) walks tiles of 64 pixels of one image for
-// 128 output channels; per tile it takes the input channels in chunks of
-// 128, staging gammaT[chunk, 128] (64 KB f32, loaded once per block when
-// C == 128) and the squared inputs x2[chunk, 64] (32 KB) in dynamic
-// shared memory.  256 threads: 64 pixels (consecutive threads, so x loads
-// and out stores coalesce) x 4 groups of 32 output channels; a warp shares
-// its output channels, so gamma reads are shared-memory broadcasts and
-// each thread keeps 32 sums in registers.
+// bf16 (every bf16 checkpoint): gdn_fused_tc_kernel.  What bounds it on
+// the H100: bytes.  2 C flops per element against 4 bytes moved (C = 128:
+// 64 flop/byte) is far under the tensor cores' ~295 flop/byte balance.
+// The sum is the product D = gamma [128 out x C in] . x2 [C x pixels] on
+// the tensor cores (mma.sync m16n8k16, f32 accumulation), as JAX's
+// _gdn_kernel is an MXU product.  gamma (f32) enters as two bf16 terms,
+// hi = bf16(gamma) and lo = bf16(gamma - hi), split by the wrapper: two
+// products per tile keep ~16 bits of gamma; x2 = bf16(x * x) is an exact
+// bf16 operand, squared in the B fragments.  Design: persistent blocks,
+// two per SM, each for one image and one block of 128 output channels;
+// gamma's hi / lo tile (64 KB) stays in shared memory for the block's
+// life when C == 128 (reloaded per input chunk otherwise); x streams in
+// [128 channels x 64 pixels] tiles through a 2-stage cp.async ring, the
+// next tile in flight while this one is multiplied; 8 warps of 32 out x
+// 32 pixels take their fragments by ldmatrix (.trans for x, pixel-major
+// as NCHW lays it out) from XOR-swizzled tiles (no bank conflicts); the
+// epilogue adds beta, takes the root, rounds to bf16 and divides
+// (multiplies) x re-read from the staged tile, writes the result over
+// it, and the tile leaves in 16-byte stores along pixels.  The tensor
+// cores sum in their own order, so the result is not bit-identical to
+// ops/gdn.py:gdn_fused_plain: the normaliser is within ~2^-16 relative
+// of its ordered f32 sum before the rounding to bf16, so each output is
+// within 2 bf16 ulps of the plain version.
+//
+// f32: gdn_fused_f32_kernel, on CUDA cores, bit-identical to
+// gdn_fused_plain run op by op: the sum over j in order, each product and
+// sum rounded (no FMA).  What bounds it: operations (2 C flops per
+// element against 8 bytes, above the card's ~20 flop/byte f32 balance).
+// Persistent blocks walk tiles of 64 pixels for 128 output channels;
+// gamma^T chunks [128 j x 128 o] (64 KB, resident when C == 128) and the
+// squared inputs (32 KB) sit in shared memory; 256 threads: 64 pixels
+// (coalesced) x 4 groups of 32 output channels, a warp sharing its
+// channels so gamma reads broadcast.
 // ---------------------------------------------------------------------------
 constexpr int kGdnPix = 64;
 constexpr int kGdnOut = 128;
@@ -337,36 +546,11 @@ constexpr int kGdnPerThread = kGdnOut / kGdnGroups;
 constexpr size_t kGdnSmem =
     (size_t)(kGdnChunk * kGdnOut + kGdnChunk * kGdnPix) * sizeof(float);
 
-template <bool kBf16>
-__device__ __forceinline__ float gdn_load(const void* p, size_t i) {
-  if (kBf16) {
-    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-  }
-  return static_cast<const float*>(p)[i];
-}
-
-// Rounds v to the activation type and back (identity for f32).
-template <bool kBf16>
-__device__ __forceinline__ float gdn_round(float v) {
-  if (kBf16) return __bfloat162float(__float2bfloat16_rn(v));
-  return v;
-}
-
-template <bool kBf16>
-__device__ __forceinline__ void gdn_store(void* p, size_t i, float v) {
-  if (kBf16) {
-    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
-  } else {
-    static_cast<float*>(p)[i] = v;
-  }
-}
-
-template <bool kBf16>
 __global__ void __launch_bounds__(kGdnPix * kGdnGroups)
-    gdn_fused_kernel(const void* __restrict__ x,
-                     const float* __restrict__ gamma_t,
-                     const float* __restrict__ beta, int C, int HW,
-                     int inverse, void* __restrict__ out) {
+    gdn_fused_f32_kernel(const float* __restrict__ x,
+                         const float* __restrict__ gamma_t,
+                         const float* __restrict__ beta, int C, int HW,
+                         int inverse, float* __restrict__ out) {
   extern __shared__ float gdn_smem[];
   float* gs = gdn_smem;                        // [kGdnChunk][kGdnOut]
   float* xs = gdn_smem + kGdnChunk * kGdnOut;  // [kGdnChunk][kGdnPix]
@@ -401,9 +585,8 @@ __global__ void __launch_bounds__(kGdnPix * kGdnGroups)
         const int pp = i - jj * kGdnPix;
         float v = 0.0f;
         if (p0 + pp < HW) {
-          const float xv = gdn_load<kBf16>(
-              x, img + (size_t)(j0 + jj) * HW + p0 + pp);
-          v = gdn_round<kBf16>(__fmul_rn(xv, xv));
+          const float xv = x[img + (size_t)(j0 + jj) * HW + p0 + pp];
+          v = __fmul_rn(xv, xv);
         }
         xs[i] = v;
       }
@@ -427,15 +610,269 @@ __global__ void __launch_bounds__(kGdnPix * kGdnGroups)
 #pragma unroll
       for (int k = 0; k < kGdnPerThread; ++k) {
         const int o = o0 + ty * kGdnPerThread + k;
-        const float n =
-            gdn_round<kBf16>(__fsqrt_rn(__fadd_rn(acc[k], beta[o])));
+        const float n = __fsqrt_rn(__fadd_rn(acc[k], beta[o]));
         const size_t i = img + (size_t)o * HW + p;
-        const float xv = gdn_load<kBf16>(x, i);
-        gdn_store<kBf16>(out, i,
-                         inverse ? __fmul_rn(xv, n) : __fdiv_rn(xv, n));
+        const float xv = x[i];
+        out[i] = inverse ? __fmul_rn(xv, n) : __fdiv_rn(xv, n);
       }
     }
   }
+}
+
+constexpr int kTcPix = 64;      // pixels per tile
+constexpr int kTcCh = 128;      // output channels per block, input per chunk
+constexpr int kTcThreads = 256;
+constexpr int kTcGammaBytes = kTcCh * kTcCh * 2;   // one bf16 term
+constexpr int kTcStageBytes = kTcCh * kTcPix * 2;
+constexpr size_t kTcSmem = 2 * kTcGammaBytes + 2 * kTcStageBytes;  // 96 KB
+
+// Byte offset of element (row, col) of a [rows][width] bf16 tile whose
+// 16-byte chunks are XOR-swizzled by the row's low three bits, so the
+// eight rows an ldmatrix reads at one column hit eight different banks.
+__device__ __forceinline__ int swz(int row, int col, int width) {
+  return row * width * 2 + (((col >> 3) ^ (row & 7)) << 4) + ((col & 7) << 1);
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned addr, unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two bf16 values squared, each rounded to bf16 once (x2 = to_bf16(x * x)).
+__device__ __forceinline__ unsigned square_bf16x2(unsigned v) {
+  __nv_bfloat162 h;
+  memcpy(&h, &v, 4);
+  h = __hmul2(h, h);
+  memcpy(&v, &h, 4);
+  return v;
+}
+
+// Issues the copy of x's [128 channels from j0] x [64 pixels from p0]
+// tile into a stage: 16-byte cp.async where aligned and inside the
+// image, plain copies (0 past HW) elsewhere.
+__device__ __forceinline__ void gdn_stage_fill(unsigned char* stage,
+                                               const __nv_bfloat16* xi,
+                                               int j0, int p0, int HW,
+                                               bool vec) {
+  for (int seg = threadIdx.x; seg < kTcCh * (kTcPix / 8);
+       seg += kTcThreads) {
+    const int row = seg >> 3;
+    const int col = (seg & 7) << 3;
+    const int p = p0 + col;
+    const __nv_bfloat16* src = xi + (size_t)(j0 + row) * HW + p;
+    unsigned char* dst = stage + swz(row, col, kTcPix);
+    if (vec && p + 8 <= HW) {
+      cp_async16(dst, src);
+    } else {
+      __nv_bfloat16* d = reinterpret_cast<__nv_bfloat16*>(dst);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        d[e] = p + e < HW ? src[e] : __float2bfloat16_rn(0.0f);
+    }
+  }
+}
+
+// Loads gamma's hi and lo terms [128 out from o0] x [128 in from j0].
+__device__ __forceinline__ void gdn_gamma_fill(unsigned char* a_hi,
+                                               unsigned char* a_lo,
+                                               const __nv_bfloat16* g_hi,
+                                               const __nv_bfloat16* g_lo,
+                                               int C, int o0, int j0) {
+  for (int seg = threadIdx.x; seg < kTcCh * (kTcCh / 8); seg += kTcThreads) {
+    const int row = seg >> 4;
+    const int col = (seg & 15) << 3;
+    const size_t src = (size_t)(o0 + row) * C + j0 + col;
+    *reinterpret_cast<uint4*>(a_hi + swz(row, col, kTcCh)) =
+        *reinterpret_cast<const uint4*>(g_hi + src);
+    *reinterpret_cast<uint4*>(a_lo + swz(row, col, kTcCh)) =
+        *reinterpret_cast<const uint4*>(g_lo + src);
+  }
+}
+
+__global__ void __launch_bounds__(kTcThreads, 2)
+    gdn_fused_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ g_hi,
+                        const __nv_bfloat16* __restrict__ g_lo,
+                        const float* __restrict__ beta, int C, int HW,
+                        int inverse, int vec,
+                        __nv_bfloat16* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  unsigned char* a_hi = tc_smem;
+  unsigned char* a_lo = tc_smem + kTcGammaBytes;
+  unsigned char* stages = tc_smem + 2 * kTcGammaBytes;
+  const unsigned a_hi_s = (unsigned)__cvta_generic_to_shared(a_hi);
+  const unsigned a_lo_s = (unsigned)__cvta_generic_to_shared(a_lo);
+  const unsigned stages_s = (unsigned)__cvta_generic_to_shared(stages);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wo = warp & 3;            // 32 output channels
+  const int wp = warp >> 2;           // 32 pixels
+  const int o0 = blockIdx.y * kTcCh;
+  const int n_ch = C / kTcCh;
+  const size_t img = (size_t)blockIdx.z * C * HW;
+  const __nv_bfloat16* xi = x + img;
+  const int n_tiles = (HW + kTcPix - 1) / kTcPix;
+  const int my_tiles =
+      (int)blockIdx.x < n_tiles
+          ? (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x
+          : 0;
+  const int items = my_tiles * n_ch;
+  // Input chunks run from the one after the block's own, so the last
+  // chunk staged is x's [o0, o0 + 128), which the epilogue divides.
+  const int chunk0 = blockIdx.y + 1;
+
+  // This thread's accumulator rows: 2 m-tiles x 2 halves.
+  float bta[2][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      bta[mi][h] = beta[o0 + wo * 32 + mi * 16 + (lane >> 2) + h * 8];
+
+  if (items > 0) {
+    gdn_stage_fill(stages, xi, (chunk0 % n_ch) * kTcCh,
+                   blockIdx.x * kTcPix, HW, vec != 0);
+  }
+  cp_async_commit();
+  if (n_ch == 1) gdn_gamma_fill(a_hi, a_lo, g_hi, g_lo, C, o0, 0);
+
+  float acc[2][4][4];
+  for (int it = 0; it < items; ++it) {
+    const int ci = it % n_ch;
+    const int tile = blockIdx.x + (it / n_ch) * gridDim.x;
+    const int p0 = tile * kTcPix;
+    unsigned char* stage = stages + (it & 1) * kTcStageBytes;
+    const unsigned stage_s = stages_s + (it & 1) * kTcStageBytes;
+
+    cp_async_wait<0>();
+    __syncthreads();     // this item's tile is in; item it - 1 is done
+    if (it + 1 < items) {
+      const int ci1 = (it + 1) % n_ch;
+      const int tile1 = blockIdx.x + ((it + 1) / n_ch) * gridDim.x;
+      gdn_stage_fill(stages + ((it + 1) & 1) * kTcStageBytes, xi,
+                     ((chunk0 + ci1) % n_ch) * kTcCh, tile1 * kTcPix, HW,
+                     vec != 0);
+    }
+    cp_async_commit();
+    if (n_ch > 1) {
+      gdn_gamma_fill(a_hi, a_lo, g_hi, g_lo, C, o0,
+                     ((chunk0 + ci) % n_ch) * kTcCh);
+      __syncthreads();
+    }
+
+    if (ci == 0) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
+    }
+    const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int lcol = (lane >> 4) * 8;
+#pragma unroll
+    for (int k0 = 0; k0 < kTcCh; k0 += 16) {
+      unsigned b[2][4];
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        ldsm_x4_t(stage_s + swz(k0 + lrow, wp * 32 + nb * 16 + lcol, kTcPix),
+                  b[nb]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) b[nb][e] = square_bf16x2(b[nb][e]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int off = swz(wo * 32 + mi * 16 + lrow, k0 + lcol, kTcCh);
+        unsigned ah[4], al[4];
+        ldsm_x4(a_hi_s + off, ah);
+        ldsm_x4(a_lo_s + off, al);
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const unsigned b0 = b[ni >> 1][(ni & 1) * 2];
+          const unsigned b1 = b[ni >> 1][(ni & 1) * 2 + 1];
+          mma_bf16(acc[mi][ni], ah, b0, b1);
+          mma_bf16(acc[mi][ni], al, b0, b1);
+        }
+      }
+    }
+    if (ci != n_ch - 1) continue;
+
+    // Epilogue: rows o = wo*32 + mi*16 + lane/4 (+8), pixel pairs
+    // wp*32 + ni*8 + 2*(lane%4).
+    unsigned res[2][4][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int o = wo * 32 + mi * 16 + (lane >> 2) + h * 8;
+          const int p = wp * 32 + ni * 8 + (lane & 3) * 2;
+          __nv_bfloat162 xv;
+          memcpy(&xv, stage + swz(o, p, kTcPix), 4);
+          float r[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float n = __bfloat162float(__float2bfloat16_rn(
+                __fsqrt_rn(__fadd_rn(acc[mi][ni][h * 2 + e], bta[mi][h]))));
+            const float xe = __bfloat162float(e ? xv.y : xv.x);
+            r[e] = inverse ? __fmul_rn(xe, n) : __fdiv_rn(xe, n);
+          }
+          const __nv_bfloat162 rv = __floats2bfloat162_rn(r[0], r[1]);
+          memcpy(&res[mi][ni][h], &rv, 4);
+        }
+    __syncthreads();     // every warp's fragments of this tile are read
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int o = wo * 32 + mi * 16 + (lane >> 2) + h * 8;
+          const int p = wp * 32 + ni * 8 + (lane & 3) * 2;
+          memcpy(stage + swz(o, p, kTcPix), &res[mi][ni][h], 4);
+        }
+    __syncthreads();
+    __nv_bfloat16* oi = out + img;
+    for (int seg = threadIdx.x; seg < kTcCh * (kTcPix / 8);
+         seg += kTcThreads) {
+      const int row = seg >> 3;
+      const int col = (seg & 7) << 3;
+      const int p = p0 + col;
+      const unsigned char* src = stage + swz(row, col, kTcPix);
+      __nv_bfloat16* dst = oi + (size_t)(o0 + row) * HW + p;
+      if (vec && p + 8 <= HW) {
+        *reinterpret_cast<uint4*>(dst) =
+            *reinterpret_cast<const uint4*>(src);
+      } else {
+        const __nv_bfloat16* s = reinterpret_cast<const __nv_bfloat16*>(src);
+        for (int e = 0; e < 8 && p + e < HW; ++e) dst[e] = s[e];
+      }
+    }
+  }
+  cp_async_wait<0>();
 }
 
 // ---------------------------------------------------------------------------
@@ -497,14 +934,16 @@ __global__ void warp_vclamped_kernel(const float* __restrict__ x,
   }
 }
 
+// A rANS block: min(K, kDecodeThreads) threads, at least one warp.
+// kDecodeThreads (1024) was K2's fastest of 1024, 512 and 256 threads at
+// K = 2048 on the H100 (PERF.md); K1 keeps the same shape.
+constexpr int kDecodeThreads = 1024;
+
 int rans_threads(int K) {
-  int t = K < 1024 ? K : 1024;
+  int t = K < kDecodeThreads ? K : kDecodeThreads;
   return t < 32 ? 32 : t;
 }
 
-size_t rans_smem(int n_rows, int n_sym) {
-  return 32 * sizeof(int) + (size_t)n_rows * n_sym * sizeof(uint16_t);
-}
 
 template <typename Kern>
 cudaError_t set_smem(Kern kern, size_t smem) {
@@ -516,13 +955,86 @@ cudaError_t set_smem(Kern kern, size_t smem) {
   return cudaSuccess;
 }
 
+size_t rans_smem(int n_rows, int n_sym) {
+  return 32 * sizeof(int) + (size_t)n_rows * n_sym * sizeof(uint16_t);
+}
+
+// log2 of K2's ring chunk: max(K, 8) words, so a chunk fills by 16-byte
+// copies.
+int ring_chunk_shift(int K) {
+  int s = 3;
+  while ((1 << s) < K) ++s;
+  return s;
+}
+
+// Mirrored by coding/vrans.py:decode_smem_bytes, which picks the layout.
+size_t rans_decode_smem(int n_rows, int n_sym, int K, int index_bytes,
+                        int ix_bits, bool wide) {
+  return 64 * sizeof(int) +
+         ((size_t)kRing << ring_chunk_shift(K)) * sizeof(uint16_t) +
+         (size_t)n_rows * n_sym * (wide ? sizeof(uint32_t) : sizeof(uint16_t)) +
+         (size_t)n_rows * ((1 << ix_bits) + 1) * index_bytes;
+}
+
+template <int L, bool kAll, typename IndexT, bool kWide>
+cudaError_t launch_decode(int threads, const uint16_t* words, int w_cap,
+                          const uint32_t* states_in, const int* rows,
+                          const int* g0, const void* tab, const void* index,
+                          int ix_bits, int n_rows, int n_sym, int B,
+                          int n_pad, int K, int* syms, uint32_t* states_out,
+                          int* g_out, cudaStream_t stream) {
+  const size_t smem =
+      rans_decode_smem(n_rows, n_sym, K, sizeof(IndexT), ix_bits, kWide);
+  cudaError_t err = set_smem(rans_decode_kernel<L, kAll, IndexT, kWide>, smem);
+  if (err != cudaSuccess) return err;
+  const int vec = (w_cap % 8 == 0) &&
+                  (reinterpret_cast<uintptr_t>(words) % 16 == 0);
+  rans_decode_kernel<L, kAll, IndexT, kWide><<<B, threads, smem, stream>>>(
+      words, w_cap, vec, states_in, rows, g0, tab,
+      static_cast<const IndexT*>(index), ix_bits, n_rows, n_sym, n_pad, K,
+      ring_chunk_shift(K), syms, states_out, g_out);
+  return cudaGetLastError();
+}
+
+// Blocks for a persistent K4 launch: enough to fill every SM slot once
+// over all images and blocks of 128 output channels, at most one per tile.
+template <typename Kern>
+cudaError_t gdn_grid(Kern kern, int threads, size_t smem, int B, int C,
+                     int n_tiles, dim3* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) err = set_smem(kern, smem);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        threads, smem);
+  }
+  if (err != cudaSuccess) return err;
+  const long slots = (long)sms * (per_sm > 0 ? per_sm : 1);
+  const long groups = (long)B * (C / kGdnOut);
+  const long per_image = (slots + groups - 1) / groups;
+  *grid = dim3((unsigned)(per_image < n_tiles ? per_image : n_tiles),
+               (unsigned)(C / kGdnOut), (unsigned)B);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes K1/K2 need for a table of n_rows x n_sym.
-size_t aivc_rans_smem_bytes(int n_rows, int n_sym) {
+// Shared-memory bytes K1 needs for a table of n_rows x n_sym.
+size_t aivc_rans_encode_smem_bytes(int n_rows, int n_sym) {
   return rans_smem(n_rows, n_sym);
+}
+
+// Shared-memory bytes K2 needs at K for that table in its layout (wide:
+// start_freq, else cdf16) and its slot index of 2^ix_bits + 1 entries of
+// index_bytes per row.
+size_t aivc_rans_decode_smem_bytes(int n_rows, int n_sym, int K,
+                                   int index_bytes, int ix_bits, int wide) {
+  return rans_decode_smem(n_rows, n_sym, K, index_bytes, ix_bits, wide != 0);
 }
 
 // K1.  sym, rows: i32 [B, n_pad]; cdf: u16 [n_rows, n_sym]; seg_start:
@@ -558,32 +1070,48 @@ int aivc_rans_encode(const int* sym, const int* rows, const uint16_t* cdf,
 }
 
 // K2.  words u16 [B, w_cap]; states_in u32 [B, K]; rows i32 [B, n_pad];
-// g0 i32 [B].  Out: syms i32 [B, n_pad], states_out u32 [B, K], g_out [B].
+// g0 i32 [B]; tab u32 [n_rows, n_sym] (wide: RansTable.start_freq) or u16
+// [n_rows, n_sym] (RansTable.cdf16); index u8 (index_bytes 1) or u16
+// (index_bytes 2) [n_rows, 2^ix_bits + 1] (RansTable.index).
+// Out: syms i32 [B, n_pad], states_out u32 [B, K], g_out [B].
 int aivc_rans_decode(const uint16_t* words, int w_cap,
                      const uint32_t* states_in, const int* rows,
-                     const int* g0, const uint16_t* cdf, int n_rows,
-                     int n_sym, int B, int n_pad, int K, int* syms,
-                     uint32_t* states_out, int* g_out, cudaStream_t stream) {
-  const int threads = rans_threads(K);
-  const int L = K > 1024 ? K / 1024 : 1;
-  const size_t smem = rans_smem(n_rows, n_sym);
-  cudaError_t err;
-  if (L == 1) {
-    err = set_smem(rans_decode_kernel<1>, smem);
-    if (err != cudaSuccess) return (int)err;
-    rans_decode_kernel<1><<<B, threads, smem, stream>>>(
-        words, w_cap, states_in, rows, g0, cdf, n_rows, n_sym, n_pad, K,
-        syms, states_out, g_out);
-  } else if (L == 2) {
-    err = set_smem(rans_decode_kernel<2>, smem);
-    if (err != cudaSuccess) return (int)err;
-    rans_decode_kernel<2><<<B, threads, smem, stream>>>(
-        words, w_cap, states_in, rows, g0, cdf, n_rows, n_sym, n_pad, K,
-        syms, states_out, g_out);
-  } else {
+                     const int* g0, const void* tab, int wide,
+                     const void* index, int index_bytes, int ix_bits,
+                     int n_rows, int n_sym, int B, int n_pad, int K,
+                     int* syms, uint32_t* states_out, int* g_out,
+                     cudaStream_t stream) {
+  if (K < 1 || K > 2 * kDecodeThreads || ix_bits < 0 ||
+      ix_bits > (index_bytes == 1 ? 9 : 8) ||
+      (index_bytes != 1 && index_bytes != 2)) {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  const int threads = rans_threads(K);
+  const int L = K > threads ? K / threads : 1;
+  if (L * threads < K) return (int)cudaErrorInvalidValue;
+  // Every thread owns L lanes and the rows / symbols are 16-byte
+  // aligned: vector accesses, no lane checks.
+  const bool all = L * threads == K &&
+                   reinterpret_cast<uintptr_t>(rows) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(syms) % 16 == 0;
+  const bool small = index_bytes == 1;
+#define AIVC_DECODE_W(LL, ALL, IX, WIDE)                                    \
+  launch_decode<LL, ALL, IX, WIDE>(threads, words, w_cap, states_in, rows,  \
+                                   g0, tab, index, ix_bits, n_rows, n_sym,  \
+                                   B, n_pad, K, syms, states_out, g_out,    \
+                                   stream)
+#define AIVC_DECODE_IX(LL, ALL, IX)                                         \
+  (wide ? AIVC_DECODE_W(LL, ALL, IX, true) : AIVC_DECODE_W(LL, ALL, IX, false))
+#define AIVC_DECODE(LL, ALL)                                                \
+  (small ? AIVC_DECODE_IX(LL, ALL, uint8_t)                                 \
+         : AIVC_DECODE_IX(LL, ALL, uint16_t))
+  const cudaError_t err =
+      L == 1 ? (all ? AIVC_DECODE(1, true) : AIVC_DECODE(1, false))
+             : (all ? AIVC_DECODE(2, true) : AIVC_DECODE(2, false));
+#undef AIVC_DECODE
+#undef AIVC_DECODE_IX
+#undef AIVC_DECODE_W
+  return (int)err;
 }
 
 // K3.  packed i32 [B, H, W] (pack_yuv_u32); u, v f32 [B, H, W] flow
@@ -600,50 +1128,47 @@ int aivc_warp_packed(const int* packed, const float* u, const float* v,
   return (int)cudaGetLastError();
 }
 
-// K4.  x [B, C, HW] f32 (bf16 = 0) or bf16 (bf16 = 1); gamma_t f32 [C, C]
-// (gamma transposed: [j, o]); beta f32 [C]; C % 128 == 0.  Out like x.
-int aivc_gdn_fused(const void* x, int bf16, const float* gamma_t,
-                   const float* beta, int B, int C, int HW, int inverse,
-                   void* out, cudaStream_t stream) {
+// K4, f32.  x f32 [B, C, HW]; gamma_t f32 [C, C] (gamma transposed:
+// [j, o]); beta f32 [C]; C % 128 == 0.  Out: f32 [B, C, HW].
+int aivc_gdn_fused(const float* x, const float* gamma_t, const float* beta,
+                   int B, int C, int HW, int inverse, float* out,
+                   cudaStream_t stream) {
   if (C % kGdnOut != 0 || C % kGdnChunk != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const int n_tiles = (HW + kGdnPix - 1) / kGdnPix;
   const int threads = kGdnPix * kGdnGroups;
   if (n_tiles == 0 || B == 0) return (int)cudaGetLastError();
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+  dim3 grid;
+  cudaError_t err = gdn_grid(gdn_fused_f32_kernel, threads, kGdnSmem, B, C,
+                             n_tiles, &grid);
   if (err != cudaSuccess) return (int)err;
-  if (bf16) {
-    err = set_smem(gdn_fused_kernel<true>, kGdnSmem);
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, gdn_fused_kernel<true>, threads, kGdnSmem);
-    }
-  } else {
-    err = set_smem(gdn_fused_kernel<false>, kGdnSmem);
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, gdn_fused_kernel<false>, threads, kGdnSmem);
-    }
-  }
+  gdn_fused_f32_kernel<<<grid, threads, kGdnSmem, stream>>>(
+      x, gamma_t, beta, C, HW, inverse, out);
+  return (int)cudaGetLastError();
+}
+
+// K4, bf16, on the tensor cores.  x bf16 [B, C, HW]; g_hi, g_lo bf16
+// [C, C] ([o, j]: gamma = g_hi + g_lo to ~16 bits); beta f32 [C];
+// C % 128 == 0.  Out: bf16 [B, C, HW].
+int aivc_gdn_fused_bf16(const void* x, const void* g_hi, const void* g_lo,
+                        const float* beta, int B, int C, int HW,
+                        int inverse, void* out, cudaStream_t stream) {
+  if (C % kTcCh != 0) return (int)cudaErrorInvalidValue;
+  const int n_tiles = (HW + kTcPix - 1) / kTcPix;
+  if (n_tiles == 0 || B == 0) return (int)cudaGetLastError();
+  dim3 grid;
+  cudaError_t err = gdn_grid(gdn_fused_tc_kernel, kTcThreads, kTcSmem, B, C,
+                             n_tiles, &grid);
   if (err != cudaSuccess) return (int)err;
-  // Enough blocks to fill every SM once over all images and channel tiles.
-  const long slots = (long)sms * (per_sm > 0 ? per_sm : 1);
-  const long per_image = (slots + (long)B * (C / kGdnOut) - 1) /
-                         ((long)B * (C / kGdnOut));
-  const dim3 grid((unsigned)(per_image < n_tiles ? per_image : n_tiles),
-                  (unsigned)(C / kGdnOut), (unsigned)B);
-  if (bf16) {
-    gdn_fused_kernel<true><<<grid, threads, kGdnSmem, stream>>>(
-        x, gamma_t, beta, C, HW, inverse, out);
-  } else {
-    gdn_fused_kernel<false><<<grid, threads, kGdnSmem, stream>>>(
-        x, gamma_t, beta, C, HW, inverse, out);
-  }
+  const int vec = HW % 8 == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  gdn_fused_tc_kernel<<<grid, kTcThreads, kTcSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(g_hi),
+      static_cast<const __nv_bfloat16*>(g_lo), beta, C, HW, inverse, vec,
+      static_cast<__nv_bfloat16*>(out));
   return (int)cudaGetLastError();
 }
 

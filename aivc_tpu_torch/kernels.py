@@ -8,7 +8,8 @@ itself.  Nothing here runs at import time.
 
 Each wrapper of a kernel (coding/vrans.py, ops/warp.py, ops/gdn.py) adds
 one to its entry of ``LAUNCHES`` where it launches the kernel, and nowhere
-else.
+else.  The rANS wrappers also add the dependent steps each launch walks
+(n_pad / K) to ``STEPS``, on the host, with no synchronisation.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ MAX_SMEM = 232448
 
 LAUNCHES = {"rans_encode": 0, "rans_decode": 0, "warp_packed": 0,
             "gdn_fused": 0, "warp_vclamped": 0}
+STEPS = {"rans_encode": 0, "rans_decode": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: dict = {}
@@ -47,6 +49,8 @@ _I = ctypes.c_int
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in STEPS:
+        STEPS[k] = 0
 
 
 def _nvcc() -> str:
@@ -96,20 +100,26 @@ def lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         handle = ctypes.CDLL(str(build()))
-        handle.aivc_rans_smem_bytes.argtypes = [_I, _I]
-        handle.aivc_rans_smem_bytes.restype = ctypes.c_size_t
+        handle.aivc_rans_encode_smem_bytes.argtypes = [_I, _I]
+        handle.aivc_rans_encode_smem_bytes.restype = ctypes.c_size_t
+        handle.aivc_rans_decode_smem_bytes.argtypes = [_I] * 6
+        handle.aivc_rans_decode_smem_bytes.restype = ctypes.c_size_t
         handle.aivc_rans_encode.argtypes = (
             [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
              _P, _P, _P, _P])
         handle.aivc_rans_encode.restype = _I
         handle.aivc_rans_decode.argtypes = (
-            [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P])
+            [_P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+             _P, _P, _P, _P])
         handle.aivc_rans_decode.restype = _I
         handle.aivc_warp_packed.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P]
         handle.aivc_warp_packed.restype = _I
-        handle.aivc_gdn_fused.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I,
-                                          _P, _P]
+        handle.aivc_gdn_fused.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P,
+                                          _P]
         handle.aivc_gdn_fused.restype = _I
+        handle.aivc_gdn_fused_bf16.argtypes = [_P, _P, _P, _P, _I, _I, _I,
+                                               _I, _P, _P]
+        handle.aivc_gdn_fused_bf16.restype = _I
         handle.aivc_warp_vclamped.argtypes = [_P, _P, _I, _I, _I, _I, _I,
                                               _P, _P]
         handle.aivc_warp_vclamped.restype = _I

@@ -9,7 +9,8 @@ activation type.
 
 ``gdn_fused`` is the counterpart of the fused Pallas GDN,
 aivc_tpu/ops/gdn.py:gdn_pallas (body _gdn_kernel, gdn.py:121-165):
-kernel K4 (csrc/kernels.cu:gdn_fused_kernel) on the card,
+kernel K4 on the card (csrc/kernels.cu: gdn_fused_tc_kernel on the
+tensor cores for bf16, gdn_fused_f32_kernel for f32),
 ``gdn_fused_plain`` on the host, under JAX's shape rule.  Like
 gdn_pallas it is an exported function with no caller in the models: the
 GDN layers use ``gdn_apply``, as the JAX models do.
@@ -84,11 +85,23 @@ def gdn_fused_plain(x: torch.Tensor, beta: torch.Tensor, gamma: torch.Tensor,
     return x * norm if inverse else x / norm
 
 
+def split_gamma(gamma: torch.Tensor):
+    """gamma (f32) as two bf16 terms (hi, lo): hi = bf16(gamma), lo =
+    bf16(gamma - hi), so hi + lo keeps ~16 bits of gamma.  K4's bf16 path
+    multiplies both on the tensor cores."""
+    g = gamma.float()
+    hi = g.to(torch.bfloat16)
+    lo = (g - hi.float()).to(torch.bfloat16)
+    return hi.contiguous(), lo.contiguous()
+
+
 def gdn_fused_cuda(x: torch.Tensor, beta: torch.Tensor, gamma: torch.Tensor,
                    inverse: bool) -> torch.Tensor:
-    """Kernel K4 on the card: same contract as ``gdn_fused_plain`` for a
-    contiguous f32 or bf16 x with C % 128 == 0.  Forward only (it has no
-    backward yet), so an input that requires grad is refused."""
+    """Kernel K4 on the card: the contract of ``gdn_fused_plain`` for a
+    contiguous f32 or bf16 x with C % 128 == 0.  f32 x is bit-identical
+    to it; bf16 x goes to the tensor cores, which sum in their own order,
+    and is within 2 bf16 ulps of it.  Forward only (it has no backward
+    yet), so an input that requires grad is refused."""
     B, C, H, W = x.shape
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
@@ -98,15 +111,21 @@ def gdn_fused_cuda(x: torch.Tensor, beta: torch.Tensor, gamma: torch.Tensor,
     kernels.require(x, "x", x.dtype, (B, C, H, W))
     if C % FUSED_CHANNELS:
         raise ValueError(f"C={C} must be a multiple of {FUSED_CHANNELS}")
-    gamma_t = gamma.float().t().contiguous()      # [j, o]
     beta = beta.float().contiguous()
-    kernels.require(gamma_t, "gamma", torch.float32, (C, C))
     kernels.require(beta, "beta", torch.float32, (C,))
     out = torch.empty_like(x)
-    rc = kernels.lib().aivc_gdn_fused(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), gamma_t.data_ptr(),
-        beta.data_ptr(), B, C, H * W, int(inverse), out.data_ptr(),
-        kernels.stream_ptr())
+    if x.dtype == torch.bfloat16:
+        hi, lo = split_gamma(gamma)
+        kernels.require(hi, "gamma", torch.bfloat16, (C, C))
+        rc = kernels.lib().aivc_gdn_fused_bf16(
+            x.data_ptr(), hi.data_ptr(), lo.data_ptr(), beta.data_ptr(), B,
+            C, H * W, int(inverse), out.data_ptr(), kernels.stream_ptr())
+    else:
+        gamma_t = gamma.float().t().contiguous()      # [j, o]
+        kernels.require(gamma_t, "gamma", torch.float32, (C, C))
+        rc = kernels.lib().aivc_gdn_fused(
+            x.data_ptr(), gamma_t.data_ptr(), beta.data_ptr(), B, C, H * W,
+            int(inverse), out.data_ptr(), kernels.stream_ptr())
     kernels.check("gdn_fused", rc)
     kernels.LAUNCHES["gdn_fused"] += 1
     return out

@@ -2,7 +2,8 @@
 aivc_tpu/pipeline/video.py): consecutive GOPs, the last one padded by
 repeating the final frame, frames coded wave by wave with references
 taken from the codec's own decoded output, and a self-describing muxed
-bitstream.  MS-SSIM and resumable encodes wait for a later slice."""
+bitstream.  Resumable encodes and batched All-Intra wait for a later
+slice."""
 
 from __future__ import annotations
 

@@ -15,7 +15,11 @@ port's entry points with models_ckpt/bf16-r5:
   against its plain version at the forward path's shapes, and K4 (the
   exported gdn_fused, which no model calls, as gdn_pallas in JAX) run on
   the inputs of six CodecNet GDN layers captured during the forward and
-  checked against its plain version.
+  checked against its plain version (bf16: on the tensor cores, within
+  2 bf16 ulps).
+
+The main phase also prints the steps K2 walked in the clip's decode and
+their estimated share of the decode time.
 
 Every phase prints its elapsed seconds.  The last lines are the card's
 name and power limit, the kernels' JSON record and the result; any failed
@@ -78,9 +82,12 @@ def main() -> int:
                                 int(-(-cfg.flow_bound // 1)))
     for r in records:
         ph.say(f"kernel {r['name']}: bit-identical to its plain version; "
-               f"{r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, bound "
+               f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound "
                f"{r['bound_ms']:.4f} ms by {r['bound_by']}, library "
                f"{r['library_ms']})")
+    for r in records[:2]:
+        ph.say(f"kernel {r['name']}: {r['steps']} dependent steps per "
+               f"launch, {r['us_per_step']:.4f} us per step")
 
     # -- coding path ------------------------------------------------------
     frames = synthetic_frames(N_FRAMES, H, W)
@@ -95,6 +102,12 @@ def main() -> int:
            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
            f"launches {main_launches}")
     ph.say(f"main: frame bytes {res['frame_bytes']}")
+    k2_us = records[1]["us_per_step"]
+    ph.say(f"main: rans_decode walked {res['decode_steps']} steps in the "
+           f"decode; at {k2_us:.4f} us per step that is "
+           f"{res['decode_steps'] * k2_us / 1e3:.3f} ms, an estimated "
+           f"{res['decode_steps'] * k2_us / 1e6 / res['decode_s']:.4f} of "
+           f"the {res['decode_s'] * 1e3:.1f} ms decode")
     missing = [k for k in ("rans_encode", "rans_decode", "warp_packed")
                if main_launches[k] == 0]
     if missing:
@@ -149,9 +162,15 @@ def main() -> int:
            f"clamp); {rec5['ms']:.4f} ms (plain {rec5['plain_ms']:.3f} ms, "
            f"bound {rec5['bound_ms']:.4f} ms by {rec5['bound_by']}, library "
            f"{rec5['library_ms']:.4f} ms)")
-    for name, shape, err, rel in rec4["inputs"]:
-        ph.say(f"kernel gdn_fused on {name} {list(shape)}: {err} from its "
-               f"plain version, {rel:.3e} relative from gdn_apply")
+    for name, shape, err, ulps, rel in rec4["inputs"]:
+        ph.say(f"kernel gdn_fused on {name} {list(shape)}: {err} ({ulps} "
+               f"bf16 ulps) from its plain version, {rel:.3e} relative "
+               f"from gdn_apply")
+    ph.say(f"kernel gdn_fused: against its plain version at most "
+           f"{rec4['max_ulps']} bf16 ulps (limit {smoke.GDN_PLAIN_ULPS}), "
+           f"{rec4['max_rel_err']:.4e} relative, "
+           f"{rec4['differing_share']:.3e} of the outputs differ (limit "
+           f"{smoke.GDN_DIFFERING_SHARE})")
     ph.say(f"kernel gdn_fused: {rec4['ms']:.4f} ms on {rec4['timed_on']} "
            f"(plain {rec4['plain_ms']:.3f} ms, bound {rec4['bound_ms']:.4f} "
            f"ms by {rec4['bound_by']}, library {rec4['library_ms']:.4f} ms)")

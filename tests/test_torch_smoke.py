@@ -49,8 +49,12 @@ def test_phases_rehearsed_on_host(codec):
     records += smoke.check_warp(torch.device("cpu"), 2, 64, 128, 32, reps=1)
     assert [r["name"] for r in records] == ["rans_encode", "rans_decode",
                                             "warp_packed"]
+    for r in records[:2]:
+        assert r["steps"] > 0 and r["us_per_step"] > 0
     res = smoke.code_clip(codec, synthetic_frames(9, 128, 128))
     assert res["bytes"] > 0 and res["psnr"] > 10
+    assert res["decode_steps"] == 0           # plain decode: no launches
+    assert res["decode_s"] > 0
     assert 0.0 < res["ms_ssim"] < 1.0
     line = json.loads(smoke.kernels_line(records, {"rans_encode": 5,
                                                    "rans_decode": 14,
@@ -59,6 +63,39 @@ def test_phases_rehearsed_on_host(codec):
         assert set(r) == KEYS and r["launches"] > 0
         assert r["bound_by"] in ("bytes", "operations")
         assert r["max_abs_err"] == 0.0
+
+
+@pytest.mark.parametrize("fault", ["nan", "one_ulp_often"])
+def test_gdn_check_rejects_a_faulty_kernel(monkeypatch, fault):
+    """check_gdn fails a K4 whose bf16 output holds a NaN, and one that
+    stays within GDN_PLAIN_ULPS but differs from the plain version in far
+    more outputs than GDN_DIFFERING_SHARE (what fewer bits of gamma or
+    of the sum would give)."""
+    from aivc_tpu_torch.ops import gdn as gdn_ops
+
+    g = torch.Generator().manual_seed(11)
+    mod = gdn_ops.GDN(128)
+    with torch.no_grad():
+        mod.gamma.add_(torch.rand(mod.gamma.shape, generator=g) * 0.1)
+    x = (torch.randn((1, 128, 16, 32), generator=g) * 2).to(torch.bfloat16)
+    inputs = {"gdn": (x, mod)}
+    assert smoke.check_gdn(inputs, reps=1)["differing_share"] == 0.0
+    plain = gdn_ops.gdn_fused
+
+    def faulty(x, beta_r, gamma_r, inverse=False):
+        out = plain(x, beta_r, gamma_r, inverse).float()
+        if fault == "nan":
+            out.view(-1)[7] = float("nan")
+        else:   # one ulp up on every 50th output
+            _, e = torch.frexp(out)
+            step = torch.ldexp(torch.ones_like(out), e - 8)
+            out.view(-1)[::50] += step.view(-1)[::50]
+        return out.to(x.dtype)
+
+    monkeypatch.setattr(gdn_ops, "gdn_fused", faulty)
+    with pytest.raises(AssertionError, match="bf16 ulps" if fault == "nan"
+                       else "outputs differ"):
+        smoke.check_gdn(inputs, reps=1)
 
 
 def test_small_agreement_rehearsed_on_host():
@@ -83,6 +120,8 @@ def test_forward_phases_rehearsed_on_host(monkeypatch):
     rec4 = smoke.check_gdn(watch.inputs, reps=1)
     rec5 = smoke.check_warp_vclamped(cpu, 64, 128, reps=1)
     assert rec4["max_abs_err"] == 0.0 and rec5["max_abs_err"] == 0.0
+    assert rec4["max_ulps"] == 0.0 and rec4["differing_share"] == 0.0
+    assert rec4["bound_by"] == "bytes"    # bf16: the tensor-core rate
     assert rec4["launches"] == 0          # plain versions on the host
     assert [s[0] for s in rec4["inputs"]] == list(watch.inputs)
     assert rec5["clamped_share"] > 0.0
