@@ -21,6 +21,7 @@ K1 / K2 (csrc/kernels.cu) for tensors on the card.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -293,6 +294,18 @@ def _check_k(k: int) -> None:
         raise ValueError(f"K must be a power of two <= {K_MAX}, got {k}")
 
 
+@functools.lru_cache(maxsize=256)
+def _encode_scratch_bytes(n_rows: int, n_sym: int, batch: int,
+                          n_pad: int) -> int:
+    """Bytes of K1's scratch (each step's pre-renormalisation words, the
+    emit bitmap and the emits per placement tile, csrc/kernels.cu K1) for
+    ``batch`` chunks of ``n_pad``; raises unless the table fits a block.
+    One round trip to the library per shape."""
+    lib = kernels.lib()
+    _check_smem(lib.aivc_rans_encode_smem_bytes(n_rows, n_sym))
+    return lib.aivc_rans_encode_scratch_bytes(batch, n_pad)
+
+
 def encode_cuda(sym: torch.Tensor, rows: torch.Tensor, table: RansTable,
                 k: int, segment_steps: Sequence[int] = ()):
     """Kernel K1: same contract as ``encode_plain``."""
@@ -302,21 +315,22 @@ def encode_cuda(sym: torch.Tensor, rows: torch.Tensor, table: RansTable,
         raise ValueError("n_pad must be a multiple of k")
     kernels.require(sym, "sym", torch.int32, (B, n_pad))
     kernels.require(rows, "rows", torch.int32, (B, n_pad))
-    _check_smem(kernels.lib().aivc_rans_encode_smem_bytes(
-        table.n_rows, table.n_symbols))
     kernels.require(table.cdf16, "cdf16", torch.uint16,
                     (table.n_rows, table.n_symbols))
+    scratch_bytes = _encode_scratch_bytes(table.n_rows, table.n_symbols, B,
+                                          n_pad)
     starts = _segment_starts(segment_steps, n_pad // k)
     seg4 = starts + [-1] * (4 - len(starts))
     dev = sym.device
+    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
     buf = torch.empty((B, n_pad), dtype=torch.uint16, device=dev)
     states = torch.empty((B, k), dtype=torch.uint32, device=dev)
     seg_g = torch.empty((B, len(starts)), dtype=torch.int32, device=dev)
     rc = kernels.lib().aivc_rans_encode(
         sym.data_ptr(), rows.data_ptr(), table.cdf16.data_ptr(),
         table.n_rows, table.n_symbols, B, n_pad, k, *seg4, len(starts),
-        buf.data_ptr(), states.data_ptr(), seg_g.data_ptr(),
-        kernels.stream_ptr())
+        scratch.data_ptr(), buf.data_ptr(), states.data_ptr(),
+        seg_g.data_ptr(), kernels.stream_ptr())
     kernels.check("rans_encode", rc)
     kernels.LAUNCHES["rans_encode"] += 1
     kernels.STEPS["rans_encode"] += n_pad // k

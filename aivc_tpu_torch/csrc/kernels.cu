@@ -34,140 +34,317 @@ namespace {
 constexpr uint32_t kProbScale = 1u << 16;   // PROB_BITS = 16
 constexpr uint32_t kRansL = 1u << 16;       // state lower bound, 16-bit words
 
-// ---------------------------------------------------------------------------
-// Helpers of K1
-// ---------------------------------------------------------------------------
-
-// Block-wide exclusive prefix sum of one int per thread, in thread order.
-// Writes the block total to *total.  `warp_sums` holds >= 32 ints of
-// shared memory.  Every thread of the block must call it.
-__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums,
-                                                    int* total) {
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-  const int n_warps = (blockDim.x + 31) >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[wid] = x;
-  __syncthreads();
-  if (wid == 0) {
-    int s = lane < n_warps ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      int y = __shfl_up_sync(0xffffffffu, s, o);
-      if (lane >= o) s += y;
-    }
-    if (lane < n_warps) warp_sums[lane] = s;
-  }
-  __syncthreads();
-  const int base = wid > 0 ? warp_sums[wid - 1] : 0;
-  *total = warp_sums[n_warps - 1];
-  __syncthreads();  // warp_sums is rewritten by the next call
-  return base + x - v;
-}
-
-// Copies the CDF table [n_rows, n_sym] (u16, cdf[:, :n_sym]; the last edge
-// is PROB_SCALE implicitly) into dynamic shared memory.
-__device__ __forceinline__ void load_table(uint16_t* dst, const uint16_t* src,
-                                           int count) {
-  for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
-  __syncthreads();
-}
-
 __device__ __forceinline__ int clamp_index(int v, int n) {
   return v < 0 ? 0 : (v >= n ? n - 1 : v);
 }
 
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---------------------------------------------------------------------------
-// K1: batched interleaved K-stream rANS encode.
+// K1: batched interleaved K-stream rANS encode, in two passes.
 //
-// What bounds it on the H100: the serial chain of S = n_pad / K dependent
-// steps per chunk (each step needs the previous state), not bytes or
-// operations: ~1.9M symbols per 1080p P/B frame move ~15 MB, which the
-// card reads in microseconds.  Design: one block per chunk walks the
-// steps in reverse; each thread owns L = K / blockDim adjacent lanes so
-// K = 2048 fits a 1024-thread block; the CDF table sits in shared memory
-// (one load per block); the division is exact integer u32 `/` and `%`
-// (the TPU's f32 long division was a workaround); the emitted words go to
-// a descending cursor in decode order (step ascending, lane ascending) via
-// one block-wide exclusive scan of the emit flags per step, so no second
-// compaction pass exists.  The cursor is snapshotted at each segment's
-// first step for the fused frame format.
+// What bounds it on the H100: the chain of S = n_pad / K dependent steps
+// of each lane (a state needs the one of the step above it), not bytes or
+// operations: a 1080p B-wave of 4 chunks moves ~60 MB, which the card
+// reads in ~20 us.  Unlike the decode, the lanes of the encode do not
+// depend on each other: lane l's state at step t is a function of its own
+// state at t + 1 and its own (symbol, row).  What crosses lanes is only
+// where each emitted word lands: in decode order (step ascending, then
+// lane ascending), word (t, l) goes to n_pad - E + (emits before element
+// t K + l), E being the chunk's emits.  So the design splits the two:
+//
+// * pass A, rans_encode_lanes_kernel: one thread per lane, no barrier and
+//   no cross-lane traffic on the chain.  The thread walks its lane from
+//   step S - 1 to 0 with the state in a register.  The (symbol, row) of
+//   the next kEncAhead steps are in flight into a shared-memory ring by
+//   4-byte cp.async, each thread copying and reading only its own lane,
+//   and the table lookup of step t - kEncLook is done during step t, so
+//   only the compare, shift, u32 division and multiply-add sit on the
+//   chain.  The step body has no branch (stores and the flag word are
+//   predicated), so the compiler overlaps a step's lookups with the
+//   chain; with ~2 warps per SM (8,192 lanes of a 1080p wave) nothing
+//   else hides a stall.  The CDF table is in shared memory (one cp.async
+//   fill per block).  Each step writes its pre-renormalisation word into
+//   a scratch [B, n_pad] (coalesced) and its emit flags as one
+//   __ballot_sync mask per warp into a bitmap over the chunk's elements
+//   (bit e = element e = t K + l).  Blocks are small, so that the B K
+//   lanes spread over every SM.
+// * pass B, placement: a stream compaction of the scratch words by the
+//   bitmap, chunk by chunk.  rans_encode_count_kernel counts the emits of
+//   each tile of kEncTileWords bitmap words; rans_encode_place_kernel
+//   takes a tile's base (n_pad - E + the tiles before it), scans the
+//   popcounts of its words and lets one warp per word write each emitted
+//   word to base + prefix + __popc of the lower bits, and writes the
+//   cursor of each segment's first step (seg_g).
+//
+// The division is exact integer u32 `/` (the TPU's f32 long division was
+// a workaround); the three launches follow each other on one stream.
+// Ring depth and lookahead: the fastest of a sweep of ring depths 8-32
+// and lookaheads 1-2 on the H100.
 // ---------------------------------------------------------------------------
-template <int L>
-__global__ void rans_encode_kernel(const int* __restrict__ sym,
-                                   const int* __restrict__ rows,
-                                   const uint16_t* __restrict__ cdf_g,
-                                   int n_rows, int n_sym, int n_pad, int K,
-                                   int4 seg_start, int n_seg,
-                                   uint16_t* __restrict__ buf,
-                                   uint32_t* __restrict__ states,
-                                   int* __restrict__ seg_g) {
+constexpr int kEncAhead = 16;         // ring of (symbol, row) steps
+constexpr int kEncLook = 1;           // table lookups done this many steps ahead
+constexpr int kEncLanesMax = 256;     // most threads of a pass-A block
+constexpr int kEncTileWords = 256;    // bitmap words (of 32 elements) a tile
+constexpr int kEncPlaceThreads = 256;
+static_assert(kEncTileWords == kEncPlaceThreads,
+              "the placement scans one bitmap word per thread");
+static_assert((kEncAhead & (kEncAhead - 1)) == 0 && kEncLook < kEncAhead,
+              "the ring is a power of two deeper than the lookahead");
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__global__ void __launch_bounds__(kEncLanesMax)
+    rans_encode_lanes_kernel(const int* __restrict__ sym,
+                             const int* __restrict__ rows,
+                             const uint16_t* __restrict__ cdf_g, int vec,
+                             int n_rows, int n_sym, int B, int n_pad,
+                             int kshift, int flag_words,
+                             uint16_t* __restrict__ words,
+                             uint32_t* __restrict__ flags,
+                             uint32_t* __restrict__ states) {
   extern __shared__ __align__(16) unsigned char smem[];
-  int* warp_sums = reinterpret_cast<int*>(smem);
-  uint16_t* cdf = reinterpret_cast<uint16_t*>(smem + 32 * sizeof(int));
-  load_table(cdf, cdf_g, n_rows * n_sym);
+  // [kEncAhead slots][blockDim][symbol, row]: each thread's own lane, so a
+  // thread reads only what its own cp.async wrote (no barrier).
+  int* ring = reinterpret_cast<int*>(smem);
+  const int bd = blockDim.x;
+  uint16_t* cdf = reinterpret_cast<uint16_t*>(ring + 2 * kEncAhead * bd);
+  const int K = 1 << kshift;
+  const int steps = n_pad >> kshift;
+  const int g = blockIdx.x * bd + threadIdx.x;   // b K + lane
+  const bool active = g < B * K;
+  const int b = active ? g >> kshift : 0;
+  const int lane = g & (K - 1);
+  const int* sp = sym + (size_t)b * n_pad + lane;
+  const int* rp = rows + (size_t)b * n_pad + lane;
+  int* my = ring + 2 * threadIdx.x;
+  // Step t's pair sits in slot t % kEncAhead; one commit group per step.
+  // Every thread always copies, so the copy takes no branch: an inactive
+  // lane, or a step below 0, copies some element of the chunk into a slot
+  // that no live step reads.
+  auto fill = [&](int* slot, const int* s_src, const int* r_src) {
+    cp_async4(slot, s_src);
+    cp_async4(slot + 1, r_src);
+    cp_async_commit();
+  };
+  auto slot_of = [&](int t) { return my + 2 * (t & (kEncAhead - 1)) * bd; };
+  for (int d = 0; d < kEncAhead; ++d) {
+    const int t = steps - 1 - d;
+    const size_t off = t >= 0 ? (size_t)t << kshift : 0;
+    fill(slot_of(t), sp + off, rp + off);
+  }
+  // The table; symbols and rows outside it are a caller bug, which
+  // clamping keeps inside shared memory.
+  const int count = n_rows * n_sym;
+  const int n16 = vec ? count >> 3 : 0;
+  for (int i = threadIdx.x; i < n16; i += bd)
+    cp_async16(cdf + 8 * i, cdf_g + 8 * i);
+  cp_async_commit();
+  for (int i = 8 * n16 + threadIdx.x; i < count; i += bd) cdf[i] = cdf_g[i];
+  cp_async_wait<0>();
+  __syncthreads();
 
-  const int b = blockIdx.x;
-  const int* sb = sym + (size_t)b * n_pad;
-  const int* rb = rows + (size_t)b * n_pad;
-  uint16_t* out = buf + (size_t)b * n_pad;
-  const int steps = n_pad / K;
-  const int lane0 = threadIdx.x * L;
-  const bool active = lane0 < K;
-  const int seg_t[4] = {seg_start.x, seg_start.y, seg_start.z, seg_start.w};
+  // A lane group of the warp: the whole warp, or a chunk when K < 32.
+  const int grp = K < 32 ? K : 32;
+  const unsigned gmask = grp == 32 ? 0xffffffffu : (1u << grp) - 1u;
+  const int gshift = threadIdx.x & 31 & ~(grp - 1);
+  const bool lead = active && (lane & (grp - 1)) == 0;
+  uint32_t* fq = flags + (size_t)b * flag_words;
+  // The store of step t, and the copy sources of step t - kEncAhead, move
+  // down K elements a step.
+  const ptrdiff_t top = (ptrdiff_t)(steps - 1) << kshift;
+  uint16_t* wq = words + (size_t)b * n_pad + lane + top;
+  const ptrdiff_t ahead = (ptrdiff_t)kEncAhead << kshift;
+  const int* sq = sp + top - ahead;
+  const int* rq = rp + top - ahead;
+  int e = (int)top + lane;                 // element t K + lane
+  // Slot of step t0 - d: the same for every group of kEncAhead steps.
+  const int s0 = steps - 1;
 
-  uint32_t x[L];
+  // Start and frequency of the step whose pair is in `slot` (clamped
+  // nonsense for a step below 0).
+  auto lookup = [&](const int* slot, uint32_t& start, uint32_t& freq) {
+    const int2 sr = *reinterpret_cast<const int2*>(slot);
+    const int s = clamp_index(sr.x, n_sym);
+    const uint16_t* row = cdf + clamp_index(sr.y, n_rows) * n_sym;
+    start = row[s];
+    freq = (s + 1 < n_sym ? (uint32_t)row[s + 1] : kProbScale) - start;
+  };
+  uint32_t la_start[kEncLook], la_freq[kEncLook];   // steps t .. t - L + 1
 #pragma unroll
-  for (int j = 0; j < L; ++j) x[j] = kRansL;
-  int g = n_pad;
-
-  for (int t = steps - 1; t >= 0; --t) {
-    uint16_t word[L];
-    bool emit[L];
-    int cnt = 0;
+  for (int l = 0; l < kEncLook; ++l)
+    lookup(slot_of(s0 - l), la_start[l], la_freq[l]);
+  uint32_t x = kRansL, acc = 0;
+  // The step body has no branch, so the compiler can overlap the lookups
+  // ahead with this step's chain; steps past 0 in the last group of
+  // kEncAhead change nothing (`live`).
+  for (int t0 = steps - 1; t0 >= 0; t0 -= kEncAhead) {
 #pragma unroll
-    for (int j = 0; j < L; ++j) {
-      emit[j] = false;
-      word[j] = 0;
-      if (active) {
-        const int idx = t * K + lane0 + j;
-        // Symbols and rows outside the table are a caller bug; clamping
-        // keeps the kernel inside shared memory.
-        const int s = clamp_index(sb[idx], n_sym);
-        const uint16_t* row = cdf + clamp_index(rb[idx], n_rows) * n_sym;
-        const uint32_t start = row[s];
-        const uint32_t next = s + 1 < n_sym ? row[s + 1] : kProbScale;
-        const uint32_t freq = next - start;
-        uint32_t xs = x[j];
-        emit[j] = xs >= (freq << 16);
-        word[j] = (uint16_t)(xs & 0xFFFFu);
-        if (emit[j]) xs >>= 16;
-        const uint32_t q = xs / freq;
-        x[j] = (q << 16) + (xs - q * freq) + start;
-        cnt += emit[j] ? 1 : 0;
+    for (int d = 0; d < kEncAhead; ++d) {
+      const int t = t0 - d;
+      const bool live = t >= 0;
+      // Off the chain: step t - kEncAhead's pair into the slot step t
+      // left (read kEncLook steps ago), then the lookup of step t - L,
+      // whose copy is complete once at most kEncAhead - L groups pend.
+      const bool real = t >= kEncAhead;
+      fill(slot_of(s0 - d), real ? sq : sym, real ? rq : rows);
+      sq -= K;
+      rq -= K;
+      cp_async_wait<kEncAhead - kEncLook>();
+      uint32_t start_n, freq_n;
+      lookup(slot_of(s0 - d - kEncLook), start_n, freq_n);
+      const uint32_t start = la_start[0], freq = la_freq[0];
+#pragma unroll
+      for (int l = 0; l + 1 < kEncLook; ++l) {
+        la_start[l] = la_start[l + 1];
+        la_freq[l] = la_freq[l + 1];
       }
-    }
-    int total;
-    int rank = block_exclusive_scan(cnt, warp_sums, &total);
-    g -= total;
-#pragma unroll
-    for (int j = 0; j < L; ++j) {
-      if (emit[j]) out[g + rank++] = word[j];
-    }
-    if (threadIdx.x == 0) {
-      for (int i = 0; i < n_seg; ++i) {
-        if (t == seg_t[i]) seg_g[b * n_seg + i] = g;
-      }
+      la_start[kEncLook - 1] = start_n;
+      la_freq[kEncLook - 1] = freq_n;
+      // The chain: x >= freq << 16 as (x >> 16) >= freq (no overflow at
+      // freq = 2^16), then x' = (q << 16) + (xs - q freq) + start written
+      // as q (2^16 - freq) + xs + start (mod 2^32, exact: x' < 2^32).
+      const uint32_t hi = x >> 16;
+      const bool emit = hi >= freq;
+      const uint16_t word = (uint16_t)(x & 0xFFFFu);
+      const uint32_t xs = emit ? hi : x;
+      const uint32_t q = xs / freq;
+      const uint32_t xn = q * (kProbScale - freq) + xs + start;
+      x = live ? xn : x;
+      if (active && live) *wq = word;
+      wq -= K;
+      const unsigned m = __ballot_sync(0xffffffffu, emit && active && live);
+      // Bit e of the chunk's bitmap is element e = t K + lane: with K >= 32
+      // a lead's mask is one whole word; below, a word gathers 32 / K
+      // steps, stored at its lowest step.
+      const int sh = e & 31;
+      acc |= ((m >> gshift) & gmask) << sh;
+      if (lead && live && sh == 0) fq[e >> 5] = acc;
+      acc = sh == 0 ? 0u : acc;
+      e -= K;
     }
   }
-  if (active) {
+  cp_async_wait<0>();
+  if (active) states[g] = x;
+}
+
+// Emits per tile of kEncTileWords bitmap words: tile_tot[b, j].
+__global__ void __launch_bounds__(kEncPlaceThreads)
+    rans_encode_count_kernel(const uint32_t* __restrict__ flags,
+                             int flag_words, int n_tiles,
+                             int* __restrict__ tile_tot) {
+  __shared__ int warp_sum[kEncPlaceThreads / 32];
+  const int b = blockIdx.y;
+  const int j = blockIdx.x;
+  const int w = j * kEncTileWords + threadIdx.x;
+  int c = 0;
+  for (int i = w; i < (j + 1) * kEncTileWords && i < flag_words;
+       i += blockDim.x)
+    c += __popc(flags[(size_t)b * flag_words + i]);
+  c = (int)__reduce_add_sync(0xffffffffu, (unsigned)c);
+  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = c;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int s = 0;
+    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) s += warp_sum[i];
+    tile_tot[b * n_tiles + j] = s;
+  }
+}
+
+// Pass B's placement of one tile of one chunk (see K1 above).
+__global__ void __launch_bounds__(kEncPlaceThreads)
+    rans_encode_place_kernel(const uint16_t* __restrict__ words,
+                             const uint32_t* __restrict__ flags,
+                             const int* __restrict__ tile_tot, int n_pad,
+                             int K, int flag_words, int n_tiles,
+                             int4 seg_start, int n_seg,
+                             uint16_t* __restrict__ buf,
+                             int* __restrict__ seg_g) {
+  constexpr int kWarps = kEncPlaceThreads / 32;
+  __shared__ uint32_t fw[kEncTileWords];
+  __shared__ int pre[kEncTileWords];
+  __shared__ int warp_sum[kWarps];
+  __shared__ int base_s;
+  const int b = blockIdx.y;
+  const int j = blockIdx.x;
+  const int w0 = j * kEncTileWords;
+  const int nw = min(kEncTileWords, flag_words - w0);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wid = tid >> 5;
+
+  // The tile's base: n_pad - E + the emits of the tiles before it.
+  if (wid == 0) {
+    unsigned all = 0, before = 0;
+    for (int i = lane; i < n_tiles; i += 32) {
+      const unsigned v = (unsigned)tile_tot[b * n_tiles + i];
+      all += v;
+      before += i < j ? v : 0u;
+    }
+    all = __reduce_add_sync(0xffffffffu, all);
+    before = __reduce_add_sync(0xffffffffu, before);
+    if (lane == 0) base_s = n_pad - (int)all + (int)before;
+  }
+  // Exclusive prefix of the words' popcounts within the tile (one word
+  // per thread: kEncTileWords == kEncPlaceThreads).
+  const uint32_t f =
+      tid < nw ? flags[(size_t)b * flag_words + w0 + tid] : 0u;
+  const int c = __popc(f);
+  int incl = c;
 #pragma unroll
-    for (int j = 0; j < L; ++j) states[(size_t)b * K + lane0 + j] = x[j];
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) warp_sum[wid] = incl;
+  fw[tid] = f;
+  __syncthreads();
+  int wbase = 0;
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) wbase += i < wid ? warp_sum[i] : 0;
+  pre[tid] = wbase + incl - c;
+  __syncthreads();
+  const int base = base_s;
+
+  // Segment cursors: the position of each segment's first element.
+  if (tid < n_seg) {
+    const int st[4] = {seg_start.x, seg_start.y, seg_start.z, seg_start.w};
+    const int e = st[tid] * K;
+    const int w = (e >> 5) - w0;
+    if (w >= 0 && w < nw) {
+      seg_g[b * n_seg + tid] =
+          base + pre[w] + __popc(fw[w] & ((1u << (e & 31)) - 1u));
+    }
+  }
+
+  // One warp per bitmap word, one lane per element: the emitted words of
+  // a bitmap word land side by side.
+  const uint16_t* wb = words + (size_t)b * n_pad + (size_t)w0 * 32;
+  uint16_t* ob = buf + (size_t)b * n_pad;
+  const unsigned lt = (1u << lane) - 1u;
+#pragma unroll 4
+  for (int w = wid; w < nw; w += kWarps) {
+    const uint32_t m = fw[w];
+    if ((m >> lane) & 1u) ob[base + pre[w] + __popc(m & lt)] = wb[w * 32 + lane];
   }
 }
 
@@ -207,22 +384,6 @@ template <typename IndexT>
 struct SlotIndex {
   static constexpr uint32_t kSingle = sizeof(IndexT) == 1 ? 0x80u : 0x8000u;
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Issues the copy of words [c W, c W + W), W = 2^cshift, of one chunk's
 // stream into its ring slot: 16-byte cp.async where the words are
@@ -442,34 +603,34 @@ __global__ void __launch_bounds__(1024)
 // ---------------------------------------------------------------------------
 // K3: bilinear backward warp of a byte-packed YUV frame, border clamp.
 //
-// What bounds it on the H100: bytes.  Per output pixel it reads the
-// packed source (4 B, the four corners mostly from L1/L2: |flow| <= fb
-// keeps them within fb rows), two flow planes (8 B) and writes three f32
-// planes (12 B): ~24 B/pixel, ~50 MB per 1088x1920 frame, ~15 us at the
-// card's 3.35 TB/s.  Design: one thread per output pixel, coalesced on
-// the flow reads and the three plane writes; the TPU's windowed
-// select-accumulate was a workaround for its missing 2-D gather.  The
-// arithmetic keeps warp_packed's operation order with explicit
-// round-to-nearest intrinsics (no FMA contraction), so it is
+// What bounds it on the H100: bytes.  Per output pixel it reads the two
+// flow planes (8 B) and writes three f32 planes (12 B), and gathers four
+// packed corners (4 B of source per pixel once each): ~24 B/pixel, ~50 MB
+// per 4 frames of 1088x1920, ~60 us at the card's 3.35 TB/s.  Design: a
+// 3-D grid (x-tile, row tile, frame), so no thread divides to find its
+// pixel; a block of 16 x 16 threads covers 64 pixels x 16 rows, each
+// thread 4 adjacent pixels of one row, with one 16-byte load of u and of
+// v and one 16-byte store per output plane (kVec: W % 4 == 0 and u, v and
+// out 16-byte aligned, which the launcher checks; otherwise pixel by
+// pixel, for a ragged width or an unaligned base).  The corners are read
+// through the read-only path (__ldg): |flow| <= 38 keeps a block's
+// corners within a band of its 16 rows + 2 x 38 + 1, which L1 and L2
+// serve; the square-ish tile keeps that band small for incoherent flows.
+// The TPU's windowed select-accumulate was a workaround for its missing
+// 2-D gather.  The arithmetic keeps warp_packed's operation order with
+// explicit round-to-nearest intrinsics (no FMA contraction), so it is
 // bit-identical to the plain PyTorch version run op by op on the card.
 // ---------------------------------------------------------------------------
-__global__ void warp_packed_kernel(const int* __restrict__ packed,
-                                   const float* __restrict__ u,
-                                   const float* __restrict__ v, int B,
-                                   int H, int W,
-                                   float* __restrict__ out) {
-  const size_t hw = (size_t)H * W;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)B * hw) return;
-  const size_t b = i / hw;
-  const int p = (int)(i - b * hw);
-  const int y = p / W;
-  const int x = p - y * W;
-  const float inv255 = __int_as_float(0x3b808081);  // float32(1 / 255)
+constexpr int kWarpTx = 16;   // threads along x, 4 pixels each
+constexpr int kWarpTy = 16;   // rows
 
-  const float sx = fminf(fmaxf(__fadd_rn((float)x, u[i]), 0.0f),
+__device__ __forceinline__ void warp_pixel(const int* __restrict__ src,
+                                           int x, int y, float u, float v,
+                                           int H, int W, float (&r)[3]) {
+  const float inv255 = __int_as_float(0x3b808081);  // float32(1 / 255)
+  const float sx = fminf(fmaxf(__fadd_rn((float)x, u), 0.0f),
                          (float)(W - 1));
-  const float sy = fminf(fmaxf(__fadd_rn((float)y, v[i]), 0.0f),
+  const float sy = fminf(fmaxf(__fadd_rn((float)y, v), 0.0f),
                          (float)(H - 1));
   const float x0f = floorf(sx);
   const float y0f = floorf(sy);
@@ -479,11 +640,10 @@ __global__ void warp_packed_kernel(const int* __restrict__ packed,
   const int y0 = (int)y0f;
   const int x1 = min(x0 + 1, W - 1);
   const int y1 = min(y0 + 1, H - 1);
-  const int* src = packed + b * hw;
-  const uint32_t c00 = (uint32_t)src[y0 * W + x0];
-  const uint32_t c01 = (uint32_t)src[y0 * W + x1];
-  const uint32_t c10 = (uint32_t)src[y1 * W + x0];
-  const uint32_t c11 = (uint32_t)src[y1 * W + x1];
+  const uint32_t c00 = (uint32_t)__ldg(src + y0 * W + x0);
+  const uint32_t c01 = (uint32_t)__ldg(src + y0 * W + x1);
+  const uint32_t c10 = (uint32_t)__ldg(src + y1 * W + x0);
+  const uint32_t c11 = (uint32_t)__ldg(src + y1 * W + x1);
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) {
     const int sh = 8 * ch;
@@ -493,8 +653,45 @@ __global__ void warp_packed_kernel(const int* __restrict__ packed,
     const float v11 = __fmul_rn((float)((c11 >> sh) & 0xFFu), inv255);
     const float top = __fadd_rn(v00, __fmul_rn(__fsub_rn(v01, v00), wx));
     const float bot = __fadd_rn(v10, __fmul_rn(__fsub_rn(v11, v10), wx));
-    out[(b * 3 + ch) * hw + p] =
-        __fadd_rn(top, __fmul_rn(__fsub_rn(bot, top), wy));
+    r[ch] = __fadd_rn(top, __fmul_rn(__fsub_rn(bot, top), wy));
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kWarpTx * kWarpTy)
+    warp_packed_kernel(const int* __restrict__ packed,
+                       const float* __restrict__ u,
+                       const float* __restrict__ v, int H, int W,
+                       float* __restrict__ out) {
+  const int b = blockIdx.z;
+  const int y = blockIdx.y * kWarpTy + threadIdx.y;
+  const int x0 = (blockIdx.x * kWarpTx + threadIdx.x) * 4;
+  if (y >= H || x0 >= W) return;
+  const size_t hw = (size_t)H * W;
+  const size_t row = (size_t)b * hw + (size_t)y * W + x0;
+  const int* src = packed + (size_t)b * hw;
+  float* o0 = out + (size_t)b * 3 * hw + (size_t)y * W + x0;
+  if (kVec) {
+    const float4 uq = __ldg(reinterpret_cast<const float4*>(u + row));
+    const float4 vq = __ldg(reinterpret_cast<const float4*>(v + row));
+    const float uu[4] = {uq.x, uq.y, uq.z, uq.w};
+    const float vv[4] = {vq.x, vq.y, vq.z, vq.w};
+    float r[4][3];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) warp_pixel(src, x0 + j, y, uu[j], vv[j], H, W, r[j]);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      *reinterpret_cast<float4*>(o0 + ch * hw) =
+          make_float4(r[0][ch], r[1][ch], r[2][ch], r[3][ch]);
+    }
+  } else {
+    for (int j = 0; j < 4 && x0 + j < W; ++j) {
+      float r[3];
+      warp_pixel(src, x0 + j, y, __ldg(u + row + j), __ldg(v + row + j), H,
+                 W, r);
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) o0[ch * hw + j] = r[ch];
+    }
   }
 }
 
@@ -934,9 +1131,9 @@ __global__ void warp_vclamped_kernel(const float* __restrict__ x,
   }
 }
 
-// A rANS block: min(K, kDecodeThreads) threads, at least one warp.
+// A K2 block: min(K, kDecodeThreads) threads, at least one warp.
 // kDecodeThreads (1024) was K2's fastest of 1024, 512 and 256 threads at
-// K = 2048 on the H100 (PERF.md); K1 keeps the same shape.
+// K = 2048 on the H100 (PERF.md).
 constexpr int kDecodeThreads = 1024;
 
 int rans_threads(int K) {
@@ -955,8 +1152,68 @@ cudaError_t set_smem(Kern kern, size_t smem) {
   return cudaSuccess;
 }
 
-size_t rans_smem(int n_rows, int n_sym) {
-  return 32 * sizeof(int) + (size_t)n_rows * n_sym * sizeof(uint16_t);
+// Pass A of K1: the (symbol, row) ring of a block of `threads`, then the
+// table.
+constexpr size_t kEncRingBytesPerThread = 2 * kEncAhead * sizeof(int);
+
+size_t rans_encode_smem(int n_rows, int n_sym, int threads) {
+  return kEncRingBytesPerThread * threads +
+         (size_t)n_rows * n_sym * sizeof(uint16_t);
+}
+
+// K1's launch state of one device, set up at its first call there: the SM
+// count, and pass A's shared-memory limit raised once to the card's most
+// (so a call makes no attribute query or set).
+struct EncodeDevice {
+  int sms;        // 0: not set up yet
+  int smem_max;
+};
+
+cudaError_t encode_device(EncodeDevice* out) {
+  constexpr int kMaxDevices = 64;
+  static EncodeDevice cache[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  EncodeDevice& d = cache[dev];
+  if (d.sms == 0) {
+    int sms = 0, smem_max = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(
+          &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    }
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(rans_encode_lanes_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem_max);
+    }
+    if (err != cudaSuccess) return err;
+    d.smem_max = smem_max;
+    d.sms = sms;
+  }
+  *out = d;
+  return cudaSuccess;
+}
+
+// K1's scratch, one allocation: the words u16 [B, n_pad], the emit bitmap
+// u32 [B, flag words] and the emits per placement tile i32 [B, tiles],
+// each part 16-byte aligned.
+int rans_encode_flag_words(int n_pad) { return (n_pad + 31) / 32; }
+
+int rans_encode_tiles(int n_pad) {
+  return (rans_encode_flag_words(n_pad) + kEncTileWords - 1) / kEncTileWords;
+}
+
+size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+size_t rans_encode_words_bytes(int B, int n_pad) {
+  return align16((size_t)B * n_pad * sizeof(uint16_t));
+}
+
+size_t rans_encode_flags_bytes(int B, int n_pad) {
+  return align16((size_t)B * rans_encode_flag_words(n_pad) * sizeof(uint32_t));
 }
 
 // log2 of K2's ring chunk: max(K, 8) words, so a chunk fills by 16-byte
@@ -1024,9 +1281,18 @@ cudaError_t gdn_grid(Kern kern, int threads, size_t smem, int B, int C,
 
 extern "C" {
 
-// Shared-memory bytes K1 needs for a table of n_rows x n_sym.
+// Shared-memory bytes K1 needs for a table of n_rows x n_sym: pass A at
+// its smallest block (one warp), to which the launcher shrinks a block
+// whose ring and table would not fit.
 size_t aivc_rans_encode_smem_bytes(int n_rows, int n_sym) {
-  return rans_smem(n_rows, n_sym);
+  return rans_encode_smem(n_rows, n_sym, 32);
+}
+
+// Bytes of K1's scratch for B chunks of n_pad symbols.
+size_t aivc_rans_encode_scratch_bytes(int B, int n_pad) {
+  return rans_encode_words_bytes(B, n_pad) +
+         rans_encode_flags_bytes(B, n_pad) +
+         (size_t)B * rans_encode_tiles(n_pad) * sizeof(int);
 }
 
 // Shared-memory bytes K2 needs at K for that table in its layout (wide:
@@ -1037,35 +1303,64 @@ size_t aivc_rans_decode_smem_bytes(int n_rows, int n_sym, int K,
   return rans_decode_smem(n_rows, n_sym, K, index_bytes, ix_bits, wide != 0);
 }
 
-// K1.  sym, rows: i32 [B, n_pad]; cdf: u16 [n_rows, n_sym]; seg_start:
-// the first step of each of n_seg <= 4 segments.  Out: buf u16 [B, n_pad]
-// (chunk b's words are buf[b, seg_g[b, 0]:n_pad]), states u32 [B, K],
-// seg_g i32 [B, n_seg].
+// K1.  sym, rows: i32 [B, n_pad]; cdf: u16 [n_rows, n_sym]; K a power of
+// two that divides n_pad; seg_start: the first step of each of n_seg <= 4
+// segments; scratch: aivc_rans_encode_scratch_bytes(B, n_pad) bytes.  Out:
+// buf u16 [B, n_pad] (chunk b's words are buf[b, seg_g[b, 0]:n_pad]),
+// states u32 [B, K], seg_g i32 [B, n_seg].  Three launches: pass A, the
+// tile counts, the placement.
 int aivc_rans_encode(const int* sym, const int* rows, const uint16_t* cdf,
                      int n_rows, int n_sym, int B, int n_pad, int K,
                      int s0, int s1, int s2, int s3, int n_seg,
-                     uint16_t* buf, uint32_t* states, int* seg_g,
-                     cudaStream_t stream) {
-  const int threads = rans_threads(K);
-  const int L = K > 1024 ? K / 1024 : 1;
-  const size_t smem = rans_smem(n_rows, n_sym);
-  const int4 seg = make_int4(s0, s1, s2, s3);
-  cudaError_t err;
-  if (L == 1) {
-    err = set_smem(rans_encode_kernel<1>, smem);
-    if (err != cudaSuccess) return (int)err;
-    rans_encode_kernel<1><<<B, threads, smem, stream>>>(
-        sym, rows, cdf, n_rows, n_sym, n_pad, K, seg, n_seg, buf, states,
-        seg_g);
-  } else if (L == 2) {
-    err = set_smem(rans_encode_kernel<2>, smem);
-    if (err != cudaSuccess) return (int)err;
-    rans_encode_kernel<2><<<B, threads, smem, stream>>>(
-        sym, rows, cdf, n_rows, n_sym, n_pad, K, seg, n_seg, buf, states,
-        seg_g);
-  } else {
+                     void* scratch, uint16_t* buf, uint32_t* states,
+                     int* seg_g, cudaStream_t stream) {
+  if (K < 1 || (K & (K - 1)) || n_pad % K || n_seg < 1 || n_seg > 4) {
     return (int)cudaErrorInvalidValue;
   }
+  if (B == 0) return (int)cudaGetLastError();
+  int kshift = 0;
+  while ((1 << kshift) < K) ++kshift;
+  const int flag_words = rans_encode_flag_words(n_pad);
+  const int n_tiles = rans_encode_tiles(n_pad);
+  char* sc = static_cast<char*>(scratch);
+  uint16_t* words = reinterpret_cast<uint16_t*>(sc);
+  uint32_t* flags =
+      reinterpret_cast<uint32_t*>(sc + rans_encode_words_bytes(B, n_pad));
+  int* tile_tot = reinterpret_cast<int*>(
+      sc + rans_encode_words_bytes(B, n_pad) +
+      rans_encode_flags_bytes(B, n_pad));
+  EncodeDevice d;
+  cudaError_t err = encode_device(&d);
+  if (err != cudaSuccess) return (int)err;
+  // Pass A: the fewest warps a block that still spread the lanes over
+  // every SM, and no more than the ring beside the table leaves room for.
+  const size_t table = (size_t)n_rows * n_sym * sizeof(uint16_t);
+  const long fit = table > (size_t)d.smem_max
+                       ? 0
+                       : (long)((d.smem_max - table) /
+                                kEncRingBytesPerThread) / 32 * 32;
+  const long lanes = (long)B * K;
+  long per = (lanes + d.sms - 1) / d.sms;
+  per = (per + 31) / 32 * 32;
+  per = per < 32 ? 32 : (per > kEncLanesMax ? kEncLanesMax : per);
+  if (fit < 32) return (int)cudaErrorInvalidValue;
+  const int threads = (int)(per < fit ? per : fit);
+  const unsigned blocks = (unsigned)((lanes + threads - 1) / threads);
+  const size_t smem = rans_encode_smem(n_rows, n_sym, threads);
+  const int vec = (reinterpret_cast<uintptr_t>(cdf) & 15) == 0;
+  rans_encode_lanes_kernel<<<blocks, threads, smem, stream>>>(
+      sym, rows, cdf, vec, n_rows, n_sym, B, n_pad, kshift, flag_words,
+      words, flags, states);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)n_tiles, (unsigned)B);
+  rans_encode_count_kernel<<<grid, kEncPlaceThreads, 0, stream>>>(
+      flags, flag_words, n_tiles, tile_tot);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  rans_encode_place_kernel<<<grid, kEncPlaceThreads, 0, stream>>>(
+      words, flags, tile_tot, n_pad, K, flag_words, n_tiles,
+      make_int4(s0, s1, s2, s3), n_seg, buf, seg_g);
   return (int)cudaGetLastError();
 }
 
@@ -1118,12 +1413,23 @@ int aivc_rans_decode(const uint16_t* words, int w_cap,
 // planes.  Out: f32 [B, 3, H, W].
 int aivc_warp_packed(const int* packed, const float* u, const float* v,
                      int B, int H, int W, float* out, cudaStream_t stream) {
-  const size_t total = (size_t)B * H * W;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  if (blocks > 0) {
-    warp_packed_kernel<<<blocks, threads, 0, stream>>>(packed, u, v, B, H,
-                                                       W, out);
+  if (B == 0 || H == 0 || W == 0) return (int)cudaGetLastError();
+  const dim3 block(kWarpTx, kWarpTy);
+  const long gx = ((W + 3) / 4 + kWarpTx - 1) / kWarpTx;
+  const long gy = (H + kWarpTy - 1) / kWarpTy;
+  if (B > 65535 || gy > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)B);
+  // 16-byte flow loads and plane stores: every row starts 16-byte aligned.
+  const bool vec = W % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(u) |
+                     reinterpret_cast<uintptr_t>(v) |
+                     reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  if (vec) {
+    warp_packed_kernel<true><<<grid, block, 0, stream>>>(packed, u, v, H, W,
+                                                         out);
+  } else {
+    warp_packed_kernel<false><<<grid, block, 0, stream>>>(packed, u, v, H,
+                                                          W, out);
   }
   return (int)cudaGetLastError();
 }

@@ -32,7 +32,9 @@ NVCC_FLAGS = ["-O3", "-gencode", "arch=compute_90a,code=sm_90a",
               "-std=c++17", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC"]
 NVCC_TIMEOUT_S = 600
-# Shared memory one block may use on the H100 (227 KB).
+# Shared memory one block may use on the H100 (227 KB).  K1 fits a table
+# of up to MAX_SMEM - 4096 = 228,352 B beside the ring of its smallest block
+# (csrc/kernels.cu:aivc_rans_encode_smem_bytes).
 MAX_SMEM = 232448
 
 LAUNCHES = {"rans_encode": 0, "rans_decode": 0, "warp_packed": 0,
@@ -102,11 +104,13 @@ def lib() -> ctypes.CDLL:
         handle = ctypes.CDLL(str(build()))
         handle.aivc_rans_encode_smem_bytes.argtypes = [_I, _I]
         handle.aivc_rans_encode_smem_bytes.restype = ctypes.c_size_t
+        handle.aivc_rans_encode_scratch_bytes.argtypes = [_I, _I]
+        handle.aivc_rans_encode_scratch_bytes.restype = ctypes.c_size_t
         handle.aivc_rans_decode_smem_bytes.argtypes = [_I] * 6
         handle.aivc_rans_decode_smem_bytes.restype = ctypes.c_size_t
         handle.aivc_rans_encode.argtypes = (
             [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-             _P, _P, _P, _P])
+             _P, _P, _P, _P, _P])
         handle.aivc_rans_encode.restype = _I
         handle.aivc_rans_decode.argtypes = (
             [_P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,

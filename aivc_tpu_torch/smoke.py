@@ -12,7 +12,9 @@ take their plain versions).  On the card:
            and K2 also per dependent step)
   main     a 9-frame RA clip (GOP 8) encoded then decoded through the
            entry points, bit-exact, with every kernel's launch count and
-           the steps K2 walked in the decode
+           the steps K1 walked in the encode and K2 in the decode; then
+           a second encode of the clip captures the inputs of one K3
+           launch (a B-frame wave), on which K3 is checked and timed
   small    the same clip at 64x64 on the card and on the host, which
            must agree within the stated tolerance
   forward  the RD forward (gop_rd_loss, eval) of a 9-frame GOP with the
@@ -60,6 +62,9 @@ from aivc_tpu_torch.utils.checkpoint import load_checkpoint
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12
+# Cycles of torch.cuda._sleep per second of host time: the H100's top SM
+# clock, so the sleep lasts at least as long as asked.
+SLEEP_CYCLES_PER_S = 1.98e9
 # Host-vs-card agreement of the small clip (bf16 convolutions round
 # differently on the two devices, so symbols may differ slightly).
 SMALL_BYTES_RTOL = 0.10
@@ -126,13 +131,23 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize()
 
 
-def time_ms(fn, device: torch.device, reps: int, warmup: int = 1) -> float:
+def time_ms(fn, device: torch.device, reps: int, warmup: int = 1,
+            hide_host: bool = False) -> float:
     """Mean milliseconds of fn(): CUDA events on the card, the host clock
-    (after a synchronize) elsewhere."""
+    (after a synchronize) elsewhere.  With ``hide_host`` the card first
+    sleeps for about twice the host's time to enqueue the reps, so that
+    the events bracket the card's own time even where the host takes
+    longer per call than the card (K1's wrapper does)."""
     for _ in range(warmup):
         fn()
     sync(device)
     if device.type == "cuda":
+        if hide_host:
+            t = time.perf_counter()
+            fn()
+            host_s = time.perf_counter() - t
+            sync(device)
+            torch.cuda._sleep(int(2 * host_s * reps * SLEEP_CYCLES_PER_S))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -254,6 +269,17 @@ def bf16_ulps(a: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return (a.float() - b).abs() / ulp
 
 
+def encode_equal(out, ref) -> bool:
+    """Two encodes (buf, states, seg_g) agree: states, segment cursors and
+    each chunk's words, buf[b, seg_g[b, 0]:]."""
+    buf, st, seg_g = out
+    pbuf, pst, pseg = ref
+    if not (torch.equal(seg_g, pseg) and torch.equal(st, pst)):
+        return False
+    return all(torch.equal(buf[i, int(s):], pbuf[i, int(s):])
+               for i, s in enumerate(seg_g[:, 0].tolist()))
+
+
 def check_rans(codec: FrameCodec, batch: int, reps: int = 5,
                seed: int = 0) -> List[Dict]:
     """K1 and K2 against their plain versions on one dense wave."""
@@ -262,18 +288,13 @@ def check_rans(codec: FrameCodec, batch: int, reps: int = 5,
     t = codec.table
     enc = lambda: vrans.encode_batch(sym, rows, t, k, segs)  # noqa: E731
     buf, st, seg_g = enc()
-    pbuf, pst, pseg = vrans.encode_plain(sym, rows, t, k, segs)
+    if not encode_equal((buf, st, seg_g),
+                        vrans.encode_plain(sym, rows, t, k, segs)):
+        raise AssertionError("K1 differs from the plain encode")
     n_pad = sym.shape[1]
     steps = n_pad // k
-    if not torch.equal(seg_g, pseg) or not torch.equal(st, pst):
-        raise AssertionError("K1 states / segment cursors differ from the "
-                             "plain encode")
-    for i in range(batch):
-        s = int(seg_g[i, 0])
-        if not torch.equal(buf[i, s:], pbuf[i, s:]):
-            raise AssertionError(f"K1 words differ in chunk {i}")
     total_words = int((n_pad - seg_g[:, 0].long()).sum())
-    ms_enc = time_ms(enc, dev, reps)
+    ms_enc = time_ms(enc, dev, reps, hide_host=True)
     plain_enc = time_ms(lambda: vrans.encode_plain(sym, rows, t, k, segs),
                         dev, 1, warmup=0)
 
@@ -286,7 +307,7 @@ def check_rans(codec: FrameCodec, batch: int, reps: int = 5,
         raise AssertionError("K2 differs from the plain decode")
     if not torch.equal(syms, sym):
         raise AssertionError("decode(encode(x)) != x")
-    ms_dec = time_ms(dec, dev, reps)
+    ms_dec = time_ms(dec, dev, reps, hide_host=True)
     plain_dec = time_ms(lambda: vrans.decode_plain(words, st, rows, t, k),
                         dev, 1, warmup=0)
     n = batch * n_pad
@@ -309,14 +330,24 @@ def check_rans(codec: FrameCodec, batch: int, reps: int = 5,
     return recs
 
 
-def check_warp(device: torch.device, batch: int, h: int, w: int, fb: int,
-               reps: int = 20, seed: int = 0) -> List[Dict]:
-    """K3 against the plain warp on a packed frame and bounded flows."""
-    g = torch.Generator(device="cpu").manual_seed(seed)
+def warp_inputs(device: torch.device, batch: int, h: int, w: int, fb: int,
+                g: torch.Generator = None):
+    """Random packed frames and flows uniform in (-fb, fb): K3's timed
+    input (incoherent flows, the worst case for its corner gathers)."""
+    if g is None:
+        g = torch.Generator(device="cpu").manual_seed(0)
     packed = torch.randint(0, 1 << 24, (batch, h, w), generator=g,
                            dtype=torch.int32).to(device)
     u = ((torch.rand((batch, h, w), generator=g) * 2 - 1) * fb).to(device)
     v = ((torch.rand((batch, h, w), generator=g) * 2 - 1) * fb).to(device)
+    return packed, u, v
+
+
+def check_warp(device: torch.device, batch: int, h: int, w: int, fb: int,
+               reps: int = 20, seed: int = 0) -> List[Dict]:
+    """K3 against the plain warp on a packed frame and bounded flows."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    packed, u, v = warp_inputs(device, batch, h, w, fb, g)
     run = lambda: warp_ops.mc_warp(packed, u, v, "bounded")  # noqa: E731
     out = run()
     ref = warp_ops.warp_packed(packed, u, v)
@@ -325,7 +356,7 @@ def check_warp(device: torch.device, batch: int, h: int, w: int, fb: int,
         raise AssertionError(f"K3: {mism} values differ in bits from the "
                              "plain warp")
     err = float((out - ref).abs().max())
-    ms = time_ms(run, device, reps)
+    ms = time_ms(run, device, reps, hide_host=True)
     plain = time_ms(lambda: warp_ops.warp_packed(packed, u, v), device, 3)
     # Yardstick: one library call of the same function, a float-frame
     # bilinear border-clamped grid_sample (never called by the port).
@@ -335,28 +366,90 @@ def check_warp(device: torch.device, batch: int, h: int, w: int, fb: int,
     grid = torch.stack([xs / (w - 1) * 2 - 1, ys / (h - 1) * 2 - 1], dim=-1)
     lib_ms = time_ms(lambda: F.grid_sample(
         frame, grid, mode="bilinear", padding_mode="border",
-        align_corners=True), device, reps)
+        align_corners=True), device, reps, hide_host=True)
     px = batch * h * w
     return [_record("warp_packed", err, ms, plain, 24 * px, 45 * px,
                     library_ms=lib_ms)]
+
+
+class WarpWatch:
+    """Wraps ops/warp.py:warp_packed_cuda, which mc_warp calls through
+    its module, and keeps a copy of the (packed, u, v) of the first
+    launch with the largest batch while open: in an RA clip's encode, a
+    B-frame wave's."""
+
+    def __init__(self):
+        self.inputs = None
+        self._kernel = warp_ops.warp_packed_cuda
+        warp_ops.warp_packed_cuda = self._call
+
+    def _call(self, packed, u, v):
+        if self.inputs is None or packed.shape[0] > self.inputs[0].shape[0]:
+            self.inputs = tuple(t.detach().clone() for t in (packed, u, v))
+        return self._kernel(packed, u, v)
+
+    def close(self) -> None:
+        if warp_ops.warp_packed_cuda == self._call:
+            warp_ops.warp_packed_cuda = self._kernel
+
+
+def check_warp_on(inputs, reps: int = 20) -> Dict:
+    """K3 on captured (packed, u, v) against the plain warp, bit for bit,
+    and timed (the plain version itself on the host)."""
+    packed, u, v = inputs
+    dev = packed.device
+    kern = (warp_ops.warp_packed_cuda if dev.type == "cuda"
+            else warp_ops.warp_packed)
+    out = kern(packed, u, v)
+    ref = warp_ops.warp_packed(packed, u, v)
+    mism = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
+    if mism:
+        raise AssertionError(f"K3 on captured flows: {mism} values differ "
+                             "in bits from the plain warp")
+    ms = time_ms(lambda: kern(packed, u, v), dev, reps, hide_host=True)
+    px = packed.numel()
+    return {"shape": list(packed.shape), "ms": ms,
+            "max_flow": float(torch.maximum(u.abs().max(), v.abs().max())),
+            "bound_ms": 24 * px / HBM_BYTES_PER_S * 1e3}
+
+
+def capture_encode_warp(codec: FrameCodec, frames, wave_batch: int = 8,
+                        gop: int = 8):
+    """The (packed, u, v) of one K3 launch of an RA clip's encode (a
+    B-frame wave's, WarpWatch), from an encode of its own, so that the
+    copy adds nothing to the main path's time and memory."""
+    watch = WarpWatch()
+    try:
+        encode_video(codec, frames, ra_coding(gop), wave_batch=wave_batch)
+    finally:
+        watch.close()
+    if watch.inputs is None:
+        raise AssertionError("no warp_packed launch in the encode")
+    return watch.inputs
 
 
 # ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
 
+def ra_coding(gop: int) -> CodingConfig:
+    return CodingConfig(coding_config="RA", gop_size=gop, intra_period=gop)
+
+
 def code_clip(codec: FrameCodec, frames, wave_batch: int = 8,
               gop: int = 8) -> Dict:
     """Encode then decode an RA clip through the entry points; the decode
-    must reproduce the encoder's reconstructions bit for bit."""
+    must reproduce the encoder's reconstructions bit for bit.  Counts
+    the steps K1 walks in the encode and K2 in the decode."""
     dev = codec.device
-    coding = CodingConfig(coding_config="RA", gop_size=gop,
-                          intra_period=gop)
+    coding = ra_coding(gop)
     sync(dev)
+    enc_steps0 = kernels.STEPS["rans_encode"]
     t0 = time.time()
     enc = encode_video(codec, frames, coding, wave_batch=wave_batch)
     sync(dev)
     t1 = time.time()
+    encode_steps = kernels.STEPS["rans_encode"] - enc_steps0
     steps0 = kernels.STEPS["rans_decode"]
     dec = decode_video(codec, enc.bitstream)
     for i in range(len(frames)):
@@ -381,7 +474,9 @@ def code_clip(codec: FrameCodec, frames, wave_batch: int = 8,
             "ms_ssim": float(ms_ssim),
             "encode_fps": len(frames) / (t1 - t0),
             "decode_fps": len(frames) / (t2 - t1),
+            "encode_s": t1 - t0,
             "decode_s": t2 - t1,
+            "encode_steps": encode_steps,
             "decode_steps": decode_steps,
             "frame_bytes": [r.bytes for r in enc.frame_results]}
 
@@ -519,7 +614,7 @@ def check_warp_vclamped(device: torch.device, h: int, w: int, c: int = 3,
         raise AssertionError(f"K5: {mism} values differ in bits from the "
                              "plain warp")
     err = float((out - ref).abs().max())
-    ms = time_ms(run, device, reps)
+    ms = time_ms(run, device, reps, hide_host=True)
     plain = time_ms(lambda: warp_ops.warp_vclamped(x, flow), device, 3)
     # Yardstick: the library's bilinear border-clamped sampler on the
     # same frame and flow (no vertical clamp; never called by the port).
@@ -528,7 +623,7 @@ def check_warp_vclamped(device: torch.device, h: int, w: int, c: int = 3,
     grid = torch.stack([xs / (w - 1) * 2 - 1, ys / (h - 1) * 2 - 1], dim=-1)
     lib_ms = time_ms(lambda: F.grid_sample(
         x, grid, mode="bilinear", padding_mode="border",
-        align_corners=True), device, reps)
+        align_corners=True), device, reps, hide_host=True)
     px = batch * h * w
     rec = _record("warp_vclamped", err, ms, plain, (8 + 8 * c) * px,
                   (16 + 10 * c) * px, library_ms=lib_ms)
@@ -583,11 +678,13 @@ def check_gdn(inputs: Dict[str, tuple], reps: int = 10) -> Dict:
     beta, gamma = gdn_ops.reparam(mod.beta, mod.gamma)
     kern = (gdn_ops.gdn_fused_cuda if dev.type == "cuda"
             else gdn_ops.gdn_fused_plain)
-    ms = time_ms(lambda: kern(x, beta, gamma, mod.inverse), dev, reps)
+    ms = time_ms(lambda: kern(x, beta, gamma, mod.inverse), dev, reps,
+                 hide_host=True)
     plain = time_ms(lambda: gdn_ops.gdn_fused_plain(x, beta, gamma,
                                                     mod.inverse), dev, 1)
     lib_ms = time_ms(lambda: gdn_ops.gdn_apply(x, mod.beta, mod.gamma,
-                                               mod.inverse), dev, reps)
+                                               mod.inverse), dev, reps,
+                     hide_host=True)
     B, C, H, W = x.shape
     n = B * H * W
     # bf16 products run on the tensor cores; f32 on the CUDA cores.

@@ -18,8 +18,11 @@ port's entry points with models_ckpt/bf16-r5:
   checked against its plain version (bf16: on the tensor cores, within
   2 bf16 ulps).
 
-The main phase also prints the steps K2 walked in the clip's decode and
-their estimated share of the decode time.
+The main phase also prints the steps K1 walked in the clip's encode and
+K2 in its decode, with their estimated shares of the encode and decode
+times; then it encodes the clip once more to capture the inputs of one of
+K3's launches (a B-frame wave: the clip's own flows), and checks and times
+K3 on them.
 
 Every phase prints its elapsed seconds.  The last lines are the card's
 name and power limit, the kernels' JSON record and the result; any failed
@@ -102,6 +105,12 @@ def main() -> int:
            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
            f"launches {main_launches}")
     ph.say(f"main: frame bytes {res['frame_bytes']}")
+    k1_us = records[0]["us_per_step"]
+    ph.say(f"main: rans_encode walked {res['encode_steps']} steps in the "
+           f"encode; at {k1_us:.4f} us per step that is "
+           f"{res['encode_steps'] * k1_us / 1e3:.3f} ms, an estimated share "
+           f"{res['encode_steps'] * k1_us / 1e6 / res['encode_s']:.4f} of "
+           f"the {res['encode_s'] * 1e3:.1f} ms encode")
     k2_us = records[1]["us_per_step"]
     ph.say(f"main: rans_decode walked {res['decode_steps']} steps in the "
            f"decode; at {k2_us:.4f} us per step that is "
@@ -113,6 +122,13 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
+    cap = smoke.check_warp_on(smoke.capture_encode_warp(
+        codec, frames, wave_batch=WAVE_BATCH, gop=GOP))
+    ph.say(f"kernel warp_packed on the flows of one encode-side launch "
+           f"{cap['shape']} (|flow| <= {cap['max_flow']:.3f}): "
+           f"bit-identical to its plain version; {cap['ms']:.4f} ms (bound "
+           f"{cap['bound_ms']:.4f} ms; random flows {records[2]['ms']:.4f} "
+           f"ms on {batch} frames)")
     del codec
 
     small = smoke.small_agreement(ckpt, dev)

@@ -240,6 +240,174 @@ def test_rans_decode_each_layout_matches_plain(card, name, cdf, expect, k):
     _decode_table(card, cdf, k, seed=k)
 
 
+def _encode_matches_plain(card, cdf, k, steps, b, segs=(), seed=0,
+                          sym_range=None):
+    """K1 on b chunks of steps * k symbols (drawn from their rows, or
+    uniformly from sym_range), bit-identical to encode_plain: states,
+    segment cursors and every chunk's words.  Returns seg_g."""
+    rng = np.random.default_rng(seed)
+    t = vrans.make_table(cdf, card)
+    n = steps * k
+    rows = rng.integers(0, cdf.shape[0], size=(b, n)).astype(np.int32)
+    sym = (_symbols(rng, cdf, rows) if sym_range is None else
+           rng.integers(*sym_range, size=(b, n)).astype(np.int32))
+    sym_t = torch.from_numpy(sym).to(card)
+    rows_t = torch.from_numpy(rows).to(card)
+    launches = kernels.LAUNCHES["rans_encode"]
+    walked = kernels.STEPS["rans_encode"]
+    buf, st, seg_g = vrans.encode_cuda(sym_t, rows_t, t, k, segs)
+    assert kernels.LAUNCHES["rans_encode"] == launches + 1
+    assert kernels.STEPS["rans_encode"] == walked + steps
+    pbuf, pst, pseg = vrans.encode_plain(sym_t, rows_t, t, k, segs)
+    assert torch.equal(st, pst) and torch.equal(seg_g, pseg)
+    for i in range(b):
+        s = int(seg_g[i, 0])
+        assert torch.equal(buf[i, s:], pbuf[i, s:])
+    return seg_g
+
+
+def test_rans_encode_wave_batch_8(card):
+    """The clip's wave batch: 8 chunks at K = 2048 over four segments."""
+    cdf = build_laplace_table(scale=vrans.PROB_SCALE, ac_max=64)
+    _encode_matches_plain(card, cdf, 2048, 13, 8, (3, 4, 5, 1), seed=8)
+
+
+@pytest.mark.parametrize("segs", [(6,), (5, 1), (1, 3, 2), (2, 1, 1, 2)])
+@pytest.mark.parametrize("k", [8, 64, 2048])
+def test_rans_encode_segments(card, segs, k):
+    """1 to 4 segments, with segments of one step, first and last."""
+    cdf = build_laplace_table(scale=vrans.PROB_SCALE, ac_max=64)
+    _encode_matches_plain(card, cdf, k, sum(segs), 3, segs, seed=len(segs))
+
+
+@pytest.mark.parametrize("k", [1, 8, 32, 2048])
+def test_rans_encode_single_step(card, k):
+    cdf = build_laplace_table(scale=vrans.PROB_SCALE, ac_max=64)
+    _encode_matches_plain(card, cdf, k, 1, 5, seed=k)
+
+
+def _one_row(freqs):
+    return np.concatenate([[0], np.cumsum(freqs)])[None].astype(np.int64)
+
+
+@pytest.mark.parametrize("k", [8, 2048])
+def test_rans_encode_every_lane_emits(card, k):
+    """Symbols of frequency 1: x >= 1 << 16 always holds, so every lane
+    emits a word at every step and the chunk has n_pad words."""
+    cdf = _one_row([1] * 127 + [vrans.PROB_SCALE - 127])
+    seg_g = _encode_matches_plain(card, cdf, k, 9, 3, (4, 5), seed=1,
+                                  sym_range=(0, 127))
+    assert torch.equal(seg_g[:, 0], torch.zeros_like(seg_g[:, 0]))
+    assert torch.equal(seg_g[:, 1], torch.full_like(seg_g[:, 1], 4 * k))
+
+
+@pytest.mark.parametrize("k", [8, 2048])
+def test_rans_encode_no_lane_emits(card, k):
+    """One symbol holds all but one slot of the row: the states grow by
+    ~1 / 65535 a step and never reach freq << 16, so no word is
+    emitted."""
+    cdf = _one_row([vrans.PROB_SCALE - 1, 1])
+    steps = 9
+    seg_g = _encode_matches_plain(card, cdf, k, steps, 3, (4, 5), seed=2,
+                                  sym_range=(0, 1))
+    assert torch.equal(seg_g, torch.full_like(seg_g, steps * k))
+
+
+@pytest.mark.parametrize("k", [64, 2048])
+@pytest.mark.parametrize("key", ["bf16_r4m", "bf16_r3"])
+def test_rans_encode_checkpoint_tables(card, key, k):
+    """The fused tables of bf16-r4m (ac 128) and bf16-r3 (ac 256) from
+    tests/data/fused_freqs.npz: the largest tables K1 holds in shared
+    memory."""
+    f = np.load(ROOT / "tests" / "data" / "fused_freqs.npz")[key]
+    cdf = np.concatenate([np.zeros((f.shape[0], 1), np.int64),
+                          np.cumsum(f.astype(np.int64), axis=1)], axis=1)
+    _encode_matches_plain(card, cdf, k, 5, 3, (2, 3), seed=k)
+
+
+@pytest.mark.parametrize("b", [4, 16])
+def test_rans_encode_table_at_the_shared_memory_limit(card, b):
+    """The most rows of 128 symbols that fit beside the ring of a one-warp
+    block (MAX_SMEM - 4096 bytes of table): K1 shrinks pass A's block to
+    fit them, at the batch that picks 64 threads and the one that picks
+    256, and matches encode_plain; one row more raises."""
+    k = 2048
+    lap = build_laplace_table(scale=vrans.PROB_SCALE, ac_max=64)
+    n_sym = lap.shape[1] - 1
+    n_rows = (kernels.MAX_SMEM - 4096) // (2 * n_sym)
+    lib = kernels.lib()
+    assert lib.aivc_rans_encode_smem_bytes(n_rows, n_sym) <= kernels.MAX_SMEM
+    assert lib.aivc_rans_encode_smem_bytes(n_rows + 1, n_sym) > \
+        kernels.MAX_SMEM
+    _encode_matches_plain(card, _tiled(lap, n_rows), k, 3, b, (1, 2), seed=b)
+    big = vrans.make_table(_tiled(lap, n_rows + 1), card)
+    sym = torch.zeros((b, 3 * k), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        vrans.encode_cuda(sym, sym, big, k)
+
+
+def _warp_matches_plain(card, packed, u, v):
+    """K3 through its wrapper, bit-identical to warp_packed."""
+    before = kernels.LAUNCHES["warp_packed"]
+    out = tw.warp_packed_cuda(packed, u, v)
+    assert kernels.LAUNCHES["warp_packed"] == before + 1
+    ref = tw.warp_packed(packed, u, v)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", [(4, 1, 197), (4, 1, 1), (4, 5, 197),
+                                   (2, 9, 1), (4, 1, 64)])
+def test_warp_kernel_ragged_width(card, shape):
+    """Widths that are not a multiple of 4 (pixel by pixel), one row, one
+    column."""
+    g = torch.Generator().manual_seed(shape[1] * 1000 + shape[2])
+    packed = torch.randint(0, 1 << 24, shape, generator=g,
+                           dtype=torch.int32).to(card)
+    u = ((torch.rand(shape, generator=g) * 2 - 1) * 38).to(card)
+    v = ((torch.rand(shape, generator=g) * 2 - 1) * 38).to(card)
+    _warp_matches_plain(card, packed, u, v)
+
+
+def test_warp_kernel_flows_hit_every_border(card):
+    """Flows of +-38 (and +-37.5, +-0.25) on a 40 x 64 frame: sample
+    coordinates beyond all four borders, clamped as in the plain
+    version."""
+    b, h, w = 4, 40, 64
+    g = torch.Generator().manual_seed(38)
+    packed = torch.randint(0, 1 << 24, (b, h, w), generator=g,
+                           dtype=torch.int32)
+    vals = torch.tensor([-38.0, 38.0, -37.5, 37.5, -0.25, 0.25, 0.0])
+    u = vals[torch.randint(0, len(vals), (b, h, w), generator=g)]
+    v = vals[torch.randint(0, len(vals), (b, h, w), generator=g)]
+    sx = torch.arange(w).view(1, 1, w) + u
+    sy = torch.arange(h).view(1, h, 1) + v
+    assert (sx < 0).any() and (sx > w - 1).any()
+    assert (sy < 0).any() and (sy > h - 1).any()
+    _warp_matches_plain(card, packed.to(card), u.to(card), v.to(card))
+
+
+@pytest.mark.parametrize("w", [128, 197])
+def test_warp_kernel_unaligned_base(card, w):
+    """Inputs that start 4 bytes into their storage (contiguous views of
+    a larger tensor, so not 16-byte aligned: the kernel goes pixel by
+    pixel), and strided slices, which mc_warp makes contiguous."""
+    b, h = 2, 24
+    n = b * h * w
+    g = torch.Generator().manual_seed(w)
+    big_p = torch.randint(0, 1 << 24, (n + 1,), generator=g,
+                          dtype=torch.int32).to(card)
+    big_u = ((torch.rand(n + 1, generator=g) * 2 - 1) * 30).to(card)
+    big_v = ((torch.rand(n + 1, generator=g) * 2 - 1) * 30).to(card)
+    packed, u, v = (t[1:].view(b, h, w) for t in (big_p, big_u, big_v))
+    assert packed.data_ptr() % 16 and u.data_ptr() % 16
+    _warp_matches_plain(card, packed, u, v)
+    wide = torch.stack([big_u[:n].view(b, h, w), big_v[:n].view(b, h, w)],
+                       dim=1)
+    out = tw.mc_warp(packed, wide[:, 0], wide[:, 1], "bounded")
+    ref = tw.warp_packed(packed, wide[:, 0], wide[:, 1])
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
 @pytest.mark.parametrize("shape", [(1, 64, 128), (3, 72, 200)])
 def test_warp_kernel_bit_identical(card, shape):
     g = torch.Generator().manual_seed(shape[2])

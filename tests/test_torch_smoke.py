@@ -54,7 +54,8 @@ def test_phases_rehearsed_on_host(codec):
     res = smoke.code_clip(codec, synthetic_frames(9, 128, 128))
     assert res["bytes"] > 0 and res["psnr"] > 10
     assert res["decode_steps"] == 0           # plain decode: no launches
-    assert res["decode_s"] > 0
+    assert res["encode_steps"] == 0           # plain encode: no launches
+    assert res["decode_s"] > 0 and res["encode_s"] > 0
     assert 0.0 < res["ms_ssim"] < 1.0
     line = json.loads(smoke.kernels_line(records, {"rans_encode": 5,
                                                    "rans_decode": 14,
@@ -63,6 +64,70 @@ def test_phases_rehearsed_on_host(codec):
         assert set(r) == KEYS and r["launches"] > 0
         assert r["bound_by"] in ("bytes", "operations")
         assert r["max_abs_err"] == 0.0
+
+
+def test_warp_watch_captures_an_encode_launch(codec, monkeypatch):
+    """capture_encode_warp wraps warp_packed_cuda (here a stand-in that
+    runs the plain warp, since the host takes no kernel) with WarpWatch
+    through an encode of the clip: it keeps the first launch of the
+    largest batch, a B-frame wave of the RA GOP, closes the watch, and
+    K3's check on those inputs passes."""
+    seen = []
+
+    def stand_in(packed, u, v):
+        seen.append((packed.clone(), u.clone(), v.clone()))
+        return warp_ops.warp_packed(packed, u, v)
+
+    monkeypatch.setattr(warp_ops, "warp_packed_cuda", stand_in)
+    real_mc = warp_ops.mc_warp
+
+    def mc_to_stand_in(packed, u, v, engine):
+        return warp_ops.warp_packed_cuda(packed.contiguous(),
+                                         u.contiguous(), v.contiguous())
+
+    monkeypatch.setattr("aivc_tpu_torch.models.fullnet.mc_warp",
+                        mc_to_stand_in)
+    inputs = smoke.capture_encode_warp(codec, synthetic_frames(9, 128, 128))
+    assert warp_ops.warp_packed_cuda is stand_in     # closed
+    # The B-wave of four frames warps its prev and next references.
+    batches = [c[0].shape[0] for c in seen]
+    first = seen[batches.index(4)]
+    assert max(batches) == 4 and batches.count(4) == 2
+    assert all(torch.equal(a, b) for a, b in zip(inputs, first))
+    packed, u, v = inputs
+    assert packed.dtype == torch.int32 and u.shape == packed.shape
+    rec = smoke.check_warp_on(inputs, reps=1)
+    assert rec["shape"] == list(packed.shape) and rec["ms"] > 0
+    assert 0 < rec["max_flow"] <= 32 and rec["bound_ms"] > 0
+    assert real_mc is warp_ops.mc_warp
+
+
+def test_capture_encode_warp_fails_without_a_launch(codec):
+    """On the host mc_warp takes the plain warp, so the encode launches no
+    K3: capture_encode_warp fails instead of returning nothing, and
+    leaves warp_packed_cuda as it was."""
+    kernel = warp_ops.warp_packed_cuda
+    with pytest.raises(AssertionError, match="no warp_packed launch"):
+        smoke.capture_encode_warp(codec, synthetic_frames(9, 128, 128))
+    assert warp_ops.warp_packed_cuda is kernel
+
+
+def test_encode_equal_sees_one_word(codec):
+    """smoke.encode_equal, which holds K1 against the plain encode, fails
+    on one flipped bit of a chunk's words and ignores the buffer before
+    them (unwritten by the kernel)."""
+    from aivc_tpu_torch.coding import vrans
+
+    sym, rows, k, segs = smoke.fused_inputs(codec, 2)
+    ref = vrans.encode_plain(sym, rows, codec.table, k, segs)
+    out = tuple(t.clone() for t in ref)
+    assert smoke.encode_equal(out, ref)
+    start = int(out[2][1, 0])
+    assert start > 0
+    out[0][1, 0] ^= 1                       # before chunk 1's words
+    assert smoke.encode_equal(out, ref)
+    out[0][1, start + 3] ^= 1
+    assert not smoke.encode_equal(out, ref)
 
 
 @pytest.mark.parametrize("fault", ["nan", "one_ulp_often"])
