@@ -624,26 +624,40 @@ __global__ void __launch_bounds__(1024)
 constexpr int kWarpTx = 16;   // threads along x, 4 pixels each
 constexpr int kWarpTy = 16;   // rows
 
-__device__ __forceinline__ void warp_pixel(const int* __restrict__ src,
-                                           int x, int y, float u, float v,
-                                           int H, int W, float (&r)[3]) {
-  const float inv255 = __int_as_float(0x3b808081);  // float32(1 / 255)
+// The bilinear taps of one output pixel (x, y) of a backward warp by
+// (u, v), border-clamped: plane offsets of the corners (rows y0 and
+// min(y0 + 1, H - 1), columns x0 and min(x0 + 1, W - 1)) and the weights.
+// Shared by K3 and K5, whose plain versions sample alike.
+struct Taps {
+  int i00, i01, i10, i11;
+  float wx, wy;
+};
+
+__device__ __forceinline__ Taps bilinear_taps(int x, int y, float u,
+                                              float v, int H, int W) {
   const float sx = fminf(fmaxf(__fadd_rn((float)x, u), 0.0f),
                          (float)(W - 1));
   const float sy = fminf(fmaxf(__fadd_rn((float)y, v), 0.0f),
                          (float)(H - 1));
   const float x0f = floorf(sx);
   const float y0f = floorf(sy);
-  const float wx = __fsub_rn(sx, x0f);
-  const float wy = __fsub_rn(sy, y0f);
   const int x0 = (int)x0f;
-  const int y0 = (int)y0f;
   const int x1 = min(x0 + 1, W - 1);
-  const int y1 = min(y0 + 1, H - 1);
-  const uint32_t c00 = (uint32_t)__ldg(src + y0 * W + x0);
-  const uint32_t c01 = (uint32_t)__ldg(src + y0 * W + x1);
-  const uint32_t c10 = (uint32_t)__ldg(src + y1 * W + x0);
-  const uint32_t c11 = (uint32_t)__ldg(src + y1 * W + x1);
+  const int r0 = (int)y0f * W;
+  const int r1 = min((int)y0f + 1, H - 1) * W;
+  return {r0 + x0, r0 + x1, r1 + x0, r1 + x1, __fsub_rn(sx, x0f),
+          __fsub_rn(sy, y0f)};
+}
+
+__device__ __forceinline__ void warp_pixel(const int* __restrict__ src,
+                                           int x, int y, float u, float v,
+                                           int H, int W, float (&r)[3]) {
+  const float inv255 = __int_as_float(0x3b808081);  // float32(1 / 255)
+  const Taps t = bilinear_taps(x, y, u, v, H, W);
+  const uint32_t c00 = (uint32_t)__ldg(src + t.i00);
+  const uint32_t c01 = (uint32_t)__ldg(src + t.i01);
+  const uint32_t c10 = (uint32_t)__ldg(src + t.i10);
+  const uint32_t c11 = (uint32_t)__ldg(src + t.i11);
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) {
     const int sh = 8 * ch;
@@ -651,9 +665,9 @@ __device__ __forceinline__ void warp_pixel(const int* __restrict__ src,
     const float v01 = __fmul_rn((float)((c01 >> sh) & 0xFFu), inv255);
     const float v10 = __fmul_rn((float)((c10 >> sh) & 0xFFu), inv255);
     const float v11 = __fmul_rn((float)((c11 >> sh) & 0xFFu), inv255);
-    const float top = __fadd_rn(v00, __fmul_rn(__fsub_rn(v01, v00), wx));
-    const float bot = __fadd_rn(v10, __fmul_rn(__fsub_rn(v11, v10), wx));
-    r[ch] = __fadd_rn(top, __fmul_rn(__fsub_rn(bot, top), wy));
+    const float top = __fadd_rn(v00, __fmul_rn(__fsub_rn(v01, v00), t.wx));
+    const float bot = __fadd_rn(v10, __fmul_rn(__fsub_rn(v11, v10), t.wx));
+    r[ch] = __fadd_rn(top, __fmul_rn(__fsub_rn(bot, top), t.wy));
   }
 }
 
@@ -1075,59 +1089,106 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 // ---------------------------------------------------------------------------
 // K5: bilinear warp of float planes with the vertical flow clamped.
 //
-// out[b, c, y, x] = (1 - wy) * top + wy * bot, top / bot = h0 + (h1 - h0)
-// * wx on rows y0 and min(y0 + 1, H - 1), where sx = clip(x + u, 0, W - 1)
-// and sy = clip(y + clip(v, -vmax, vmax), 0, H - 1): the value that
-// warp_pallas's select-accumulate over row offsets leaves, since it adds
-// only exact zeros besides these two terms.  Explicit round-to-nearest
-// intrinsics keep the plain version's operation order (no FMA), so it is
-// bit-identical to ops/warp.py:warp_vclamped run op by op.
+// Replaces aivc_tpu/ops/warp_pallas.py:warp_pallas (body
+// _warp_plane_kernel).  out[b, c, y, x] = (1 - wy) * top + wy * bot, top /
+// bot = h0 + (h1 - h0) * wx on rows y0 and min(y0 + 1, H - 1), where sx =
+// clip(x + u, 0, W - 1) and sy = clip(y + clip(v, -vmax, vmax), 0, H - 1):
+// the value that warp_pallas's select-accumulate over row offsets leaves,
+// since it adds only exact zeros besides these two terms.  Explicit
+// round-to-nearest intrinsics keep the plain version's operation order (no
+// FMA), so it is bit-identical to ops/warp.py:warp_vclamped run op by op.
 //
 // What bounds it on the H100: bytes.  Per pixel it reads 8 B of flow and
-// C x 4 corner samples, writes C x 4 B, and does ~10 float ops per
-// channel.  Design: one thread per output pixel that loops over the
-// channels; the flow and coordinate math is done once per pixel, and
-// neighbouring threads read neighbouring flow values and (for small
-// flows) neighbouring source pixels, so loads coalesce.  The TPU kernel's
-// vertical window and lane-tile gathers were workarounds for Mosaic's
-// gather and have no counterpart here: a gather is one load.
+// 4C B of source (each input once) and writes 4C B: 31.5 MB for 1 x 3 x
+// 768 x 1280, 9.4 us at 3.35 TB/s; its ~10 float ops per channel are far
+// below the FP32 rate.  Design: a 3-D grid (x-tile, row tile, image), so no
+// thread divides to find its pixel.  A block of 32 x 8 threads, one warp
+// per row, each thread 4 pixels of its row 32 apart: a warp covers 128
+// pixels (W % 128 == 0, which the launcher checks, makes the x-tiles
+// exact; rows past H are masked), and every warp access, flow loads,
+// corner gathers and stores alike, covers 32 consecutive pixels, so on
+// smooth flows each corner gather of a warp touches one or two 128-byte
+// lines and the flow loads and stores are whole 128-byte lines.  Four
+// adjacent pixels a thread with 16-byte flow loads and stores spread each
+// gather of a warp over 128 pixels (4 lines), and a shared-memory
+// transpose back to the interleaved order costs more than the wide
+// accesses save: both were slower on the forward's flows (PERF.md).
+// The block's 8 rows share their source rows: the bottom row that row r
+// gathers is the top row of row r + 1 on smooth flows, and L1 serves it
+// twice.  The taps are computed once per pixel; for C = 3 (every model)
+// all 4 x 4 x 3 corner gathers of a thread go out through the read-only
+// path (__ldg) before any arithmetic, so their latencies overlap (any
+// other C: a channel at a time); at most 64 registers, so 4 blocks (32
+// warps) fit an SM.  No shared-memory band: horizontal reach is unbounded
+// (border clamp only), so a band could not hold every corner; the TPU
+// staged its +-16-row window in VMEM because Mosaic has no 2-D gather.
 // ---------------------------------------------------------------------------
-__global__ void warp_vclamped_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ flow, int B,
-                                     int C, int H, int W, float vmax,
-                                     float* __restrict__ out) {
+constexpr int kVcTx = 32;   // threads along x: one warp
+constexpr int kVcTy = 8;    // rows
+constexpr int kVcPx = 4;    // pixels a thread, kVcTx apart
+
+// vc_gather: the corners of a thread's pixels in one plane; vc_blend:
+// their blends, stored.
+__device__ __forceinline__ void vc_gather(const float* __restrict__ src,
+                                          const Taps (&t)[kVcPx],
+                                          float (&g)[kVcPx][4]) {
+#pragma unroll
+  for (int j = 0; j < kVcPx; ++j) {
+    g[j][0] = __ldg(src + t[j].i00);
+    g[j][1] = __ldg(src + t[j].i01);
+    g[j][2] = __ldg(src + t[j].i10);
+    g[j][3] = __ldg(src + t[j].i11);
+  }
+}
+
+__device__ __forceinline__ void vc_blend(float* __restrict__ dst,
+                                         const Taps (&t)[kVcPx],
+                                         const float (&g)[kVcPx][4]) {
+#pragma unroll
+  for (int j = 0; j < kVcPx; ++j) {
+    const float top = __fadd_rn(
+        g[j][0], __fmul_rn(__fsub_rn(g[j][1], g[j][0]), t[j].wx));
+    const float bot = __fadd_rn(
+        g[j][2], __fmul_rn(__fsub_rn(g[j][3], g[j][2]), t[j].wx));
+    dst[j * kVcTx] = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, t[j].wy), top),
+                               __fmul_rn(t[j].wy, bot));
+  }
+}
+
+// kC > 0: C = kC known at compile time; kC == 0: C at run time.
+template <int kC>
+__global__ void __launch_bounds__(kVcTx * kVcTy, 4)
+    warp_vclamped_kernel(const float* __restrict__ x,
+                         const float* __restrict__ flow, int C, int H,
+                         int W, float vmax, float* __restrict__ out) {
+  const int y = blockIdx.y * kVcTy + threadIdx.y;
+  if (y >= H) return;
+  const int x0 = blockIdx.x * (kVcTx * kVcPx) + threadIdx.x;
+  const int nc = kC > 0 ? kC : C;
   const size_t hw = (size_t)H * W;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)B * hw) return;
-  const size_t b = i / hw;
-  const int p = (int)(i - b * hw);
-  const int y = p / W;
-  const int xq = p - y * W;
-  const float u = flow[(b * 2) * hw + p];
-  const float v = fminf(fmaxf(flow[(b * 2 + 1) * hw + p], -vmax), vmax);
-  const float sx = fminf(fmaxf(__fadd_rn((float)xq, u), 0.0f),
-                         (float)(W - 1));
-  const float sy = fminf(fmaxf(__fadd_rn((float)y, v), 0.0f),
-                         (float)(H - 1));
-  const float x0f = floorf(sx);
-  const float y0f = floorf(sy);
-  const float wx = __fsub_rn(sx, x0f);
-  const float wy = __fsub_rn(sy, y0f);
-  const float omwy = __fsub_rn(1.0f, wy);
-  const int x0 = (int)x0f;
-  const int y0 = (int)y0f;
-  const int x1 = min(x0 + 1, W - 1);
-  const int y1 = min(y0 + 1, H - 1);
-  for (int c = 0; c < C; ++c) {
-    const float* src = x + (b * C + c) * hw;
-    const float t0 = src[(size_t)y0 * W + x0];
-    const float t1 = src[(size_t)y0 * W + x1];
-    const float b0 = src[(size_t)y1 * W + x0];
-    const float b1 = src[(size_t)y1 * W + x1];
-    const float top = __fadd_rn(t0, __fmul_rn(__fsub_rn(t1, t0), wx));
-    const float bot = __fadd_rn(b0, __fmul_rn(__fsub_rn(b1, b0), wx));
-    out[(b * C + c) * hw + p] =
-        __fadd_rn(__fmul_rn(omwy, top), __fmul_rn(wy, bot));
+  const int p = y * W + x0;
+  const float* fu = flow + (size_t)blockIdx.z * 2 * hw + p;
+  Taps t[kVcPx];
+#pragma unroll
+  for (int j = 0; j < kVcPx; ++j) {
+    const float v = fminf(fmaxf(__ldg(fu + hw + j * kVcTx), -vmax), vmax);
+    t[j] = bilinear_taps(x0 + j * kVcTx, y, __ldg(fu + j * kVcTx), v, H, W);
+  }
+  const size_t img = (size_t)blockIdx.z * nc * hw;
+  const float* src = x + img;
+  float* dst = out + img + p;
+  if constexpr (kC > 0) {
+    float g[kC][kVcPx][4];
+#pragma unroll
+    for (int c = 0; c < kC; ++c) vc_gather(src + c * hw, t, g[c]);
+#pragma unroll
+    for (int c = 0; c < kC; ++c) vc_blend(dst + c * hw, t, g[c]);
+  } else {
+    for (int c = 0; c < C; ++c) {
+      float g[kVcPx][4];
+      vc_gather(src + c * hw, t, g);
+      vc_blend(dst + c * hw, t, g);
+    }
   }
 }
 
@@ -1479,16 +1540,26 @@ int aivc_gdn_fused_bf16(const void* x, const void* g_hi, const void* g_lo,
 }
 
 // K5.  x f32 [B, C, H, W]; flow f32 [B, 2, H, W] (u, v planes); vmax the
-// vertical clamp in rows.  Out: f32 [B, C, H, W].
+// vertical clamp in rows; W % 128 == 0 and H * W < 2^31 (plane offsets
+// are 32-bit).  Out: f32 [B, C, H, W].
 int aivc_warp_vclamped(const float* x, const float* flow, int B, int C,
                        int H, int W, int vmax, float* out,
                        cudaStream_t stream) {
-  const size_t total = (size_t)B * H * W;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  if (blocks > 0) {
-    warp_vclamped_kernel<<<blocks, threads, 0, stream>>>(
-        x, flow, B, C, H, W, (float)vmax, out);
+  if (B == 0 || C == 0 || H == 0 || W == 0) return (int)cudaGetLastError();
+  const long gy = (H + kVcTy - 1) / kVcTy;
+  if (W % (kVcTx * kVcPx) != 0 || (long)H * W > 0x7FFFFFFFL || B > 65535 ||
+      gy > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 block(kVcTx, kVcTy);
+  const dim3 grid((unsigned)(W / (kVcTx * kVcPx)), (unsigned)gy,
+                  (unsigned)B);
+  if (C == 3) {
+    warp_vclamped_kernel<3><<<grid, block, 0, stream>>>(x, flow, C, H, W,
+                                                        (float)vmax, out);
+  } else {
+    warp_vclamped_kernel<0><<<grid, block, 0, stream>>>(x, flow, C, H, W,
+                                                        (float)vmax, out);
   }
   return (int)cudaGetLastError();
 }

@@ -19,14 +19,17 @@ take their plain versions).  On the card:
            must agree within the stated tolerance
   forward  the RD forward (gop_rd_loss, eval) of a 9-frame GOP with the
            float warp under AIVC_WARP=pallas (kernel K5), with the inputs
-           of six CodecNet GDN layers captured on the way
+           of six CodecNet GDN layers captured on the way; the warm-up
+           forward before it captures the inputs of one B-frame K5 launch
   forward-small
            the forward at 128x128 on the card and on the host, which
            must agree within the stated tolerance
-  kernels  K5 at the forward path's shapes and K4 (the exported
-           gdn_fused, which no model calls) on the six captured GDN
-           inputs, against their plain versions on the same inputs (K4's
-           bf16 path within GDN_PLAIN_ULPS), each timed beside its bound
+  kernels  K5 at the forward path's shapes on random flows and on the
+           captured B-frame flows, and K4 (the exported gdn_fused, which
+           no model calls) on the six captured GDN inputs, against their
+           plain versions on the same inputs (K4's bf16 path within
+           GDN_PLAIN_ULPS), each timed beside its bound (K5 also with L2
+           cold)
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from aivc_tpu_torch import kernels
+from aivc_tpu_torch import kernels, profile_kernels
 from aivc_tpu_torch.coding import vrans
 from aivc_tpu_torch.config import FRAME_B, FRAME_P, CodingConfig
 from aivc_tpu_torch.gop import generate_gop_struct
@@ -160,6 +163,19 @@ def time_ms(fn, device: torch.device, reps: int, warmup: int = 1,
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t) * 1000.0 / reps
+
+
+def time_cold_ms(fn, device: torch.device, reps: int) -> float:
+    """Mean milliseconds of one fn() with L2 cold: on the card its kernels'
+    device time under torch.profiler, each call after a write of
+    profile_kernels.FLUSH_BYTES that is read back (profile_kernels.l2_flush,
+    outside the time); the host clock elsewhere (time_ms)."""
+    if device.type != "cuda":
+        return time_ms(fn, device, reps)
+    us = profile_kernels.device_us(fn, reps, before=profile_kernels.l2_flush())
+    if "error" in us:
+        raise RuntimeError(f"cold timing: {us['error']}")
+    return us["total"] / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -591,6 +607,25 @@ def compare_logs(a: Dict[str, float], b: Dict[str, float], tol: Dict,
     return diffs
 
 
+def vclamped_bytes(x: torch.Tensor) -> int:
+    """K5's byte bound on x [B, C, H, W]: per pixel 8 B of flow and 4C B
+    of source read, 4C B written."""
+    B, C, H, W = x.shape
+    return (8 + 8 * C) * B * H * W
+
+
+def _past_clamp(flow: torch.Tensor) -> float:
+    """Share of the pixels whose vertical flow K5 clamps."""
+    return float((flow[:, 1].abs() > warp_ops.V_RADIUS - 1).float().mean())
+
+
+def _check_vclamped_bits(out, ref, what: str) -> None:
+    mism = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
+    if mism:
+        raise AssertionError(f"K5 {what}: {mism} values differ in bits "
+                             "from the plain warp")
+
+
 def check_warp_vclamped(device: torch.device, h: int, w: int, c: int = 3,
                         batch: int = 1, reps: int = 20,
                         seed: int = 0) -> Dict:
@@ -600,8 +635,7 @@ def check_warp_vclamped(device: torch.device, h: int, w: int, c: int = 3,
     x = torch.rand((batch, c, h, w), generator=g).to(device)
     flow = ((torch.rand((batch, 2, h, w), generator=g) * 2 - 1)
             * torch.tensor([40.0, 30.0]).view(1, 2, 1, 1)).to(device)
-    clamped = float((flow[:, 1].abs() > warp_ops.V_RADIUS - 1).float()
-                    .mean())
+    clamped = _past_clamp(flow)
     if clamped == 0.0:
         raise AssertionError("K5 check: no vertical flow beyond the clamp")
     kern = (warp_ops.warp_vclamped_cuda if device.type == "cuda"
@@ -609,10 +643,7 @@ def check_warp_vclamped(device: torch.device, h: int, w: int, c: int = 3,
     run = lambda: kern(x, flow)  # noqa: E731
     out = run()
     ref = warp_ops.warp_vclamped(x, flow)
-    mism = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
-    if mism:
-        raise AssertionError(f"K5: {mism} values differ in bits from the "
-                             "plain warp")
+    _check_vclamped_bits(out, ref, "on random flows")
     err = float((out - ref).abs().max())
     ms = time_ms(run, device, reps, hide_host=True)
     plain = time_ms(lambda: warp_ops.warp_vclamped(x, flow), device, 3)
@@ -625,10 +656,82 @@ def check_warp_vclamped(device: torch.device, h: int, w: int, c: int = 3,
         x, grid, mode="bilinear", padding_mode="border",
         align_corners=True), device, reps, hide_host=True)
     px = batch * h * w
-    rec = _record("warp_vclamped", err, ms, plain, (8 + 8 * c) * px,
+    rec = _record("warp_vclamped", err, ms, plain, vclamped_bytes(x),
                   (16 + 10 * c) * px, library_ms=lib_ms)
     rec["clamped_share"] = clamped
     return rec
+
+
+class VclampWatch:
+    """Wraps ops/warp.py:warp_vclamped_cuda, which the float warp calls
+    through its module, and keeps a copy of the (x, flow) of its launch
+    number ``at`` (from 0) while open."""
+
+    def __init__(self, at: int):
+        self.at = at
+        self.calls = 0
+        self.inputs = None
+        self._kernel = warp_ops.warp_vclamped_cuda
+        warp_ops.warp_vclamped_cuda = self._call
+
+    def _call(self, x, flow):
+        if self.calls == self.at:
+            self.inputs = (x.detach().clone(), flow.detach().clone())
+        self.calls += 1
+        return self._kernel(x, flow)
+
+    def close(self) -> None:
+        if warp_ops.warp_vclamped_cuda == self._call:
+            warp_ops.warp_vclamped_cuda = self._kernel
+
+
+def first_b_warp(gop_name: str) -> int:
+    """Number (from 0) of the first float warp of a B-frame in a forward
+    over the GOP, which runs the frames in coding order."""
+    n = 0
+    for f in generate_gop_struct(gop_name).coding_order:
+        if f.frame_type == FRAME_B:
+            return n
+        n += int(f.frame_type == FRAME_P)
+    raise ValueError(f"{gop_name} has no B-frame")
+
+
+def capture_forward_warp(model, cfg, frames444: List[torch.Tensor],
+                         idx_rate: float, gop_name: str = FORWARD_GOP):
+    """rd_forward over the GOP with the (x, flow) of its first B-frame K5
+    launch copied on the way (VclampWatch): (rd_forward's result, the
+    inputs).  Used for the warm-up forward, so that the timed one carries
+    no copy."""
+    watch = VclampWatch(first_b_warp(gop_name))
+    try:
+        fwd = rd_forward(model, cfg, frames444, idx_rate, gop_name)
+    finally:
+        watch.close()
+    if watch.inputs is None:
+        raise AssertionError(f"no warp_vclamped launch number {watch.at} "
+                             "in the forward")
+    return fwd, watch.inputs
+
+
+def check_warp_vclamped_on(inputs, reps: int = 20) -> Dict:
+    """K5 on captured (x, flow) against the plain warp, bit for bit, and
+    timed warm and with L2 cold (the plain version itself on the host),
+    with the flows' reach and the share of pixels past the vertical
+    clamp."""
+    x, flow = inputs
+    dev = x.device
+    kern = (warp_ops.warp_vclamped_cuda if dev.type == "cuda"
+            else warp_ops.warp_vclamped)
+    _check_vclamped_bits(kern(x, flow), warp_ops.warp_vclamped(x, flow),
+                         "on captured flows")
+    run = lambda: kern(x, flow)  # noqa: E731
+    return {"shape": list(x.shape),
+            "ms": time_ms(run, dev, reps, hide_host=True),
+            "cold_ms": time_cold_ms(run, dev, reps),
+            "bound_ms": vclamped_bytes(x) / HBM_BYTES_PER_S * 1e3,
+            "max_u": float(flow[:, 0].abs().max()),
+            "max_v": float(flow[:, 1].abs().max()),
+            "clamped_share": _past_clamp(flow)}
 
 
 @torch.inference_mode()

@@ -12,11 +12,12 @@ port's entry points with models_ckpt/bf16-r5:
 * the RD forward path: gop_rd_loss in eval mode on a 9-frame 720p GOP
   (edge-padded to 1280x768) with AIVC_WARP=pallas, whose float warps
   launch K5; a 128x128 GOP on the card against the host; then K5 checked
-  against its plain version at the forward path's shapes, and K4 (the
-  exported gdn_fused, which no model calls, as gdn_pallas in JAX) run on
-  the inputs of six CodecNet GDN layers captured during the forward and
-  checked against its plain version (bf16: on the tensor cores, within
-  2 bf16 ulps).
+  against its plain version at the forward path's shapes, on random flows
+  and on the flows of one B-frame launch captured in the warm-up forward
+  (timed warm and with L2 cold), and K4 (the exported gdn_fused, which no
+  model calls, as gdn_pallas in JAX) run on the inputs of six CodecNet GDN
+  layers captured during the forward and checked against its plain
+  version (bf16: on the tensor cores, within 2 bf16 ulps).
 
 The main phase also prints the steps K1 walked in the clip's encode and
 K2 in its decode, with their estimated shares of the encode and decode
@@ -140,9 +141,11 @@ def main() -> int:
     fcfg, fmodel = load_checkpoint(ckpt, device=dev)
     f444 = frames_444(synthetic_frames(N_FRAMES, FH, FW, seed=3), dev)
     n_warps = smoke.warp_calls(smoke.FORWARD_GOP)
-    warm = smoke.rd_forward(fmodel, fcfg, f444, IDX_RATE)
+    warm, k5_inputs = smoke.capture_forward_warp(fmodel, fcfg, f444,
+                                                 IDX_RATE)
     ph.say(f"forward: warm-up {warm['seconds']:.3f} s (first use of every "
-           f"shape)")
+           f"shape; copies the inputs of K5 launch "
+           f"{smoke.first_b_warp(smoke.FORWARD_GOP)}, a B-frame's)")
     watch = smoke.GdnWatch(fmodel, capture=smoke.GDN_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -172,12 +175,19 @@ def main() -> int:
 
     rec5 = smoke.check_warp_vclamped(dev, f444[0].shape[2],
                                      f444[0].shape[3])
+    cap5 = smoke.check_warp_vclamped_on(k5_inputs)
     rec4 = smoke.check_gdn(watch.inputs)
     ph.say(f"kernel warp_vclamped: bit-identical to its plain version "
            f"({rec5['clamped_share']:.3f} of the pixels past the vertical "
            f"clamp); {rec5['ms']:.4f} ms (plain {rec5['plain_ms']:.3f} ms, "
            f"bound {rec5['bound_ms']:.4f} ms by {rec5['bound_by']}, library "
            f"{rec5['library_ms']:.4f} ms)")
+    ph.say(f"kernel warp_vclamped on the flows of one B-frame launch of the "
+           f"forward {cap5['shape']} (max |u| {cap5['max_u']:.3f}, max |v| "
+           f"{cap5['max_v']:.3f}, {cap5['clamped_share']:.6f} of the pixels "
+           f"past the vertical clamp): bit-identical to its plain version; "
+           f"{cap5['ms']:.4f} ms, L2 cold {cap5['cold_ms']:.4f} ms (bound "
+           f"{cap5['bound_ms']:.4f} ms)")
     for name, shape, err, ulps, rel in rec4["inputs"]:
         ph.say(f"kernel gdn_fused on {name} {list(shape)}: {err} ({ulps} "
                f"bf16 ulps) from its plain version, {rel:.3e} relative "

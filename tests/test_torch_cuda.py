@@ -453,18 +453,89 @@ def test_codec_closed_loop_on_card(card):
                for k in ("rans_encode", "rans_decode", "warp_packed"))
 
 
-@pytest.mark.parametrize("shape", [(1, 3, 64, 128), (2, 5, 72, 256)])
-def test_warp_vclamped_kernel_bit_identical(card, shape):
+def _at_offset(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of t that starts ``offset`` floats into its
+    storage."""
+    big = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = big[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _vclamped_flow(g, flows, b, h, w):
+    if flows == "zero":
+        return torch.zeros((b, 2, h, w))
+    if flows == "random":
+        return ((torch.rand((b, 2, h, w), generator=g) * 2 - 1)
+                * torch.tensor([50.0, 30.0]).view(1, 2, 1, 1))
+    # Past every border horizontally, and vertically both past the +-15
+    # clamp and (near the top and bottom rows) past the frame.
+    vals = torch.tensor([-1e4, 1e4, -(w + 3.0), w + 3.0, -15.5, 15.5, -15.0,
+                         15.0, -14.75, 14.75, -0.25, 0.25, 0.0])
+    return vals[torch.randint(0, len(vals), (b, 2, h, w), generator=g)]
+
+
+@pytest.mark.parametrize("shape, offset, flows", [
+    ((1, 3, 64, 128), 0, "random"), ((2, 5, 72, 256), 0, "random"),
+    ((1, 3, 100, 128), 0, "random"),     # H not a multiple of the 8-row tile
+    ((3, 3, 64, 128), 0, "random"),      # B = 3
+    ((1, 1, 48, 256), 0, "random"), ((2, 3, 40, 384), 0, "random"),
+    ((1, 5, 24, 128), 0, "random"),      # C = 1, 3, 5
+    ((1, 3, 40, 128), 1, "random"), ((2, 5, 40, 256), 1, "random"),
+    ((1, 3, 40, 128), 4, "random"), ((2, 5, 40, 256), 4, "random"),
+    ((2, 3, 48, 128), 0, "borders"), ((1, 5, 104, 256), 0, "borders"),
+    ((1, 3, 64, 128), 0, "zero"), ((2, 5, 16, 256), 0, "zero")])
+def test_warp_vclamped_kernel_bit_identical(card, shape, offset, flows):
+    """K5 through its wrapper, and through its launcher into an output
+    that starts ``offset`` floats into its storage, bit-identical to
+    warp_vclamped.  x and flow start ``offset`` floats in too: bases that
+    are 16-byte aligned (0, 4) and bases that are not (1); the kernel
+    reads and writes 4 bytes a thread, so it needs no alignment."""
     g = torch.Generator().manual_seed(shape[3])
-    x = torch.randn(shape, generator=g).to(card)
-    b, _, h, w = shape
-    flow = ((torch.rand((b, 2, h, w), generator=g) * 2 - 1)
-            * torch.tensor([50.0, 30.0]).view(1, 2, 1, 1)).to(card)
+    b, c, h, w = shape
+    x = torch.randn(shape, generator=g)
+    flow = _vclamped_flow(g, flows, b, h, w)
+    if flows == "borders":
+        sx = torch.arange(w).view(1, 1, w) + flow[:, 0]
+        sy = torch.arange(h).view(1, h, 1) + flow[:, 1].clamp(-15, 15)
+        assert (sx < 0).any() and (sx > w - 1).any()
+        assert (sy < 0).any() and (sy > h - 1).any()
+        assert (flow[:, 1].abs() > 15).any()
+    x, flow = _at_offset(x.to(card), offset), _at_offset(flow.to(card),
+                                                         offset)
+    assert (flow.data_ptr() % 16 == 0) == (offset % 4 == 0)
+    ref = tw.warp_vclamped(x, flow)
     before = kernels.LAUNCHES["warp_vclamped"]
     out = tw.warp_vclamped_cuda(x, flow)
     assert kernels.LAUNCHES["warp_vclamped"] == before + 1
-    ref = tw.warp_vclamped(x, flow)
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    raw = _at_offset(torch.zeros_like(ref), offset)
+    kernels.check("warp_vclamped", kernels.lib().aivc_warp_vclamped(
+        x.data_ptr(), flow.data_ptr(), b, c, h, w, tw.V_RADIUS - 1,
+        raw.data_ptr(), kernels.stream_ptr()))
+    assert torch.equal(raw.view(torch.int32), ref.view(torch.int32))
+    if flows == "zero":
+        assert torch.equal(out, x)
+
+
+@pytest.mark.parametrize("b, h, fits", [
+    (65535, 8, True), (65536, 8, False),           # images: grid z
+    (1, 65535 * 8, True), (1, 65536 * 8, False)])  # 8-row tiles: grid y
+def test_warp_vclamped_grid_limits(card, b, h, fits):
+    """K5's launcher refuses a grid of more than 65,535 row tiles or
+    images (cudaErrorInvalidValue), and the wrapper raises on it without
+    counting a launch; at the limit it runs (zero flow: x itself)."""
+    x = torch.arange(b * h * 128, dtype=torch.float32,
+                     device=card).view(b, 1, h, 128)
+    flow = torch.zeros((b, 2, h, 128), device=card)
+    before = kernels.LAUNCHES["warp_vclamped"]
+    if fits:
+        assert torch.equal(tw.warp_vclamped_cuda(x, flow), x)
+        assert kernels.LAUNCHES["warp_vclamped"] == before + 1
+    else:
+        with pytest.raises(RuntimeError, match="CUDA error 1$"):
+            tw.warp_vclamped_cuda(x, flow)
+        assert kernels.LAUNCHES["warp_vclamped"] == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -199,6 +199,67 @@ def test_forward_phases_rehearsed_on_host(monkeypatch):
         assert r["bound_by"] in ("bytes", "operations")
 
 
+@pytest.fixture(scope="module")
+def bf16_forward():
+    """bf16-r5 on the host and a GOP of three frames at 128x128."""
+    cpu = torch.device("cpu")
+    cfg, model = load_checkpoint(BF16, device=cpu)
+    return cfg, model, frames_444(synthetic_frames(3, 120, 128, seed=3), cpu)
+
+
+def test_vclamp_watch_captures_a_forward_launch(bf16_forward, monkeypatch):
+    """capture_forward_warp wraps warp_vclamped_cuda (here a stand-in that
+    runs the plain warp, since the host takes no kernel) with VclampWatch
+    through a forward: it keeps the first B-frame launch (launch 1 of
+    1_GOP_2, which runs I0, P2, B1), closes the watch, and K5's check on
+    those inputs passes."""
+    from aivc_tpu_torch.models import fullnet
+    from aivc_tpu_torch.profile_kernels import K5_LAUNCH
+
+    cfg, model, f444 = bf16_forward
+    seen = []
+
+    def stand_in(x, flow):
+        seen.append((x.clone(), flow.clone()))
+        return warp_ops.warp_vclamped(x, flow)
+
+    def warp_to_stand_in(x, flow):
+        return warp_ops.warp_vclamped_cuda(x.contiguous(), flow.contiguous())
+
+    monkeypatch.setattr(warp_ops, "warp_vclamped_cuda", stand_in)
+    monkeypatch.setattr(warp_ops, "warp", warp_to_stand_in)
+    monkeypatch.setattr(fullnet, "warp", warp_to_stand_in)
+    fwd, inputs = smoke.capture_forward_warp(model, cfg, f444, 0.0,
+                                             "1_GOP_2")
+    assert warp_ops.warp_vclamped_cuda is stand_in     # closed
+    assert set(fwd["logs"]) == LOG_KEYS
+    assert len(seen) == smoke.warp_calls("1_GOP_2") == 3
+    assert smoke.first_b_warp("1_GOP_2") == 1
+    assert smoke.first_b_warp(smoke.FORWARD_GOP) == K5_LAUNCH == 1
+    assert all(torch.equal(a, b) for a, b in zip(inputs, seen[1]))
+    x, flow = inputs
+    assert x.shape == (1, 3, 128, 128) and flow.shape == (1, 2, 128, 128)
+    rec = smoke.check_warp_vclamped_on(inputs, reps=1)
+    assert rec["shape"] == [1, 3, 128, 128]
+    assert rec["ms"] > 0 and rec["cold_ms"] > 0 and rec["bound_ms"] > 0
+    # MOFNet's flows are softsign-bounded by flow_bound (32).
+    assert 0 < rec["max_u"] < 32 and 0 < rec["max_v"] < 32
+    assert 0.0 <= rec["clamped_share"] <= 1.0
+
+
+def test_capture_forward_warp_fails_without_a_launch(bf16_forward,
+                                                     monkeypatch):
+    """On the host the float warp takes the plain version, so the forward
+    launches no K5: capture_forward_warp fails instead of returning
+    nothing, and leaves warp_vclamped_cuda as it was."""
+    monkeypatch.setattr(warp_ops, "_USE_PALLAS", True)
+    cfg, model, f444 = bf16_forward
+    kernel = warp_ops.warp_vclamped_cuda
+    with pytest.raises(AssertionError, match="no warp_vclamped launch"):
+        smoke.capture_forward_warp(model, cfg, f444, 0.0, "1_GOP_2")
+    assert warp_ops.warp_vclamped_cuda is kernel
+
+
 def test_profile_busy_time_is_the_union_of_spans():
     from aivc_tpu_torch.profile_forward import busy_us
 
