@@ -1,6 +1,5 @@
-"""Bitstream layout: frame/GOP/video framing and headers (a copy of
-aivc_tpu/coding/bitstream.py without the host range coder's chunk payloads,
-which wait for the host-backend slice).
+"""Bitstream layout: latent chunks, frame/GOP/video framing, headers (a
+copy of aivc_tpu/coding/bitstream.py).
 
 Byte layout mirrors the reference formats so capability parity is easy to
 audit (format compatibility with reference bitstreams is a non-goal; our
@@ -30,7 +29,88 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from aivc_tpu_torch.coding import range_coder
+
 CHUNK_ORDER = ("mofnet_z", "mofnet_y", "codecnet_z", "codecnet_y")
+
+
+# ---------------------------------------------------------------------------
+# Latent chunk payloads
+# ---------------------------------------------------------------------------
+
+def encode_z_chunk(z: np.ndarray, cdf_rows: np.ndarray) -> bytes:
+    """Encode a hyper-latent [H, W, C] int array with per-channel CDF rows.
+
+    The alphabet (symbol shift and width) derives from the CDF row width:
+    rows are [R, 2*ac_max + 1] and symbols live in [-ac_max, ac_max-1]."""
+    H, W, C = z.shape
+    n_sym = cdf_rows.shape[1] - 1
+    sym = (z.astype(np.int64) + n_sym // 2)
+    if sym.min() < 0 or sym.max() >= n_sym:
+        raise ValueError("z symbol out of range")
+    row_idx = np.broadcast_to(np.arange(C, dtype=np.int32), (H, W, C))
+    return range_coder.encode(
+        sym.reshape(-1).astype(np.uint16),
+        cdf_rows,
+        row_idx.reshape(-1),
+    )
+
+
+def decode_z_chunk(data: bytes, shape: Tuple[int, int, int],
+                   cdf_rows: np.ndarray) -> np.ndarray:
+    H, W, C = shape
+    row_idx = np.broadcast_to(np.arange(C, dtype=np.int32), (H, W, C))
+    sym = range_coder.decode(data, H * W * C, cdf_rows, row_idx.reshape(-1))
+    return (sym.reshape(H, W, C).astype(np.int32)
+            - (cdf_rows.shape[1] - 1) // 2)
+
+
+def encode_y_chunk(y: np.ndarray, bin_idx: np.ndarray,
+                   laplace_rows: np.ndarray) -> bytes:
+    """Encode a main latent [H, W, C] with per-element scale-bin indices.
+
+    Applies zero-feature-map elision: channels that are entirely zero are
+    skipped and only their indices' absence signals them
+    (reference: bitstream.py:237-255).
+    """
+    H, W, C = y.shape
+    if C > 255:
+        raise ValueError("zero-map elision header supports at most 255 channels")
+    nonzero = np.where(np.abs(y).sum(axis=(0, 1)) != 0)[0]
+    out = bytearray()
+    out.append(len(nonzero))
+    out.extend(int(c) for c in nonzero)
+    if len(nonzero):
+        n_sym = laplace_rows.shape[1] - 1
+        y_nz = y[:, :, nonzero]
+        sym = y_nz.astype(np.int64) + n_sym // 2
+        if sym.min() < 0 or sym.max() >= n_sym:
+            raise ValueError("y symbol out of range")
+        idx_nz = bin_idx[:, :, nonzero]
+        out.extend(range_coder.encode(
+            sym.reshape(-1).astype(np.uint16),
+            laplace_rows,
+            idx_nz.reshape(-1).astype(np.int32),
+        ))
+    return bytes(out)
+
+
+def decode_y_chunk(data: bytes, shape: Tuple[int, int, int],
+                   bin_idx: np.ndarray, laplace_rows: np.ndarray) -> np.ndarray:
+    H, W, C = shape
+    n_nz = data[0]
+    nonzero = list(data[1:1 + n_nz])
+    payload = data[1 + n_nz:]
+    y = np.zeros((H, W, C), dtype=np.int32)
+    if n_nz:
+        idx_nz = bin_idx[:, :, nonzero]
+        sym = range_coder.decode(
+            payload, H * W * n_nz, laplace_rows,
+            idx_nz.reshape(-1).astype(np.int32),
+        )
+        y[:, :, nonzero] = (sym.reshape(H, W, n_nz).astype(np.int32)
+                            - (laplace_rows.shape[1] - 1) // 2)
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -93,6 +93,16 @@ def sigma_to_bin(sigma: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(t), 0, NBINS - 1).to(torch.int32)
 
 
+def expected_bits(symbols: np.ndarray, row_idx: np.ndarray,
+                  cdf_rows: np.ndarray) -> float:
+    """Exact expected codelength of symbols under the quantized coded
+    distribution — the analytic side of the estimated-vs-real rate
+    cross-check (reference: src/real_life/bitstream.py:307-329)."""
+    freq = np.diff(cdf_rows.astype(np.int64), axis=1)
+    f = freq[row_idx.reshape(-1), symbols.reshape(-1).astype(np.int64)]
+    return float(np.sum(-np.log2(f / float(PROB_SCALE))))
+
+
 @torch.no_grad()
 def build_z_table(prior, scale: int = PROB_SCALE,
                   ac_max: int = AC_MAX_VAL) -> np.ndarray:

@@ -1,8 +1,33 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and the settling of the
+host's vector math library."""
 
 from __future__ import annotations
 
 import torch
+
+# Elementwise functions that PyTorch's CPU kernels hand to MKL's vector
+# math library (VML).  In a fresh process, where two OpenMP threads make
+# the first call of one of them at once, one thread can get a coarse
+# approximation instead: the first torch.sqrt of 122,880 float32 values
+# on 2 threads, under load, came back up to 3.2e-4 relative off on one
+# thread's half, in about 1 fresh process in 100; every later call was
+# right (``python -m aivc_tpu_torch.check_host_math``).  In a --cpu run
+# that would make an encoder's reconstruction differ from its decoder's.
+VML_FUNCTIONS = (torch.sqrt, torch.exp, torch.log, torch.log2, torch.log10,
+                 torch.sin, torch.cos, torch.tan, torch.tanh, torch.erf,
+                 torch.erfc, torch.erfinv, torch.acos, torch.asin,
+                 torch.atan, torch.trunc)
+
+
+def settle_host_math() -> None:
+    """Make the first call of each of VML_FUNCTIONS, in float32 and
+    float64, on one thread (a tensor far below PyTorch's parallel grain),
+    so that no later call on several threads is a first call.  Runs
+    once, when the package is imported."""
+    for dtype in (torch.float32, torch.float64):
+        x = torch.full((16,), 0.5, dtype=dtype)
+        for fn in VML_FUNCTIONS:
+            fn(x)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -27,6 +27,8 @@ from aivc_tpu_torch import kernels
 REPARAM_OFFSET = 2.0 ** -18
 PEDESTAL = REPARAM_OFFSET ** 2
 BETA_MIN = 1e-6
+# Initial gamma of a fresh GDN: sqrt(GAMMA_INIT * I + PEDESTAL).
+GAMMA_INIT = 0.1
 # gdn_pallas's shape rule: rows in tiles of 512, channels a multiple of 128.
 FUSED_ROWS = 512
 FUSED_CHANNELS = 128

@@ -1,28 +1,43 @@
-"""FrameCodec: the frame coding engine, device entropy backend
-(counterpart of aivc_tpu/pipeline/codec.py).
+"""FrameCodec: the frame coding engine (counterpart of
+aivc_tpu/pipeline/codec.py), with both entropy backends.
 
   encode: to444 -> [P/B] mof_analyze -> mof_hyper -> quantize -> mof_synth
           -> warp -> cod_analyze -> cod_hyper -> quantize -> cod_synth
-          -> cast + DC correction -> one fused rANS stream per frame (K1)
-  decode: staged rANS decode of the fused stream (K2) interleaved with the
-          hyper and synthesis stages, then the same cast.
+          -> cast + DC correction -> entropy coding:
+            device backend: one fused rANS stream per frame (K1);
+            host backend:   the latents pulled to the host, four chunks a
+                            frame coded by the host range coder
+                            (coding/range_coder.py) in a pool of threads
+  decode: the entropy decode interleaved with the hyper and synthesis
+          stages (K2 on the device backend, the host range coder on the
+          host backend), then the same cast.  The video header says which
+          backend wrote a stream, so either codec decodes either format.
 
 Encoder and decoder run the same module code on batches of the same
 composition (a wave of the GOP), with cuDNN deterministic and its
 benchmark search off, so the float inputs of entropy coding (sigma bins)
 and of the reference loop are bit-identical on both sides of one card.
 
+Options, as in JAX: ``debug`` (per-chunk lossless self-check with [AC]
+lines, and the in-band latent md5 trailer, checked at decode),
+``audit`` (per-frame analytic bits under the coder's own CDFs) and
+``rate_priority`` (more rANS steps, fewer streams: the per-frame state
+flush stays ~1% of the payload).
+
 Format: v2 fused streams with all-zero y channels elided
-(codec.py:665-990,1221-1300), per-frame DC trailer (codec.py:494-541),
-schedule byte 0x1F.  The DC plane sums are int64 (the JAX sums are int32,
-which agree below ~8.4M luma pixels).
+(codec.py:665-990,1221-1300), host-backend chunks with the same elision
+(coding/bitstream.py), per-frame DC trailer (codec.py:494-541), schedule
+byte 0x1F.  The DC plane sums are int64 (the JAX sums are int32, which
+agree below ~8.4M luma pixels).
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import math
-from typing import Dict, List
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -34,6 +49,7 @@ from aivc_tpu_torch.coding.cdf import (
     PROB_SCALE,
     build_laplace_table,
     build_z_table,
+    expected_bits,
     sigma_to_bin,
 )
 from aivc_tpu_torch.config import (
@@ -65,6 +81,21 @@ def configure_determinism(cfg: ModelConfig) -> None:
     if "float32" in (cfg.mofnet.dtype, cfg.codecnet.dtype):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _nhwc(t: torch.Tensor) -> np.ndarray:
+    """An integer-valued NCHW latent (or sigma bins) -> host int32
+    [B, H, W, C], the JAX package's layout of the chunks and digests."""
+    return t.to(torch.int32).permute(0, 2, 3, 1).contiguous().cpu().numpy()
+
+
+def _par_map(fn, items):
+    """Map over a wave's chunks in threads (the host range coder releases
+    the GIL); sequential for a single item."""
+    if len(items) <= 1:
+        return [fn(it) for it in items]
+    with ThreadPoolExecutor(max_workers=min(4, len(items))) as ex:
+        return list(ex.map(fn, items))
 
 
 def canonical(x: torch.Tensor) -> torch.Tensor:
@@ -133,10 +164,19 @@ class DecodedFrame:
 
 
 class FrameCodec:
-    """Per-resolution codec around a FullNet; device entropy backend."""
+    """Per-resolution codec around a FullNet."""
 
     def __init__(self, cfg: ModelConfig, model: FullNet, height: int,
-                 width: int, device=None):
+                 width: int, device=None, debug: bool = False,
+                 entropy_backend: str = "device",
+                 rate_priority: bool = False, audit: bool = False):
+        if entropy_backend not in ("device", "host"):
+            raise ValueError(f"unknown entropy backend {entropy_backend!r}")
+        # The backend used to ENCODE; decoding follows the stream's header.
+        self.backend = entropy_backend
+        self.debug = debug
+        self.audit = audit
+        self.rate_priority = rate_priority
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             configure_determinism(cfg)
@@ -180,6 +220,10 @@ class FrameCodec:
         fused = np.concatenate([z["mofnet"], z["codecnet"], lap], axis=0)
         self.fused_rows = fused
         self.table = vrans.make_table(fused, self.device)
+        # The host backend codes at the same 2^16 scale: its rows are the
+        # fused table's.
+        self.z_rows = z
+        self.laplace_rows = lap
         czm, czc = cfg.mofnet.nb_ft_z, cfg.codecnet.nb_ft_z
         self._row_off = {"z_m": 0, "z_c": czm, "y": czm + czc}
         freq = np.diff(fused.astype(np.int64), axis=1)
@@ -207,14 +251,18 @@ class FrameCodec:
     def _pick_k(self, frame_type: int, n_total: int) -> int:
         """Stream count for the next frame of this type: the 4K-byte state
         flush stays ~<5% of the previous frame's payload, floored so the
-        scan stays <= 2048 steps."""
-        max_steps, bytes_per_stream = 2048, 40
+        scan stays <= 2048 steps.  Rate priority floors the scan at 65536
+        steps instead and sizes K for ~1% flush overhead (K doubles while
+        K * 2 * bytes_per_stream <= payload; the flush is 4 bytes a
+        stream, so its share is at most 2 / bytes_per_stream)."""
+        max_steps = 65536 if self.rate_priority else 2048
+        bytes_per_stream = 200 if self.rate_priority else 40
         k_lo = 8
         while n_total // k_lo > max_steps:
             k_lo *= 2
         hint = self._k_hint.get(frame_type)
         if hint is None:
-            k = vrans.pick_k(n_total)
+            k = 8 if self.rate_priority else vrans.pick_k(n_total)
         else:
             k = 8
             while k < vrans.K_MAX and k * 2 * bytes_per_stream <= hint:
@@ -225,6 +273,16 @@ class FrameCodec:
         prev = self._k_hint.get(frame_type)
         self._k_hint[frame_type] = (payload_bytes if prev is None
                                     else (prev + payload_bytes) // 2)
+
+    def note_coded_wave(self, frame_type: int, frame_bytes) -> None:
+        """Replay the K policy's update for a wave coded earlier (its
+        frames' bytes, as stored): a resumed encode that decodes finished
+        GOPs instead of encoding them keeps the same stream counts, and
+        so the same bytes, as an encode in one go.  The JAX package
+        skips this, so its resumed device-backend streams may differ."""
+        if self.backend == "device":
+            self._update_k_hint(frame_type,
+                                int(np.mean([len(b) for b in frame_bytes])))
 
     # ------------------------------------------------------------------
     # Planes, references, cast and DC correction (codec.py:451-541)
@@ -362,12 +420,11 @@ class FrameCodec:
         mu, sigma = getattr(self.model, f"{which}_hyper")(z_q)
         return mu, sigma_to_bin(sigma)
 
-    @torch.no_grad()
-    def encode_frames_batch(self, frames_u8, prev_refs, next_refs,
-                            frame_type: int, idx_rate: float):
-        """Code k same-type frames as one device batch.  Returns (frame
-        bytes list, DecodedFrame list, per-frame stats)."""
-        k = len(frames_u8)
+    def _encode_transforms(self, frames_u8, prev_refs, next_refs,
+                           frame_type: int, idx_rate: float) -> Dict:
+        """The device half of a wave's encode: the nets, the quantized
+        latents (NCHW float, integer values), their sigma bins and the
+        DC-corrected reconstruction."""
         m = self.model
         acv = self.ac_max
         orig_dev = self._to_device_planes(frames_u8)
@@ -376,10 +433,11 @@ class FrameCodec:
         prev = self._stack_refs(prev_refs)
         nxt = self._stack_refs(next_refs)
 
+        w = {"k": len(frames_u8), "frame_type": frame_type, "z_m": None,
+             "q_m": None, "bins_m": None, "mof": None}
         if frame_type == FRAME_I:
             pred = torch.zeros_like(frame)
             skip = torch.zeros_like(frame)
-            mof = None
         else:
             y_m, z_qm = m.mof_analyze(frame, prev, nxt, idx_rate, frame_type)
             z_qm = canonical(torch.clamp(z_qm, -acv, acv - 1))
@@ -390,6 +448,7 @@ class FrameCodec:
             mof = m.motion_comp_stage(prev, nxt, maps, frame_type,
                                       self.warp_engine)
             pred, skip = mof["pred"], mof["skip"]
+            w.update(z_m=z_qm, q_m=q_m, bins_m=bins_m, mof=mof)
 
         y_c, z_qc = m.cod_analyze(frame, pred, idx_rate, frame_type)
         z_qc = canonical(torch.clamp(z_qc, -acv, acv - 1))
@@ -398,10 +457,40 @@ class FrameCodec:
         x_hat = m.codecnet_synth(q_c, mu_c, pred, skip, idx_rate, frame_type)
         out, dc = self._dc_correct_enc(self._cast_planes(x_hat), orig)
         ref444 = planes_to_444(out["y"], out["u"], out["v"])
-        decoded = self._split_decoded(out, ref444, k)
+        w.update(z_c=z_qc, q_c=q_c, bins_c=bins_c, dc=dc,
+                 decoded=self._split_decoded(out, ref444, len(frames_u8)))
+        return w
 
-        # v2 fused entropy coding: channel masks to the host, wave-shared
-        # buckets, one K1 launch for the wave.
+    @torch.no_grad()
+    def encode_frames_batch(self, frames_u8, prev_refs, next_refs,
+                            frame_type: int, idx_rate: float):
+        """Code k same-type frames as one device batch.  Returns (frame
+        bytes list, DecodedFrame list, per-frame stats)."""
+        w = self._encode_transforms(frames_u8, prev_refs, next_refs,
+                                    frame_type, idx_rate)
+        if self.backend == "device":
+            frame_bytes, stats = self._entropy_device(w)
+        else:
+            frame_bytes, stats = self._entropy_host(w)
+        if self.audit:
+            for s, bits in zip(stats, self._analytic_bits(w).tolist()):
+                s["analytic_bits"] = bits
+        return frame_bytes, w["decoded"], stats
+
+    def _base_stats(self, w) -> List[Dict]:
+        k = w["k"]
+        if w["mof"] is None:
+            return [{"alpha_mean": 1.0, "beta_mean": 1.0} for _ in range(k)]
+        a = w["mof"]["alpha_mean"].cpu().numpy()
+        b = w["mof"]["beta_mean"].cpu().numpy()
+        return [{"alpha_mean": float(a[i]), "beta_mean": float(b[i])}
+                for i in range(k)]
+
+    def _entropy_device(self, w):
+        """v2 fused entropy coding: channel masks to the host, wave-shared
+        buckets, one K1 launch for the wave."""
+        k, frame_type = w["k"], w["frame_type"]
+        q_m, q_c = w["q_m"], w["q_c"]
         cm, cc = self.cfg.mofnet.nb_ft_y, self.cfg.codecnet.nb_ft_y
         mask_c = (q_c != 0).any(dim=3).any(dim=2).cpu().numpy()
         mask_m = (None if frame_type == FRAME_I else
@@ -423,17 +512,18 @@ class FrameCodec:
         kk = self._pick_k(frame_type, n8)
         parts, cols = [], []
         if frame_type != FRAME_I:
-            parts.append(self._z_seg(z_qm, "z_m", kk))
+            parts.append(self._z_seg(w["z_m"], "z_m", kk))
             cols.append(0)
             if bm:
                 ch_m = [np.nonzero(mask_m[i])[0] for i in range(k)]
                 idxm, nkm = self._pack_idx(ch_m, bm)
-                parts.append(self._y_seg_el(q_m, bins_m, idxm, nkm, kk))
+                parts.append(self._y_seg_el(q_m, w["bins_m"], idxm, nkm,
+                                            kk))
                 cols.append(1)
-        parts.append(self._z_seg(z_qc, "z_c", kk))
+        parts.append(self._z_seg(w["z_c"], "z_c", kk))
         cols.append(2)
         if bc:
-            parts.append(self._y_seg_el(q_c, bins_c, idxc, nkc, kk))
+            parts.append(self._y_seg_el(q_c, w["bins_c"], idxc, nkc, kk))
             cols.append(3)
         sym = torch.cat([p[0] for p in parts], dim=1).contiguous()
         rows = torch.cat([p[1] for p in parts], dim=1).contiguous()
@@ -449,30 +539,199 @@ class FrameCodec:
         bounds = np.concatenate([seg_np, np.full((k, 1), n_pad)], axis=1)
         segw = np.zeros((k, 4), np.int64)
         segw[:, cols] = np.diff(bounds, axis=1)
-        dc_np = dc.cpu().numpy()
-        if mof is not None:
-            a_means = mof["alpha_mean"].cpu().numpy()
-            b_means = mof["beta_mean"].cpu().numpy()
-        frame_bytes, stats = [], []
+        chunks = []
         for i in range(k):
             t = int(totals[i])
             words = (tail[i, mmax - t:] if t else np.empty(0, np.uint16))
-            chunk = vrans.serialize_chunk_v2(kk, states_np[i], words,
-                                             bitmaps[i])
-            fb = bs.pack_frame({"codecnet_z": chunk}, None,
+            chunks.append(vrans.serialize_chunk_v2(kk, states_np[i], words,
+                                                   bitmaps[i]))
+        digs = None
+        if self.debug:
+            digs = self._wave_digests(w)
+            for i in range(k):
+                self._debug_vr_frame(chunks[i], sym[i], rows[i], i)
+        dc_np = w["dc"].cpu().numpy()
+        frame_bytes, stats = [], self._base_stats(w)
+        for i in range(k):
+            fb = bs.pack_frame({"codecnet_z": chunks[i]},
+                               digs[i] if digs else None,
                                dc=tuple(int(v) for v in dc_np[i]))
             frame_bytes.append(fb)
-            stats.append({
+            stats[i].update({
                 "bytes": len(fb),
                 "mode_bytes": 2 * int(segw[i, :2].sum()),
                 "codec_bytes": 2 * int(segw[i, 2:].sum()),
-                "alpha_mean": 1.0 if mof is None else float(a_means[i]),
-                "beta_mean": 1.0 if mof is None else float(b_means[i]),
                 "k": kk,
             })
-        self._update_k_hint(frame_type,
-                            int(np.mean([len(b) for b in frame_bytes])))
-        return frame_bytes, decoded, stats
+        self.note_coded_wave(frame_type, frame_bytes)
+        return frame_bytes, stats
+
+    def _entropy_host(self, w):
+        """Host backend: latents pulled to the host, each chunk coded by
+        the host range coder, a wave's chunks in a pool of at most four
+        threads (one at a time under debug, so the [AC] lines keep their
+        order)."""
+        k = w["k"]
+        jobs = []
+        for fam in ("mofnet", "codecnet"):
+            z = w["z_m" if fam == "mofnet" else "z_c"]
+            if z is None:
+                continue
+            z_np = _nhwc(z)
+            y_np = _nhwc(w["q_m" if fam == "mofnet" else "q_c"])
+            b_np = _nhwc(w["bins_m" if fam == "mofnet" else "bins_c"])
+            for i in range(k):
+                jobs.append((i, f"{fam}_z", functools.partial(
+                    self._encode_z, fam, z_np[i], f"{fam}_z[{i}]")))
+                jobs.append((i, f"{fam}_y", functools.partial(
+                    self._encode_y, y_np[i], b_np[i], f"{fam}_y[{i}]")))
+        outs = ([fn() for _, _, fn in jobs] if self.debug
+                else _par_map(lambda job: job[2](), jobs))
+        chunks = [dict() for _ in range(k)]
+        for (i, name, _), out in zip(jobs, outs):
+            chunks[i][name] = out
+        digs = self._wave_digests(w) if self.debug else None
+        dc_np = w["dc"].cpu().numpy()
+        frame_bytes, stats = [], self._base_stats(w)
+        for i in range(k):
+            c = chunks[i]
+            fb = bs.pack_frame(c, digs[i] if digs else None,
+                               dc=tuple(int(v) for v in dc_np[i]))
+            frame_bytes.append(fb)
+            stats[i].update({
+                "bytes": len(fb),
+                "mode_bytes": (len(c.get("mofnet_z", b""))
+                               + len(c.get("mofnet_y", b""))),
+                "codec_bytes": len(c["codecnet_z"]) + len(c["codecnet_y"]),
+            })
+        return frame_bytes, stats
+
+    # ------------------------------------------------------------------
+    # Chunk coding (host backend) with the debug self-check
+    # ------------------------------------------------------------------
+    def _encode_z(self, which: str, z_np: np.ndarray, label: str) -> bytes:
+        chunk = bs.encode_z_chunk(z_np, self.z_rows[which])
+        if self.debug:
+            H, W, C = z_np.shape
+            rows = np.broadcast_to(np.arange(C, dtype=np.int32), (H, W, C))
+            est = expected_bits((z_np + self.ac_max).astype(np.int64),
+                                rows, self.z_rows[which]) / 8.0
+            back = bs.decode_z_chunk(chunk, z_np.shape, self.z_rows[which])
+            lossless = np.array_equal(back, z_np)
+            print(f"[AC] {label}: {len(chunk)}B real, {est:.1f}B analytic, "
+                  f"overhead {100 * (len(chunk) / max(est, 1e-9) - 1):.2f}%, "
+                  f"{'lossless Ok!' if lossless else 'NOT LOSSLESS Ko!'}")
+            if not lossless:
+                raise AssertionError(f"entropy coding not lossless: {label}")
+        return chunk
+
+    def _encode_y(self, y_np: np.ndarray, bins_np: np.ndarray,
+                  label: str) -> bytes:
+        chunk = bs.encode_y_chunk(y_np, bins_np, self.laplace_rows)
+        if self.debug:
+            nz = np.where(np.abs(y_np).sum(axis=(0, 1)) != 0)[0]
+            est = (expected_bits(
+                (y_np[:, :, nz] + self.ac_max).astype(np.int64),
+                bins_np[:, :, nz], self.laplace_rows) / 8.0
+                if len(nz) else 0.0)
+            back = bs.decode_y_chunk(chunk, y_np.shape, bins_np,
+                                     self.laplace_rows)
+            lossless = np.array_equal(back, y_np)
+            print(f"[AC] {label}: {len(chunk)}B real, {est:.1f}B analytic, "
+                  f"{len(nz)}/{y_np.shape[2]} ft maps, "
+                  f"{'lossless Ok!' if lossless else 'NOT LOSSLESS Ko!'}")
+            if not lossless:
+                raise AssertionError(f"entropy coding not lossless: {label}")
+        return chunk
+
+    def _debug_vr_frame(self, payload: bytes, sym: torch.Tensor,
+                        rows: torch.Tensor, i: int) -> None:
+        """Fused-chunk lossless self-check + analytic-vs-real rate for the
+        device backend (reference: bitstream.py:307-350): the chunk's
+        bytes are parsed and decoded again (K2 on the card, its plain
+        version on the host) against the rows its encode used."""
+        words, states, kk, _ = vrans.parse_chunk_v2(payload)
+        back, _, _ = vrans.decode_batch(
+            torch.from_numpy(words)[None].to(self.device),
+            torch.from_numpy(states)[None].to(self.device),
+            rows[None].contiguous(), self.table, kk)
+        lossless = torch.equal(back[0], sym)
+        est = expected_bits(sym.cpu().numpy(), rows.cpu().numpy(),
+                            self.fused_rows) / 8.0
+        print(f"[AC-dev] fused[{i}]: {len(payload)}B real, "
+              f"{est:.1f}B analytic, "
+              f"{'lossless Ok!' if lossless else 'NOT LOSSLESS Ko!'}")
+        if not lossless:
+            raise AssertionError(
+                f"device entropy coding not lossless: frame {i}")
+
+    def _wave_digests(self, w) -> List[Dict[str, bytes]]:
+        """Per-frame in-band latent digests (debug mode): md5 of each
+        latent in (H, W, C) int32 order, keyed by chunk name, carried in
+        the frame container so the decoder names the latent that differs
+        (reference: src/real_life/bitstream.py:229-234,419-421,488-499)."""
+        digs = [dict() for _ in range(w["k"])]
+        for fam, z, q in (("codecnet", w["z_c"], w["q_c"]),
+                          ("mofnet", w["z_m"], w["q_m"])):
+            if z is None:
+                continue
+            zs, ys = _nhwc(z), _nhwc(q)
+            for i, d in enumerate(digs):
+                d[f"{fam}_z"] = bs.latent_md5(zs[i])
+                d[f"{fam}_y"] = bs.latent_md5(ys[i])
+        return digs
+
+    @staticmethod
+    def _verify_latents(digests, fam: str, z: torch.Tensor,
+                        q: torch.Tensor) -> None:
+        """Decoder-side check of a wave's in-band digests of one net's
+        latents (no-op when the stream carries none)."""
+        if not any(digests):
+            return
+        zs, ys = _nhwc(z), _nhwc(q)
+        for i, d in enumerate(digests):
+            for name, arr in ((f"{fam}_z", zs[i]), (f"{fam}_y", ys[i])):
+                if d and name in d and bs.latent_md5(arr) != d[name]:
+                    raise ValueError(
+                        f"bitstream debug: latent md5 mismatch at frame {i} "
+                        f"chunk {name} — decoded latent differs from the "
+                        f"encoder's (corrupt or mismatched stream)")
+
+    @torch.no_grad()
+    def _analytic_bits(self, w) -> torch.Tensor:
+        """Per-frame bits of the wave's latents under the coder's own
+        quantized CDFs (the JAX package's audit_i / audit_pb): -log2 of
+        each symbol's probability in float32 (at least 2^-16), summed in
+        float64 and rounded to float32 (JAX sums in float32); all-zero y
+        channels cost nothing, as in both streams.  Isolates the
+        container overhead from the model's estimate."""
+        cdf = self.table.cdf64
+        acv = self.ac_max
+
+        def abits(sym, rows):
+            p = (cdf[rows, sym + 1] - cdf[rows, sym]).float() / PROB_SCALE
+            return -torch.log2(torch.clamp_min(p, 2.0 ** -16))
+
+        def z_bits(z, fam):
+            B, C = z.shape[:2]
+            sym = z.permute(0, 2, 3, 1).reshape(B, -1).long() + acv
+            rows = self._z_rows(B, C, self._row_off[fam]).long()
+            return abits(sym, rows).double().sum(dim=1)
+
+        def y_bits(q, bins):
+            B, C, H, W = q.shape
+            keep = (q.abs().sum(dim=(2, 3)) != 0).double()
+            sym = q.permute(0, 2, 3, 1).reshape(B, -1).long() + acv
+            rows = (bins.permute(0, 2, 3, 1).reshape(B, -1).long()
+                    + self._row_off["y"])
+            per = abits(sym, rows).double().view(B, H * W, C)
+            return (per * keep[:, None, :]).sum(dim=(1, 2))
+
+        bits = z_bits(w["z_c"], "z_c") + y_bits(w["q_c"], w["bins_c"])
+        if w["z_m"] is not None:
+            bits = bits + z_bits(w["z_m"], "z_m") + y_bits(w["q_m"],
+                                                           w["bins_m"])
+        return bits.float().cpu()
 
     # ------------------------------------------------------------------
     # Decode
@@ -512,13 +771,53 @@ class FrameCodec:
 
     @torch.no_grad()
     def decode_frames_batch(self, frame_bytes_list, prev_refs, next_refs,
-                            frame_type: int, idx_rate: float):
+                            frame_type: int, idx_rate: float,
+                            backend: Optional[str] = None):
         """Decode k same-type frames as one batch.  Must be called with
         the grouping the encoder used (the wave composition is part of
-        the bit-exactness contract)."""
-        k = len(frame_bytes_list)
-        m = self.model
+        the bit-exactness contract).  ``backend`` names the chunk format
+        the stream carries ("device" | "host"; decode_video passes the
+        video header's flag) and defaults to this codec's own."""
         chunks = [bs.unpack_frame(fb) for fb in frame_bytes_list]
+        digests = [c.get("__digests__") for c in chunks]
+        prev = self._stack_refs(prev_refs)
+        nxt = self._stack_refs(next_refs)
+        if (backend or self.backend) == "device":
+            q_c, mu_c, pred, skip = self._decode_latents_device(
+                chunks, digests, prev, nxt, frame_type, idx_rate)
+        else:
+            q_c, mu_c, pred, skip = self._decode_latents_host(
+                chunks, digests, prev, nxt, frame_type, idx_rate)
+        x_hat = self.model.codecnet_synth(q_c, mu_c, pred, skip, idx_rate,
+                                          frame_type)
+        dcs = []
+        for c in chunks:
+            if c.get("__dc__") is None:
+                raise ValueError("frame carries no DC trailer")
+            dcs.append(c["__dc__"])
+        dc = torch.tensor(dcs, dtype=torch.int32, device=self.device)
+        out = self._apply_dc(self._cast_planes(x_hat), dc)
+        ref444 = planes_to_444(out["y"], out["u"], out["v"])
+        return self._split_decoded(out, ref444, len(chunks))
+
+    def _motion(self, q_m, mu_m, prev, nxt, frame_type: int,
+                idx_rate: float):
+        maps = self.model.mofnet_synth_maps(q_m, mu_m, prev, nxt, idx_rate,
+                                            frame_type)
+        mof = self.model.motion_comp_stage(prev, nxt, maps, frame_type,
+                                           self.warp_engine)
+        return mof["pred"], mof["skip"]
+
+    def _zero_pred(self, k: int):
+        pred = torch.zeros((k, 3, self.hp, self.wp), dtype=torch.float32,
+                           device=self.device)
+        return pred, torch.zeros_like(pred)
+
+    def _decode_latents_device(self, chunks, digests, prev, nxt,
+                               frame_type: int, idx_rate: float):
+        """Staged rANS decode of the fused stream (K2) interleaved with
+        the hyper and synthesis stages -> (q_c, mu_c, pred, skip)."""
+        k = len(chunks)
         parsed = [vrans.parse_chunk_v2(c["codecnet_z"]) for c in chunks]
         kk = parsed[0][2]
         if any(p[2] != kk for p in parsed):
@@ -547,13 +846,9 @@ class FrameCodec:
         st = torch.from_numpy(np.stack([p[1] for p in parsed])).to(
             self.device)
         g = torch.zeros(k, dtype=torch.int32, device=self.device)
-        prev = self._stack_refs(prev_refs)
-        nxt = self._stack_refs(next_refs)
 
         if frame_type == FRAME_I:
-            pred = torch.zeros((k, 3, self.hp, self.wp), dtype=torch.float32,
-                               device=self.device)
-            skip = torch.zeros_like(pred)
+            pred, skip = self._zero_pred(k)
         else:
             z_qm, st, g = self._dec_z(words, st, g, next(seg_it), kk,
                                       self.cfg.mofnet.nb_ft_z, "z_m")
@@ -565,11 +860,9 @@ class FrameCodec:
             else:
                 q_m = torch.zeros((k, cm, self.hy, self.wy),
                                   dtype=torch.float32, device=self.device)
-            maps = m.mofnet_synth_maps(q_m, mu_m, prev, nxt, idx_rate,
-                                       frame_type)
-            mof = m.motion_comp_stage(prev, nxt, maps, frame_type,
-                                      self.warp_engine)
-            pred, skip = mof["pred"], mof["skip"]
+            self._verify_latents(digests, "mofnet", z_qm, q_m)
+            pred, skip = self._motion(q_m, mu_m, prev, nxt, frame_type,
+                                      idx_rate)
 
         z_qc, st, g = self._dec_z(words, st, g, next(seg_it), kk,
                                   self.cfg.codecnet.nb_ft_z, "z_c")
@@ -580,16 +873,45 @@ class FrameCodec:
         else:
             q_c = torch.zeros((k, cc, self.hy, self.wy), dtype=torch.float32,
                               device=self.device)
-        x_hat = m.codecnet_synth(q_c, mu_c, pred, skip, idx_rate, frame_type)
-        dcs = []
-        for c in chunks:
-            if c.get("__dc__") is None:
-                raise ValueError("frame carries no DC trailer")
-            dcs.append(c["__dc__"])
-        dc = torch.tensor(dcs, dtype=torch.int32, device=self.device)
-        out = self._apply_dc(self._cast_planes(x_hat), dc)
-        ref444 = planes_to_444(out["y"], out["u"], out["v"])
-        return self._split_decoded(out, ref444, k)
+        self._verify_latents(digests, "codecnet", z_qc, q_c)
+        return q_c, mu_c, pred, skip
+
+    def _decode_latents_host(self, chunks, digests, prev, nxt,
+                             frame_type: int, idx_rate: float):
+        """Host-backend chunks: each net's z decoded on the host, its
+        hyper stage on the device, the sigma bins back to the host for
+        the y decode -> (q_c, mu_c, pred, skip)."""
+        k = len(chunks)
+
+        def latents(fam: str):
+            ncfg = getattr(self.cfg, fam)
+            z_np = np.stack(_par_map(lambda c: bs.decode_z_chunk(
+                c[f"{fam}_z"], (self.hz, self.wz, ncfg.nb_ft_z),
+                self.z_rows[fam]), chunks))
+            z_q = self._from_nhwc(z_np)
+            mu, bins = self._hyper(fam, z_q)
+            bins_np = _nhwc(bins)
+            y_np = np.stack(_par_map(lambda ic: bs.decode_y_chunk(
+                ic[1][f"{fam}_y"], (self.hy, self.wy, ncfg.nb_ft_y),
+                bins_np[ic[0]], self.laplace_rows), list(enumerate(chunks))))
+            q = self._from_nhwc(y_np)
+            self._verify_latents(digests, fam, z_q, q)
+            return q, mu
+
+        if frame_type == FRAME_I:
+            pred, skip = self._zero_pred(k)
+        else:
+            q_m, mu_m = latents("mofnet")
+            pred, skip = self._motion(q_m, mu_m, prev, nxt, frame_type,
+                                      idx_rate)
+        q_c, mu_c = latents("codecnet")
+        return q_c, mu_c, pred, skip
+
+    def _from_nhwc(self, a: np.ndarray) -> torch.Tensor:
+        """Host int latents [B, H, W, C] -> float32 NCHW on the device,
+        with the encoder's strides."""
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return canonical(t.permute(0, 3, 1, 2).to(torch.float32))
 
     # ------------------------------------------------------------------
     @property
@@ -610,5 +932,7 @@ class FrameCodec:
             h_x=self.h, w_x=self.w, h_y=self.hy, w_y=self.wy,
             h_z=self.hz, w_z=self.wz, nb_gop=nb_gop,
             idx_first_frame=idx_first, idx_last_frame=idx_last,
-            backend=bs.BACKEND_DEVICE, wave_batch=max(1, wave_batch),
+            backend=(bs.BACKEND_DEVICE if self.backend == "device"
+                     else bs.BACKEND_HOST),
+            wave_batch=max(1, wave_batch),
             ac_log2=self.ac_max.bit_length() - 1, sched=self.sched_bits)

@@ -34,10 +34,15 @@ take their plain versions).  On the card:
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import subprocess
+import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 from typing import Callable, Dict, List
 
 import numpy as np
@@ -45,11 +50,13 @@ import torch
 import torch.nn.functional as F
 
 from aivc_tpu_torch import kernels, profile_kernels
-from aivc_tpu_torch.coding import vrans
+from aivc_tpu_torch.coding import range_coder, vrans
 from aivc_tpu_torch.config import FRAME_B, FRAME_P, CodingConfig
 from aivc_tpu_torch.gop import generate_gop_struct
+from aivc_tpu_torch.io.yuv import YuvReader, YuvWriter, parse_geometry
 from aivc_tpu_torch.ops import gdn as gdn_ops
 from aivc_tpu_torch.ops import warp as warp_ops
+from aivc_tpu_torch.pipeline import video as video_mod
 from aivc_tpu_torch.pipeline.codec import FrameCodec
 from aivc_tpu_torch.pipeline.video import (
     decode_video,
@@ -60,6 +67,7 @@ from aivc_tpu_torch.pipeline.video import (
 )
 from aivc_tpu_torch.train.loss import gop_rd_loss
 from aivc_tpu_torch.utils.checkpoint import load_checkpoint
+from aivc_tpu_torch.utils.debug import write_md5_manifest
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -195,14 +203,20 @@ def device_info() -> Dict:
 
 
 def build_report() -> Dict:
-    kernels.lib()
+    """Builds the kernel library (one nvcc) and the host range coder (one
+    g++) at the same time, each compiler in its own process."""
+    t0 = time.time()
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        coder = ex.submit(range_coder.build)
+        kernels.lib()
+        coder.result()
     lines = [ln.strip() for ln in kernels.BUILD_INFO.get("ptxas", "")
              .splitlines()
              if "registers" in ln or "Compiling entry" in ln
              or "bytes stack" in ln]
     return {"seconds": kernels.BUILD_INFO.get("seconds", 0.0),
             "cached": kernels.BUILD_INFO.get("cached", False),
-            "ptxas": lines}
+            "both_seconds": time.time() - t0, "ptxas": lines}
 
 
 # ---------------------------------------------------------------------------
@@ -485,6 +499,7 @@ def code_clip(codec: FrameCodec, frames, wave_batch: int = 8,
         raise AssertionError(f"PSNR / MS-SSIM not finite: {quality}")
     n_pix = codec.h * codec.w * len(frames)
     return {"bytes": len(enc.bitstream),
+            "bitstream": enc.bitstream,
             "bpp": len(enc.bitstream) * 8.0 / n_pix,
             "psnr": float(psnr),
             "ms_ssim": float(ms_ssim),
@@ -817,3 +832,293 @@ def kernels_line(records: List[Dict], launches: Dict[str, int]) -> str:
     return json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, "launches": launches[r["name"]]}
         for r in records]})
+
+
+# ---------------------------------------------------------------------------
+# CLI path (python -m aivc_tpu_torch)
+# ---------------------------------------------------------------------------
+
+def write_clip(frames, directory, name: str = "clip") -> Path:
+    """Frames -> <directory>/<name>_<W>x<H>_30_420.yuv (the CLI reads the
+    geometry from the name)."""
+    h, w = frames[0]["y"].shape
+    path = Path(directory) / f"{name}_{w}x{h}_30_420.yuv"
+    with YuvWriter(path) as wr:
+        for f in frames:
+            wr.write_frame(f)
+    return path
+
+
+def parse_results(out: str) -> Dict[str, str]:
+    """The CLI's [RESULT] lines -> {label: value}."""
+    rows = {}
+    for ln in out.splitlines():
+        if ln.startswith("[RESULT]"):
+            label, value = ln[len("[RESULT]"):].split(":", 1)
+            rows[label.strip()] = value.strip()
+    return rows
+
+
+class EncodeWatch:
+    """Wraps pipeline/video.py:encode_video, which the CLI calls through
+    its module, and keeps the encoder's reconstructions of the last call
+    while open."""
+
+    def __init__(self):
+        self.decoded = None
+        self._fn = video_mod.encode_video
+        video_mod.encode_video = self._call
+
+    def _call(self, *args, **kwargs):
+        res = self._fn(*args, **kwargs)
+        self.decoded = res.decoded_frames
+        return res
+
+    def close(self) -> None:
+        if video_mod.encode_video == self._call:
+            video_mod.encode_video = self._fn
+
+
+class RansWatch:
+    """Wraps coding/vrans.py:encode_cuda, which encode_batch calls through
+    its module, and keeps the inputs (sym, rows, table, k, segments) of
+    the launch with the most dependent steps while open."""
+
+    def __init__(self):
+        self.inputs = None
+        self._kernel = vrans.encode_cuda
+        vrans.encode_cuda = self._call
+
+    def _call(self, sym, rows, table, k, segment_steps=()):
+        steps = sym.shape[1] // k
+        if self.inputs is None or steps > self.inputs[0].shape[1] // \
+                self.inputs[3]:
+            self.inputs = (sym.clone(), rows.clone(), table, k,
+                           tuple(segment_steps))
+        return self._kernel(sym, rows, table, k, segment_steps)
+
+    def close(self) -> None:
+        if vrans.encode_cuda == self._call:
+            vrans.encode_cuda = self._kernel
+
+
+def run_cli(argv: List[str], keep_recon: bool = False) -> Dict:
+    """``cli.main(argv)`` in this process: its [RESULT] lines, the
+    kernels' launches and steps in the run (counts set to 0 just before,
+    read just after), its wall seconds and, with ``keep_recon``, its
+    encoder's reconstructions (``recon``).  Where it decodes to ``-o``,
+    every decoded frame is held bit for bit against the encoder's
+    reconstruction of the same run."""
+    from aivc_tpu_torch import cli
+
+    watch = EncodeWatch()
+    buf = io.StringIO()
+    kernels.reset_launches()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    finally:
+        watch.close()
+    seconds = time.time() - t0
+    launches, steps = dict(kernels.LAUNCHES), dict(kernels.STEPS)
+    out = buf.getvalue()
+    if rc != 0:
+        raise AssertionError(f"cli {argv} exited {rc}:\n{out}")
+    checked = 0
+    mode = argv[argv.index("--mode") + 1] if "--mode" in argv else "all"
+    if mode == "all" and "-o" in argv and watch.decoded is not None:
+        w, h, _ = parse_geometry(argv[argv.index("-i") + 1])
+        dec = YuvReader(argv[argv.index("-o") + 1], w, h)
+        if dec.n_frames != len(watch.decoded):
+            raise AssertionError(f"decoded {dec.n_frames} frames, encoded "
+                                 f"{len(watch.decoded)}")
+        for i, rec in watch.decoded.items():
+            got = dec.read_frame(i)
+            for c in ("y", "u", "v"):
+                if not np.array_equal(got[c], rec[c]):
+                    raise AssertionError(
+                        f"cli {argv}: decoded frame {i} plane {c} differs "
+                        "from the encoder's reconstruction")
+            checked += 1
+    return {"results": parse_results(out), "launches": launches,
+            "steps": steps, "seconds": seconds, "checked": checked,
+            "stdout": out,
+            "recon": watch.decoded if keep_recon else None}
+
+
+def decode_in_process(argv: List[str], cwd, timeout_s: int = 900) -> Dict:
+    """``python -m aivc_tpu_torch <argv> --mode decode`` in a second
+    process (from ``cwd``, the checkout's root): its [RESULT] lines and
+    wall seconds; raises if it fails."""
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "aivc_tpu_torch", *argv, "--mode", "decode"],
+        capture_output=True, text=True, cwd=str(cwd), timeout=timeout_s)
+    if proc.returncode != 0:
+        raise AssertionError(f"decode process exited {proc.returncode}:\n"
+                             f"{proc.stdout}\n{proc.stderr}")
+    return {"results": parse_results(proc.stdout),
+            "seconds": time.time() - t0, "stdout": proc.stdout}
+
+
+def check_rans_on(inputs, plain_budget_s: float = 10.0,
+                  reps: int = 3) -> Dict:
+    """K1 and K2 on a captured wave (RansWatch): the whole wave timed,
+    per dependent step; both held bit for bit against their plain
+    versions on its first steps, as many as keep each plain run within
+    about ``plain_budget_s`` (one plain step timed first)."""
+    sym, rows, table, k, segs = inputs
+    dev = sym.device
+    steps = sym.shape[1] // k
+    enc = lambda: vrans.encode_batch(sym, rows, table, k, segs)  # noqa: E731
+    buf, st, seg_g = enc()
+    words = _words_for_decode(buf, seg_g)
+    dec = lambda: vrans.decode_batch(words, st, rows, table, k)  # noqa: E731
+    if not torch.equal(dec()[0], sym):
+        raise AssertionError("decode(encode(x)) != x on the captured wave")
+    ms_enc = time_ms(enc, dev, reps, hide_host=True)
+    ms_dec = time_ms(dec, dev, reps, hide_host=True)
+
+    probe = min(steps, 64)
+    t_step = time_ms(lambda: vrans.encode_plain(
+        sym[:, :probe * k].contiguous(), rows[:, :probe * k].contiguous(),
+        table, k), dev, 1, warmup=0) / 1e3 / probe
+    cut = max(1, min(steps, int(plain_budget_s / max(t_step, 1e-9))))
+    cs, cr = sym[:, :cut * k].contiguous(), rows[:, :cut * k].contiguous()
+    t0 = time.time()
+    ref = vrans.encode_plain(cs, cr, table, k)
+    plain_enc_s = time.time() - t0
+    out = vrans.encode_batch(cs, cr, table, k)
+    if not encode_equal(out, ref):
+        raise AssertionError(f"K1 differs from the plain encode on the "
+                             f"captured wave's first {cut} steps")
+    cw = _words_for_decode(out[0], out[2])
+    t0 = time.time()
+    pdec = vrans.decode_plain(cw, out[1], cr, table, k)
+    plain_dec_s = time.time() - t0
+    kdec = vrans.decode_batch(cw, out[1], cr, table, k)
+    if not all(torch.equal(a, b) for a, b in zip(kdec, pdec)):
+        raise AssertionError(f"K2 differs from the plain decode on the "
+                             f"captured wave's first {cut} steps")
+    return {"shape": list(sym.shape), "k": k, "steps": steps,
+            "checked_steps": cut, "enc_ms": ms_enc, "dec_ms": ms_dec,
+            "enc_us_per_step": ms_enc * 1e3 / steps,
+            "dec_us_per_step": ms_dec * 1e3 / steps,
+            "plain_enc_s": plain_enc_s, "plain_dec_s": plain_dec_s}
+
+
+def cli_runs(frames, ckpt: str, tmp, device: torch.device, root,
+             library_stream: bytes, say: Callable[[str], None],
+             gop: int = 8, wave_batch: int = 8) -> Dict:
+    """The CLI phase: the clip written to ``tmp`` and coded through
+    ``cli.main`` in every structure and with every flag of the CLI, each
+    run's decode held against its encoder's reconstruction:
+      ra        RA (GOP ``gop``) with --rate_audit: the stream must be
+                ``library_stream``, byte for byte; then decoded in a
+                second process against the md5 manifest of its encoder's
+                reconstructions ("identical");
+      ra-debug  RA with --bitstream_debug (latent md5 trailers, [AC-dev]
+                self-checks, the encoder's manifest), decoded here and in
+                a second process;
+      ai, ldp   All-Intra with --wave_batch, and LDP;
+      host      RA with --entropy_backend host (K1, K2 never launch);
+      resume    RA, GOP 4, with --stream_dir: one GOP chunk deleted and
+                the encode run again gives the same bytes;
+      priority  RA with --rate_priority and --rate_audit, K1's largest
+                launch captured for ``check_rans_on``;
+      ladder    ladder name 5 (gain surgery) on two frames, All-Intra;
+                ladder name 7 refused where its checkpoint is absent."""
+    tmp = Path(tmp)
+    clip = write_clip(frames, tmp)
+    cpu = ["--cpu"] if device.type == "cpu" else []
+
+    def args(name, structure="RA", g=gop, *extra):
+        return [*cpu, "-i", str(clip), "-o", str(tmp / f"{name}.yuv"),
+                "--bitstream_out", str(tmp / f"{name}.bin"),
+                "--coding_config", structure, "--gop_size", str(g),
+                "--intra_period", str(g), "--model", ckpt,
+                "--wave_batch", str(wave_batch), *extra]
+
+    w, h, _ = parse_geometry(clip)
+
+    def decode_elsewhere(name, argv):
+        """Decode ``name``'s stream in a second process against the md5
+        manifest beside it: "identical", and the same frames as the
+        decode in this process."""
+        sep = decode_in_process(argv + ["--bitstream_debug", "-o",
+                                        str(tmp / f"{name}-2.yuv")], root)
+        if sep["results"].get("enc/dec drift check") != "identical":
+            raise AssertionError(f"{name}, decoded in a second process: "
+                                 f"{sep['stdout']}")
+        a = YuvReader(tmp / f"{name}-2.yuv", w, h)
+        b = YuvReader(tmp / f"{name}.yuv", w, h)
+        if any(not np.array_equal(a.read_frame(i)[c], b.read_frame(i)[c])
+               for i in range(len(frames)) for c in ("y", "u", "v")):
+            raise AssertionError(f"{name}: the second process decoded "
+                                 "other frames")
+        runs[name]["decode_process"] = sep
+
+    runs: Dict[str, Dict] = {}
+    runs["ra"] = run_cli(args("ra", "RA", gop, "--rate_audit"),
+                         keep_recon=True)
+    if (tmp / "ra.bin").read_bytes() != library_stream:
+        raise AssertionError("the CLI's RA stream differs from the library "
+                             "phase's stream of the same frames")
+    # The same stream in a second process, against the manifest of this
+    # encode's reconstructions (the one --bitstream_debug would write).
+    write_md5_manifest(runs["ra"].pop("recon"),
+                       str(tmp / "ra.bin") + ".md5.json")
+    decode_elsewhere("ra", args("ra", "RA", gop))
+    # A debug stream (latent md5 trailers, the encoder's own manifest):
+    # a second process that drifted would name the first latent.
+    runs["ra-debug"] = run_cli(args("ra-debug", "RA", gop,
+                                    "--bitstream_debug"))
+    decode_elsewhere("ra-debug", args("ra-debug", "RA", gop))
+    runs["ai"] = run_cli(args("ai", "AI", 1))
+    runs["ldp"] = run_cli(args("ldp", "LDP", gop))
+    runs["host"] = run_cli(args("host", "RA", gop, "--entropy_backend",
+                                "host"))
+    sd = ["--stream_dir", str(tmp / "streams")]
+    runs["resume"] = run_cli(args("resume", "RA", 4, *sd))
+    full = (tmp / "resume.bin").read_bytes()
+    (tmp / "streams" / "gop_00001.bin").unlink()
+    runs["resume-again"] = run_cli(args("resume", "RA", 4, *sd))
+    if (tmp / "resume.bin").read_bytes() != full:
+        raise AssertionError("the resumed encode wrote other bytes")
+    watch = RansWatch()
+    try:
+        runs["priority"] = run_cli(args("priority", "RA", gop,
+                                        "--rate_priority", "--rate_audit"))
+    finally:
+        watch.close()
+    runs["priority"]["captured"] = watch.inputs
+    ladder = args("ladder5", "AI", 1, "--end_frame", "1")
+    ladder[ladder.index("--model") + 1] = "tpu-msssim-2021cc-5"
+    runs["ladder5"] = run_cli(ladder)
+    if not (Path(root) / "models_ckpt" / "bf16-lr").is_dir():
+        from aivc_tpu_torch import cli
+
+        ladder[ladder.index("--model") + 1] = "tpu-msssim-2021cc-7"
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            rc = cli.main(ladder)
+        if rc == 0 or "not on disk" not in err.getvalue():
+            raise AssertionError("ladder name 7 without its checkpoint was "
+                                 "not refused")
+        runs["ladder7"] = {"refused": err.getvalue().strip()}
+    expect = {  # kernel -> runs that must launch it / must not
+        "rans_encode": ({"ra", "ai", "ldp", "priority"}, {"host"}),
+        "rans_decode": ({"ra", "ai", "ldp", "priority"}, {"host"}),
+        "warp_packed": ({"ra", "ldp", "host", "priority"}, {"ai"}),
+    }
+    if device.type == "cuda":
+        for kname, (must, never) in expect.items():
+            for r in must:
+                if runs[r]["launches"][kname] == 0:
+                    raise AssertionError(f"{kname} never launched in the "
+                                         f"CLI's {r} run")
+            for r in never:
+                if runs[r]["launches"][kname]:
+                    raise AssertionError(f"{kname} launched in the CLI's "
+                                         f"{r} run")
+    return runs

@@ -165,17 +165,26 @@ def read_params(ckpt_dir: str | Path):
     return read_msgpack((Path(ckpt_dir) / "params.msgpack").read_bytes())
 
 
+def model_from_params(cfg: ModelConfig, tree, device=None
+                      ) -> "torch.nn.Module":
+    """A FullNet of ``cfg`` holding the parameter tree ``tree`` (the JAX
+    package's nested arrays), on ``device`` in eval mode."""
+    from aivc_tpu_torch.device import resolve_device
+    from aivc_tpu_torch.models.fullnet import FullNet
+
+    dev = resolve_device(device)
+    model = FullNet(cfg)
+    model.load_state_dict(params_from_jax(tree), strict=True)
+    return model.to(dev).eval()
+
+
 def load_checkpoint(ckpt_dir: str | Path, device=None
                     ) -> Tuple[ModelConfig, "torch.nn.Module"]:
     """-> (cfg, FullNet on ``device`` in eval mode).  ``device`` defaults
     to the card; pass ``"cpu"`` explicitly to run on the host."""
     from aivc_tpu_torch.device import resolve_device
-    from aivc_tpu_torch.models.fullnet import FullNet
 
     dev = resolve_device(device)
     ckpt_dir = Path(ckpt_dir)
     cfg = ModelConfig.from_json((ckpt_dir / "config.json").read_text())
-    model = FullNet(cfg)
-    model.load_state_dict(params_from_jax(read_params(ckpt_dir)),
-                          strict=True)
-    return cfg, model.to(dev).eval()
+    return cfg, model_from_params(cfg, read_params(ckpt_dir), dev)

@@ -25,6 +25,22 @@ times; then it encodes the clip once more to capture the inputs of one of
 K3's launches (a B-frame wave: the clip's own flows), and checks and times
 K3 on them.
 
+The CLI phase writes the same 9 frames to a temporary
+clip_1920x1080_30_420.yuv and runs ``python -m aivc_tpu_torch``'s main
+on it (``smoke.cli_runs``): RA with --rate_audit, whose bitstream file
+must equal the main phase's stream byte for byte and which a second
+process (``python -m aivc_tpu_torch --mode decode --bitstream_debug``)
+decodes against the md5 manifest of its encoder's reconstructions
+("identical"); RA with --bitstream_debug, decoded here and in a second
+process; All-Intra with --wave_batch 8; LDP; --entropy_backend host
+(K1 and K2 never launch); --stream_dir (a GOP chunk deleted, the encode
+run again: the same bytes); --rate_priority with --rate_audit, whose
+deepest K1 launch is captured and K1 and K2 checked against their plain
+versions on it and timed per step; ladder name 5 (gain surgery), and
+name 7 refused where its checkpoint is absent.  Every run's decode is
+held against its encoder's reconstruction, and each prints its bytes,
+bpp, PSNR, MS-SSIM, encode and decode fps and the kernels' launches.
+
 Every phase prints its elapsed seconds.  The last lines are the card's
 name and power limit, the kernels' JSON record and the result; any failed
 check raises (nonzero exit).  Exits nonzero, printing no result, when
@@ -34,6 +50,7 @@ there is no CUDA device.
 import json
 import os
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -70,7 +87,9 @@ def main() -> int:
     ph.say(f"nvidia-smi: {info['smi']}")
 
     rep = smoke.build_report()
-    ph.say(f"build: nvcc {rep['seconds']:.1f}s (cached={rep['cached']})")
+    ph.say(f"build: nvcc {rep['seconds']:.1f}s (cached={rep['cached']}), "
+           f"with the host range coder's g++ beside it "
+           f"{rep['both_seconds']:.1f}s")
     for line in rep["ptxas"]:
         ph.say(f"  ptxas {line}")
 
@@ -131,6 +150,47 @@ def main() -> int:
            f"{cap['bound_ms']:.4f} ms; random flows {records[2]['ms']:.4f} "
            f"ms on {batch} frames)")
     del codec
+
+    # -- CLI path ---------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = smoke.cli_runs(frames, ckpt, tmp, dev, root, res["bitstream"],
+                              ph.say)
+    for name, r in runs.items():
+        if "results" not in r:
+            ph.say(f"cli {name}: {r}")
+            continue
+        q = r["results"]
+        ph.say(f"cli {name}: {q.get('bitstream bytes', '-')} B, "
+               f"{q.get('rate bpp', '-')} bpp, PSNR {q.get('psnr', '-')}, "
+               f"MS-SSIM {q.get('ms-ssim', '-')}, encode "
+               f"{q.get('encoding fps', '-')} fps, decode "
+               f"{q.get('decoding fps', '-')} fps, {r['checked']} frames "
+               f"decoded = encoder reconstruction, {r['seconds']:.2f} s, "
+               f"launches {r['launches']}, steps {r['steps']}")
+        for key in ("analytic rate bits", "real rate bits",
+                    "container overhead"):
+            if key in q:
+                ph.say(f"cli {name}: {key} {q[key]}")
+        sep = r.get("decode_process")
+        if sep:
+            ph.say(f"cli {name}: decoded in a second process in "
+                   f"{sep['seconds']:.2f} s: decoding fps "
+                   f"{sep['results']['decoding fps']}, drift check "
+                   f"{sep['results']['enc/dec drift check']}")
+    if runs["ra"]["results"]["bitstream bytes"] != str(res["bytes"]):
+        raise AssertionError("cli RA bytes differ from the main phase's")
+    captured = runs["priority"].pop("captured")
+    if captured is None:
+        raise AssertionError("no rans_encode launch in the rate-priority run")
+    rp = smoke.check_rans_on(captured)
+    ph.say(f"kernel rans_encode / rans_decode at the rate-priority shape "
+           f"{rp['shape']} (K {rp['k']}, {rp['steps']} dependent steps): "
+           f"bit-identical to their plain versions on the first "
+           f"{rp['checked_steps']} steps (plain {rp['plain_enc_s']:.2f} s / "
+           f"{rp['plain_dec_s']:.2f} s); K1 {rp['enc_ms']:.3f} ms = "
+           f"{rp['enc_us_per_step']:.4f} us per step, K2 {rp['dec_ms']:.3f} "
+           f"ms = {rp['dec_us_per_step']:.4f} us per step")
+    del captured
 
     small = smoke.small_agreement(ckpt, dev)
     ph.say(f"small: 64x64 device {small['device']['bytes']} B / "

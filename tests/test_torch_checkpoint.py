@@ -123,5 +123,18 @@ def test_trained_ladder_names_match():
     path, idx = zoo.checkpoint_for("tpu-msssim-2021cc-3")
     assert path == ROOT / "models_ckpt" / "bf16-r5" and idx == 4.0
     assert zoo.checkpoint_for("no-such-model") is None
-    with pytest.raises(NotImplementedError):
-        zoo.checkpoint_for("tpu-msssim-2021cc-5")
+    # Names 5 and 6 load through the gain surgery: the model's gain rows
+    # equal those of JAX's load_trained exactly, under the same config
+    # name and rate index.
+    for name in ("tpu-msssim-2021cc-5", "tpu-msssim-2021cc-6"):
+        cfg, model, idx = zoo.load_trained(name, device="cpu")
+        jcfg, jparams, jidx = jzoo.load_trained(name)
+        assert cfg.name == jcfg.name == "tpu-aivc-bf16-s3"
+        assert idx == jidx
+        ref = ck.params_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                        jparams))
+        gains = {k: v for k, v in model.state_dict().items()
+                 if k.endswith(("enc_gain", "dec_gain"))}
+        assert len(gains) >= 10
+        for k, v in gains.items():
+            assert torch.equal(v, ref[k]), k

@@ -657,3 +657,101 @@ def test_rd_forward_launches_on_card(card, monkeypatch):
     rec = smoke.check_gdn(watch.inputs, reps=1)
     assert rec["launches"] == len(smoke.GDN_LAYERS)
     assert rec["max_ulps"] <= smoke.GDN_PLAIN_ULPS
+
+
+@pytest.mark.parametrize("k,steps,segs", [
+    (8, 6000, (1000, 3000, 200, 1800)), (16, 4100, (100, 4000))])
+def test_rans_kernels_at_rate_priority_shape(card, k, steps, segs):
+    """``--rate_priority`` sends K1 and K2 few lanes (K from 8) and chains
+    of thousands of dependent steps (up to 65,536): K1's ring and
+    placement and K2's word ring across many refills, bit-identical to
+    the plain versions; K2 decodes the chunk in two stages."""
+    cdf = build_laplace_table(scale=vrans.PROB_SCALE, ac_max=64)
+    _encode_matches_plain(card, cdf, k, steps, 2, segs, seed=k)
+    rng = np.random.default_rng(k)
+    t = vrans.make_table(cdf, card)
+    n = steps * k
+    rows = rng.integers(0, cdf.shape[0], size=(2, n)).astype(np.int32)
+    sym = torch.from_numpy(_symbols(rng, cdf, rows)).to(card)
+    rows_t = torch.from_numpy(rows).to(card)
+    buf, st, seg_g = vrans.encode_cuda(sym, rows_t, t, k, segs)
+    words = torch.zeros((2, n), dtype=torch.uint16, device=card)
+    for i in range(2):
+        s = int(seg_g[i, 0])
+        words[i, :n - s] = buf[i, s:]
+    n1 = segs[0] * k
+    launches = kernels.LAUNCHES["rans_decode"]
+    a = vrans.decode_cuda(words, st, rows_t[:, :n1].contiguous(), t, k)
+    b = vrans.decode_cuda(words, a[1], rows_t[:, n1:].contiguous(), t, k,
+                          a[2])
+    assert kernels.LAUNCHES["rans_decode"] == launches + 2
+    pa = vrans.decode_plain(words, st, rows_t[:, :n1].contiguous(), t, k)
+    pb = vrans.decode_plain(words, pa[1], rows_t[:, n1:].contiguous(), t, k,
+                            pa[2])
+    for x, y in zip(a + b, pa + pb):
+        assert torch.equal(x, y)
+    assert torch.equal(torch.cat([a[0], b[0]], dim=1), sym)
+
+
+def _r5_codec(card, h, w, **kw):
+    from aivc_tpu_torch.pipeline.codec import FrameCodec
+    from aivc_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cfg, model = load_checkpoint(ROOT / "models_ckpt" / "bf16-r5",
+                                 device=card)
+    return FrameCodec(cfg, model, h, w, device=card, **kw)
+
+
+def test_host_backend_on_card_launches_no_rans(card):
+    """The host entropy backend on the card: K3 warps the P/B frames, K1
+    and K2 never launch, and the stream decodes bit-exactly with either
+    codec."""
+    from aivc_tpu_torch.config import CodingConfig
+    from aivc_tpu_torch.pipeline import video
+
+    frames = video.synthetic_frames(5, 128, 192)
+    coding = CodingConfig(coding_config="RA", gop_size=4, intra_period=4)
+    codec = _r5_codec(card, 128, 192, entropy_backend="host")
+    kernels.reset_launches()
+    enc = video.encode_video(codec, frames, coding, wave_batch=2)
+    dec = video.decode_video(codec, enc.bitstream)
+    assert kernels.LAUNCHES["rans_encode"] == 0
+    assert kernels.LAUNCHES["rans_decode"] == 0
+    assert kernels.LAUNCHES["warp_packed"] > 0
+    other = video.decode_video(_r5_codec(card, 128, 192), enc.bitstream)
+    for d in (dec, other):
+        for i in range(5):
+            for c in ("y", "u", "v"):
+                assert np.array_equal(d[i][c], enc.decoded_frames[i][c])
+
+
+def test_separate_process_decode_on_card(card, tmp_path):
+    """``--mode encode`` here, ``--mode decode`` in a second process: the
+    md5 manifest reads "identical" and every latent digest matches."""
+    import contextlib
+    import io
+    import os
+    import subprocess
+    import sys
+
+    from aivc_tpu_torch import cli
+    from aivc_tpu_torch.io.yuv import YuvWriter
+    from aivc_tpu_torch.pipeline import video
+
+    clip = tmp_path / "clip_192x128_30_420.yuv"
+    with YuvWriter(clip) as w:
+        for f in video.synthetic_frames(9, 128, 192):
+            w.write_frame(f)
+    args = ["-i", str(clip), "-o", str(tmp_path / "dec.yuv"),
+            "--bitstream_out", str(tmp_path / "clip.bin"),
+            "--coding_config", "RA", "--gop_size", "8", "--intra_period",
+            "8", "--model", str(ROOT / "models_ckpt" / "bf16-r5"),
+            "--wave_batch", "8", "--bitstream_debug"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert cli.main(args + ["--mode", "encode"]) == 0
+    proc = subprocess.run(
+        [sys.executable, "-m", "aivc_tpu_torch", *args, "--mode", "decode"],
+        capture_output=True, text=True, timeout=600, cwd=tmp_path,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert proc.returncode == 0, proc.stderr
+    assert "enc/dec drift check  : identical" in proc.stdout
