@@ -46,6 +46,14 @@ Y_DOWNSCALE = 16   # x -> y spatial reduction
 Z_DOWNSCALE = 64   # x -> z spatial reduction
 
 
+def ec_mode_parts(ec_mode: str) -> Tuple[int, bool]:
+    """-> (K mixture components, with log-gamma) of an ec_mode: 'one',
+    'two' or 'three', optionally with '_gamma'."""
+    parts = ec_mode.split("_")
+    k = 2 if "two" in parts else 3 if "three" in parts else 1
+    return k, "gamma" in parts
+
+
 @dataclass(frozen=True)
 class ConditionalNetConfig:
     """Hyper-parameters of one conditional autoencoder (MOFNet or CodecNet).
@@ -144,17 +152,16 @@ class ConditionalNetConfig:
     def mixture_k(self) -> int:
         """Mixture components K from ec_mode
         (reference: misc_layers.py:190-195)."""
-        parts = self.ec_mode.split("_")
-        return 2 if "two" in parts else 3 if "three" in parts else 1
+        return ec_mode_parts(self.ec_mode)[0]
 
     @property
     def sigma_cond_c(self) -> int:
         """Channels of the hyper-synthesis output: K*C mu, K*C log-var,
         optionally K*C log-gamma, (K-1)*C weight logits
         (reference channel layout: misc_layers.py:200-254)."""
-        k = self.mixture_k
+        k, gamma = ec_mode_parts(self.ec_mode)
         n = 2 * k + (k - 1)
-        if "gamma" in self.ec_mode.split("_"):
+        if gamma:
             n += k
         return n * self.nb_ft_y
 

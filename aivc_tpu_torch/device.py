@@ -1,7 +1,9 @@
 """Device selection for the port's entry points, and the settling of the
-host's vector math library."""
+host's vector math library, and the precision rule of float32 models."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -40,3 +42,29 @@ def resolve_device(device=None) -> torch.device:
                 "no CUDA device: pass device='cpu' to run on the host")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def full_float32(cfg) -> bool:
+    """True where either net of ``cfg`` computes in float32: its
+    convolutions and matmuls then run with TF32 off (the codec's
+    configure_determinism, the train step's float32_precision); bf16
+    models keep PyTorch's settings."""
+    return "float32" in (cfg.mofnet.dtype, cfg.codecnet.dtype)
+
+
+@contextlib.contextmanager
+def float32_precision(cfg):
+    """TF32 off for cuDNN and matmuls while the block runs where
+    full_float32(cfg), and the previous settings back afterwards."""
+    if not full_float32(cfg):
+        yield
+        return
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved

@@ -1,11 +1,14 @@
 """ConditionalNet: one conditional autoencoder with hyperprior and gains,
-eval path, NCHW (counterpart of aivc_tpu/models/conditional.py:163-321).
+NCHW (counterpart of aivc_tpu/models/conditional.py:163-321).
 
   analyze:         y = g_a(x) * gain_enc;  z_q = clip(round(h_a(y)))
-  hyper_decode:    mu, sigma = pdf_param(h_s(z_q))
+  hyper_decode:    mu, sigma of component 0 of pdf_param(h_s(z_q))
   synthesize:      x_hat = g_s(cat((y_cq + mu) * gain_dec, g_a_ref(shortcut)))
   encode_latents:  analyze + hyper_decode + y_cq = clip(round(y - mu)) and
-                   the rates -log2 p of z_q and y_cq (the RD forward)
+                   the rates -log2 p of z_q and y_cq (the RD forward); in
+                   training, uniform noise replaces both roundings (z's
+                   drawn first, then y's) and the rate of a mixture
+                   ec_mode sums its components
 """
 
 from __future__ import annotations
@@ -22,10 +25,13 @@ from aivc_tpu_torch.config import (
     FRAME_P,
     ConditionalNetConfig,
 )
+from aivc_tpu_torch.ops import ties
 from aivc_tpu_torch.ops.entropy_models import (
     FactorizedPrior,
     bin_prob,
+    mixture_bin_prob,
     pdf_parameterize,
+    pdf_parameterize_mixture,
     rate_bits,
 )
 from aivc_tpu_torch.ops.gain import GainMatrix
@@ -105,7 +111,7 @@ class HyperAnalysis(nn.Module):
         self.ConvBlock_2 = ConvBlock(nb_ft, out_ft, 5, 2, "no", dtype)
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
-        y = torch.abs(y).to(self.dt)
+        y = ties.abs_(y).to(self.dt)
         return self.ConvBlock_2(self.ConvBlock_1(self.ConvBlock_0(y))).float()
 
 
@@ -128,10 +134,6 @@ class ConditionalNet(nn.Module):
         """gain_i=False leaves out the I-frame gains, which MOFNet never
         uses (its checkpoints carry none)."""
         super().__init__()
-        if c.mixture_k != 1:
-            raise NotImplementedError(
-                f"ec_mode {c.ec_mode!r} ({c.mixture_k} components): mixture "
-                "entropy models wait for a later slice (ROADMAP A.4)")
         self.cfg = c
         d, clamp, lowp = c.dtype, c.gdn_clamp, c.gdn_lowp
         self.g_a = AnalysisTransform(c.in_c, c.nb_ft, c.nb_ft_y, c.k_size,
@@ -167,32 +169,48 @@ class ConditionalNet(nn.Module):
         return y, quantize(self.h_a(y), AC_MAX_VAL)
 
     def _pdf_components(self, z_q: torch.Tensor, hy: int, wy: int):
-        """Hyper-synthesis -> (mu, sigma) cropped to a y grid of hy x wy
-        (conditional.py:277-291; one component)."""
-        mu, sigma = pdf_parameterize(self.h_s(z_q), self.cfg.nb_ft_y)
-        return mu[:, :, :hy, :wy], sigma[:, :, :hy, :wy]
+        """Hyper-synthesis -> the K mixture components (dicts of mu and
+        sigma, plus gamma and weight for K > 1), cropped to a y grid of
+        hy x wy (conditional.py:277-291)."""
+        h = self.h_s(z_q)
+        if self.cfg.mixture_k == 1:
+            mu, sigma = pdf_parameterize(h, self.cfg.nb_ft_y)
+            comps = [{"mu": mu, "sigma": sigma}]
+        else:
+            comps = pdf_parameterize_mixture(h, self.cfg.nb_ft_y,
+                                             self.cfg.ec_mode)
+        return [{k: v[:, :, :hy, :wy] for k, v in c.items()} for c in comps]
 
     def hyper_decode(self, z_q: torch.Tensor):
-        """Decoded z -> (mu, sigma), cropped to the y grid."""
-        return self._pdf_components(z_q, z_q.shape[2] * 4, z_q.shape[3] * 4)
+        """Decoded z -> (mu, sigma) of component 0, cropped to the y grid
+        (the coding path reads component 0, conditional.py:293-297)."""
+        c0 = self._pdf_components(z_q, z_q.shape[2] * 4,
+                                  z_q.shape[3] * 4)[0]
+        return c0["mu"], c0["sigma"]
 
     def encode_latents(self, x: torch.Tensor, idx_rate: float,
-                       frame_type: int, training: bool = False):
+                       frame_type: int, training: bool = False,
+                       noise=None):
         """x [B, in_c, H, W] -> quantized latents, distribution parameters
-        and rate maps in bits (conditional.py:212-256, eval branch)."""
-        if training:
-            raise NotImplementedError(
-                "training quantization waits for the training slice "
-                "(ROADMAP A.7)")
-        y, z_q = self.analyze(x, idx_rate, frame_type)
-        mu, sigma = self._pdf_components(z_q, y.shape[2], y.shape[3])
-        y_cq = quantize(y - mu, AC_MAX_VAL)
+        (component 0) and rate maps in bits (conditional.py:212-256).
+        ``training``: the latents carry uniform noise from the noise
+        source ``noise`` (ops/quantizer.py) instead of being rounded."""
+        y = self._gain(self.g_a(x), idx_rate, "enc", frame_type)
+        z = self.h_a(y)
+        z_q = quantize(z, AC_MAX_VAL, training=training, noise=noise)
+        comps = self._pdf_components(z_q, y.shape[2], y.shape[3])
+        mu, sigma = comps[0]["mu"], comps[0]["sigma"]
+        y_cq = quantize(y - mu, AC_MAX_VAL, training=training, noise=noise)
+        if len(comps) == 1:
+            p_y = bin_prob(y_cq, sigma, self.cfg.pdf_family)
+        else:
+            p_y = mixture_bin_prob(y_cq, comps, self.cfg.pdf_family)
         return {
             "y_cq": y_cq,
             "z_q": z_q,
             "mu": mu,
             "sigma": sigma,
-            "rate_y": rate_bits(bin_prob(y_cq, sigma, self.cfg.pdf_family)),
+            "rate_y": rate_bits(p_y),
             "rate_z": rate_bits(self.pdf_z(z_q)),
         }
 
@@ -209,10 +227,11 @@ class ConditionalNet(nn.Module):
         return self.g_s(torch.cat([y_hat, y_shortcut], dim=1))
 
     def forward(self, x: torch.Tensor, shortcut_in: Optional[torch.Tensor],
-                idx_rate: float, frame_type: int, training: bool = False):
+                idx_rate: float, frame_type: int, training: bool = False,
+                noise=None):
         """Coding round trip -> (synthesis output, latents)
         (conditional.py:315-321)."""
-        lat = self.encode_latents(x, idx_rate, frame_type, training)
+        lat = self.encode_latents(x, idx_rate, frame_type, training, noise)
         out = self.synthesize(lat["y_cq"], lat["mu"], shortcut_in, idx_rate,
                               frame_type)
         return out, lat

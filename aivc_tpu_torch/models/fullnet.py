@@ -1,7 +1,7 @@
 """FullNet: MOFNet + motion compensation + CodecNet, NCHW: the RD
-forward ``forward_frame`` (eval) and the stage methods of the coding
-pipeline (aivc_tpu/models/fullnet.py:45-91,139-199 and the stage
-methods).
+forward ``forward_frame`` (eval and training) and the stage methods of
+the coding pipeline (aivc_tpu/models/fullnet.py:45-91,139-199 and the
+stage methods).
 
 Maps are channel-major [B, 6, H, W] planes (alpha, beta, u_prev, v_prev,
 u_next, v_next), which is what the JAX package's ``maps_cm`` schedule
@@ -20,6 +20,7 @@ from torch import nn
 
 from aivc_tpu_torch.config import FRAME_B, FRAME_I, FRAME_P, ModelConfig
 from aivc_tpu_torch.models.conditional import ConditionalNet
+from aivc_tpu_torch.ops import ties
 from aivc_tpu_torch.ops.warp import (
     mc_warp,
     motion_compensation,
@@ -53,8 +54,8 @@ def mofnet_maps(m: torch.Tensor, frame_type: int,
         v_prev = v_prev / (1.0 + torch.abs(v_prev) / b)
         v_next = v_next / (1.0 + torch.abs(v_next) / b)
     else:
-        alpha = torch.clamp(m[:, 0:1] + 0.5, 0.0, 1.0)
-        beta = torch.clamp(m[:, 1:2] + 0.5, 0.0, 1.0)
+        alpha = ties.clip(m[:, 0:1] + 0.5, 0.0, 1.0)
+        beta = ties.clip(m[:, 1:2] + 0.5, 0.0, 1.0)
         v_prev = m[:, 2:4]
         v_next = m[:, 4:6]
     if frame_type == FRAME_P:
@@ -71,9 +72,11 @@ class FullNet(nn.Module):
         self.codecnet = ConditionalNet(cfg.codecnet)
 
     def forward_frame(self, frame, prev, nxt, idx_rate: float,
-                      frame_type: int, training: bool = False):
+                      frame_type: int, training: bool = False, noise=None):
         """Code one padded 4:4:4 frame [B, 3, H, W] given (possibly zero)
-        references, float warp included (fullnet.py:139-199).
+        references, float warp included (fullnet.py:139-199).  In
+        training the latents carry noise from the noise source ``noise``
+        (ops/quantizer.py), MOFNet's drawn before CodecNet's.
 
         Returns (x_hat, aux) with JAX's aux keys: ``mof`` and ``cod`` (the
         latents of ConditionalNet.encode_latents; ``mof`` is None for an
@@ -94,7 +97,7 @@ class FullNet(nn.Module):
                         if frame_type == FRAME_B else None)
             out6, mof_lat = self.mofnet(torch.cat([frame, prev, nxt], dim=1),
                                         shortcut, idx_rate, frame_type,
-                                        training)
+                                        training, noise)
             maps = mofnet_maps(out6, frame_type, self.cfg.flow_bound)
             alpha, beta = maps[:, 0:1], maps[:, 1:2]
             v_prev, v_next = maps[:, 2:4], maps[:, 4:6]
@@ -107,7 +110,7 @@ class FullNet(nn.Module):
         cod_out, cod_lat = self.codecnet(
             torch.cat([frame, pred], dim=1),
             pred if frame_type != FRAME_I else None, idx_rate, frame_type,
-            training)
+            training, noise)
         aux.update(cod=cod_lat, alpha=alpha, x_warp=x_warp)
         if frame_type == FRAME_I:
             aux["beta"] = torch.ones_like(alpha)

@@ -1,7 +1,8 @@
-"""Learned entropy models, eval path (counterpart of
-aivc_tpu/ops/entropy_models.py:29-147): the factorized prior of z, the
-Laplace / normal bin probabilities of y and the rate proxy.  Layout NCHW;
-the mixture parameterisation waits for a later slice."""
+"""Learned entropy models (counterpart of
+aivc_tpu/ops/entropy_models.py): the factorized prior of z, the Laplace /
+normal bin probabilities of y, the rate proxy, and the K-component
+mixture parameterisation of the hyper-synthesis output.  Layout NCHW.
+The clips follow JAX's gradient rule at their bounds (``ops/ties.py``)."""
 
 from __future__ import annotations
 
@@ -9,7 +10,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from aivc_tpu_torch.config import LOG_VAR_MAX, LOG_VAR_MIN, PROBA_MIN
+from aivc_tpu_torch.config import (
+    LOG_VAR_MAX,
+    LOG_VAR_MIN,
+    PROBA_MIN,
+    ec_mode_parts,
+)
+from aivc_tpu_torch.ops import ties
 
 SQRT2 = 1.4142135623730951
 
@@ -77,12 +84,58 @@ def bin_prob(y: torch.Tensor, sigma: torch.Tensor,
 
 def rate_bits(p: torch.Tensor) -> torch.Tensor:
     """Rate proxy in bits: -log2 of the probability clamped at 2^-16."""
-    return -torch.log2(torch.clamp(p, PROBA_MIN, 1.0))
+    return -torch.log2(ties.clip(p, PROBA_MIN, 1.0))
 
 
 def pdf_parameterize(x: torch.Tensor, nb_ft: int):
     """Hyper-synthesis output [B, 2C, H, W] -> (mu, sigma), the K = 1
     path: sigma = exp(0.5 * clamp(log-var))."""
     mu = x[:, :nb_ft]
-    logvar = torch.clamp(x[:, nb_ft:2 * nb_ft], LOG_VAR_MIN, LOG_VAR_MAX)
+    logvar = ties.clip(x[:, nb_ft:2 * nb_ft], LOG_VAR_MIN, LOG_VAR_MAX)
     return mu, torch.exp(0.5 * logvar)
+
+
+def pdf_parameterize_mixture(x: torch.Tensor, nb_ft: int,
+                             ec_mode: str = "one"):
+    """Hyper-synthesis output [B, n*C, H, W] -> K components, each a dict
+    {mu, sigma, gamma, weight} of [B, C, H, W] tensors
+    (entropy_models.py:134-172).  Channel layout of the reference
+    PdfParamParameterizer: K*C mu | K*C log-var | K*C log-gamma (with
+    '_gamma') | (K-1)*C weight logits; the weights are a softmax over K
+    with component 0's logit wired to 1; gamma is 1 without '_gamma'.
+    Coding consumes component 0."""
+    K, with_gamma = ec_mode_parts(ec_mode)
+    C = nb_ft
+    pos = 0
+
+    def take(n):
+        nonlocal pos
+        out = [x[:, pos + k * C: pos + (k + 1) * C] for k in range(n)]
+        pos += n * C
+        return out
+
+    def scale(v):
+        return torch.exp(0.5 * ties.clip(v, LOG_VAR_MIN, LOG_VAR_MAX))
+
+    mus = take(K)
+    sigmas = [scale(lv) for lv in take(K)]
+    gammas = ([scale(lg) for lg in take(K)] if with_gamma
+              else [torch.ones_like(mus[0])] * K)
+    logits = [torch.ones_like(mus[0])] + take(K - 1)
+    w = torch.softmax(torch.stack(logits, dim=0), dim=0)
+    return [{"mu": mus[k], "sigma": sigmas[k], "gamma": gammas[k],
+             "weight": w[k]} for k in range(K)]
+
+
+def mixture_bin_prob(y: torch.Tensor, components, pdf_family: str,
+                     zero_mu: bool = True) -> torch.Tensor:
+    """Sum over the components of cdf(y + .5) - cdf(y - .5), unweighted,
+    as the reference composes it (entropy_models.py:175-187: the
+    overcount is tamed by the rate proxy's clip to [2^-16, 1]).
+    ``zero_mu``: mu was subtracted before quantization (the coding
+    path)."""
+    p = torch.zeros_like(y)
+    for comp in components:
+        yc = y if zero_mu else y - comp["mu"]
+        p = p + bin_prob(yc, comp["sigma"], pdf_family)
+    return p

@@ -1,4 +1,4 @@
-"""Generalized Divisive Normalization, eval path (NCHW).
+"""Generalized Divisive Normalization (NCHW).
 
 y[i] = x[i] / sqrt(beta[i] + sum_j gamma[i, j] * x[j]^2)   (inverse: multiply)
 
@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from aivc_tpu_torch import kernels
+from aivc_tpu_torch.ops import ties
 
 REPARAM_OFFSET = 2.0 ** -18
 PEDESTAL = REPARAM_OFFSET ** 2
@@ -34,11 +35,34 @@ FUSED_ROWS = 512
 FUSED_CHANNELS = 128
 
 
+class LowerBound(torch.autograd.Function):
+    """max(x, bound) whose gradient passes where x >= bound or where it
+    pushes the value up (g < 0), JAX's custom VJP ``lower_bound``
+    (aivc_tpu/ops/gdn.py:31-46): a parameter at the bound is not stuck
+    there, as it would be under ``torch.clamp_min``."""
+
+    @staticmethod
+    def forward(ctx, x, bound: float):
+        ctx.save_for_backward(x)
+        ctx.bound = bound
+        return torch.clamp_min(x, bound)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        pass_through = (x >= ctx.bound) | (g < 0)
+        return torch.where(pass_through, g, torch.zeros_like(g)), None
+
+
+def lower_bound(x: torch.Tensor, bound: float) -> torch.Tensor:
+    return LowerBound.apply(x, bound)
+
+
 def reparam(beta_r: torch.Tensor, gamma_r: torch.Tensor):
     """LowerBound reparameterisation -> (beta [C], gamma [C, C])."""
     beta_bound = (BETA_MIN + PEDESTAL) ** 0.5
-    beta = torch.clamp_min(beta_r, beta_bound) ** 2 - PEDESTAL
-    gamma = torch.clamp_min(gamma_r, REPARAM_OFFSET) ** 2 - PEDESTAL
+    beta = lower_bound(beta_r, beta_bound) ** 2 - PEDESTAL
+    gamma = lower_bound(gamma_r, REPARAM_OFFSET) ** 2 - PEDESTAL
     return beta, gamma
 
 
@@ -64,7 +88,7 @@ def gdn_apply(x: torch.Tensor, beta_r: torch.Tensor, gamma_r: torch.Tensor,
         norm = norm.to(x.dtype)
     norm = torch.sqrt(norm + beta.view(1, -1, 1, 1))
     if clamp > 0.0:
-        norm = torch.clamp(norm, 1.0 / clamp, clamp)
+        norm = ties.clip(norm, 1.0 / clamp, clamp)
     return x * norm if inverse else x / norm
 
 

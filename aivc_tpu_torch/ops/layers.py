@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from aivc_tpu_torch.ops import ties
 from aivc_tpu_torch.ops.gdn import GDN
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -65,7 +66,7 @@ def _nonlinearity(name: str, ch: int) -> Optional[nn.Module]:
     if name in ("gdn", "gdn_inverse"):
         return GDN(ch, inverse=name == "gdn_inverse", clamp=clamp, lowp=lowp)
     if name == "leaky_relu":
-        return nn.LeakyReLU(0.01)
+        return ties.LeakyReLU(0.01)
     if name == "relu":
         return nn.ReLU()
     if name == "no":

@@ -21,6 +21,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from aivc_tpu_torch.ops import ties
+
 MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
 
 
@@ -93,8 +95,10 @@ def msssim(img1: torch.Tensor, img2: torch.Tensor,
         mcs.append(cs)
         img1 = _avg_pool2(_reflect_pad_to_even(img1))
         img2 = _avg_pool2(_reflect_pad_to_even(img2))
-    mssim_t = torch.clamp_min(torch.stack(mssim), 1e-4)
-    mcs_t = torch.clamp_min(torch.stack(mcs), 1e-4)
+    # The floor before the fractional powers keeps their gradients finite
+    # (metrics.py:96-104); a tie passes half the gradient, as jnp.maximum.
+    mssim_t = ties.floor_at(torch.stack(mssim), 1e-4)
+    mcs_t = ties.floor_at(torch.stack(mcs), 1e-4)
     pow1 = mcs_t ** weights
     pow2 = mssim_t ** weights
     return torch.prod(pow1[:-1]) * pow2[-1]

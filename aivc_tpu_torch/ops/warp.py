@@ -24,6 +24,7 @@ import os
 import torch
 
 from aivc_tpu_torch import kernels
+from aivc_tpu_torch.ops import ties
 
 # AIVC_WARP=pallas routes the float warp through the vertically clamped
 # warp (K5 on the card) where shapes allow, as aivc_tpu/ops/warp.py:29.
@@ -140,12 +141,15 @@ def _sample_grid(flow: torch.Tensor, vclamp: bool):
     fy = flow[:, 1].to(f32)
     if vclamp:
         fy = torch.clamp(fy, -V_RADIUS + 1, V_RADIUS - 1)
-    sx = torch.clamp(xx + flow[:, 0].to(f32), 0.0, float(W - 1))
-    sy = torch.clamp(yy + fy, 0.0, float(H - 1))
+    sx = ties.clip(xx + flow[:, 0].to(f32), 0.0, float(W - 1))
+    sy = ties.clip(yy + fy, 0.0, float(H - 1))
     x0 = torch.floor(sx)
     y0 = torch.floor(sy)
-    x0i = x0.to(torch.int64)
-    y0i = y0.to(torch.int64)
+    # A NaN flow gives NaN weights (so NaN samples, as JAX's gather does)
+    # and an undefined integer: keep the index inside the frame, where a
+    # gather cannot fault.  Finite flows are already inside.
+    x0i = torch.clamp(x0.to(torch.int64), 0, W - 1)
+    y0i = torch.clamp(y0.to(torch.int64), 0, H - 1)
     return (sx - x0, sy - y0, x0i, torch.clamp_max(x0i + 1, W - 1), y0i,
             torch.clamp_max(y0i + 1, H - 1))
 
@@ -164,7 +168,10 @@ def _corners(x: torch.Tensor, yi, x0i, x1i):
 
 def warp_plain(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """The XLA warp of aivc_tpu/ops/warp.py:53-94 on x [B, C, H, W]:
-    border-clamped bilinear, ``top + (bot - top) * wy``."""
+    border-clamped bilinear, ``top + (bot - top) * wy``.  Autograd
+    differentiates it with respect to x and the flow as ``jax.grad``
+    does JAX's (the coordinate clips split a tie as ``jnp.clip``); the
+    training forward takes it."""
     wx, wy, x0i, x1i, y0i, y1i = _sample_grid(flow, vclamp=False)
     wx = wx.to(x.dtype).unsqueeze(1)
     wy = wy.to(x.dtype).unsqueeze(1)
@@ -242,10 +249,19 @@ def warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 
     Under ``AIVC_WARP=pallas`` and JAX's shape rule (W % 128 == 0 and
     H % min(H, 256) == 0) the vertically clamped warp: kernel K5 for a
-    tensor on the card, its plain version on the host.  Other shapes, or
-    no switch, take the plain border-clamped warp, as in JAX."""
+    tensor on the card, its plain version on the host.  That route has no
+    gradient, in JAX as here, so an input that requires grad raises.
+    Other shapes, or no switch, take the plain border-clamped warp, as in
+    JAX."""
     H, W = x.shape[2], x.shape[3]
     if _USE_PALLAS and W % LANE == 0 and H % min(H, 256) == 0:
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or flow.requires_grad):
+            raise ValueError(
+                "the vertically clamped warp (AIVC_WARP=pallas) cannot be "
+                "differentiated, in the JAX package either: train without "
+                "AIVC_WARP=pallas, or at a width that is not a multiple of "
+                f"{LANE}")
         if x.device.type == "cuda":
             return warp_vclamped_cuda(x.contiguous(), flow.contiguous())
         return warp_vclamped(x, flow)

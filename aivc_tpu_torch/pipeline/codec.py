@@ -59,7 +59,7 @@ from aivc_tpu_torch.config import (
     Z_DOWNSCALE,
     ModelConfig,
 )
-from aivc_tpu_torch.device import resolve_device
+from aivc_tpu_torch.device import full_float32, resolve_device
 from aivc_tpu_torch.models.fullnet import FullNet
 from aivc_tpu_torch.ops.layers import x444_to_yuv420, yuv420_to_444
 from aivc_tpu_torch.ops.warp import warp_engine
@@ -78,7 +78,7 @@ def configure_determinism(cfg: ModelConfig) -> None:
     models compute in bf16 and are unaffected."""
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
-    if "float32" in (cfg.mofnet.dtype, cfg.codecnet.dtype):
+    if full_float32(cfg):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
 

@@ -10,7 +10,8 @@ only, the models always take gdn_apply), ROUNDS rounds of (gdn_apply, K4,
 K4, gdn_apply), and one forward under torch.profiler.  Prints one JSON
 object: the card's name and power limit, the seconds of each turn, the
 profiled wall time, the device's busy time (the union of its kernels'
-spans) and the kernels that took the most device time.
+spans), the number of kernels launched and those that took the most
+device time.
 """
 
 from __future__ import annotations
@@ -61,21 +62,20 @@ def gdn_on_k4(model: torch.nn.Module):
             del m.forward
 
 
-def profile_forward(model, cfg, frames444: List[torch.Tensor],
-                    idx_rate: float, top: int = 8) -> Dict:
-    """One forward under torch.profiler: device time by kernel (the top
-    ones), the device's busy time and the wall time.  Returns
-    {"error": ...} where the profiler records no device time."""
+def profile_call(fn, *args, top: int = 8) -> Dict:
+    """One call of ``fn(*args)`` under torch.profiler, the card
+    synchronized before and after: the wall time, device time by kernel
+    (the top ones), the device's busy time and the number of kernels
+    launched.  Returns {"error": ...} where the profiler records no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from aivc_tpu_torch import smoke
-
-    dev = frames444[0].device
-    smoke.sync(dev)
+    torch.cuda.synchronize()
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
                  ) as prof:
-        smoke.rd_forward(model, cfg, frames444, idx_rate)
+        fn(*args)
+        torch.cuda.synchronize()
     wall = time.time() - t0
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -89,6 +89,7 @@ def profile_forward(model, cfg, frames444: List[torch.Tensor],
     busy = busy_us([(e.time_range.start, e.time_range.end) for e in kern])
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
             "kernel_ms": sum(by_name.values()) / 1e3,
+            "kernels": len(kern),
             "top": [(n[:60], t / 1e3) for n, t in ranked]}
 
 
@@ -118,7 +119,7 @@ def main() -> int:
                   else contextlib.nullcontext()):
                 secs[route].append(smoke.rd_forward(
                     model, cfg, f444, args.idx_rate)["seconds"])
-    prof = profile_forward(model, cfg, f444, args.idx_rate)
+    prof = profile_call(smoke.rd_forward, model, cfg, f444, args.idx_rate)
     out = {"card": smoke.device_info()["smi"],
            "frame": [args.width, args.height],
            "padded": list(f444[0].shape[2:]), "k4_layers": n_k4,

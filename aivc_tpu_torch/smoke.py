@@ -38,6 +38,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1122,3 +1123,261 @@ def cli_runs(frames, ckpt: str, tmp, device: torch.device, root,
                     raise AssertionError(f"{kname} launched in the CLI's "
                                          f"{r} run")
     return runs
+
+
+# ---------------------------------------------------------------------------
+# Training path (python -m aivc_tpu_torch.train)
+# ---------------------------------------------------------------------------
+
+# train-small: one make_train_step step of bf16-r5 (128x128, batch 2,
+# accum 2, 1_GOP_2, ms_ssim) on the card and on the host with the same
+# frames and noise, whose bf16 convolutions round differently: (kind,
+# limit) per log, and limits on the two gradient vectors (the mean over
+# the microbatches, before clipping).  Measured on the H100
+# (chip_smoke.py): loss 3.0e-3 relative (MS-SSIM's, as dist_pure in
+# forward-small), rate_bpp 2.5e-4 relative, PSNR 0.0074 dB, grad norm
+# 9.5e-3 relative, cosine 0.999959, relative L2 0.0132; the limits are
+# three to twenty times that.
+TRAIN_SMALL_TOL = {"loss": ("rel", 0.01), "rate_bpp": ("rel", 0.003),
+                   "psnr": ("abs", 0.1), "grad_norm": ("rel", 0.1)}
+TRAIN_SMALL_MIN_COSINE = 0.999
+TRAIN_SMALL_MAX_REL_L2 = 0.15
+# Each gradient leaf on its own is held on a second step of the same
+# checkpoint with both nets in float32 (TF32 off, the step's rule), so
+# that a fault in a small leaf (GDN beta / gamma, the factorized prior,
+# gains) cannot hide under the convolution weights' norm.  In bf16 a
+# leaf whose true gradient is near 0 is rounding noise on either device
+# (mofnet.g_a's attention branch behind a saturated gate: its bias 5.6e-11
+# in float32; card against host up to 5.7 relative L2 there; a GDN gamma
+# leaf 47 relative L2 from its float32 value on the host, 76 on the
+# card), so no per-leaf limit can be set there.  Measured in float32
+# (H100 against the host): logs within 3.6e-6 relative (grad norm
+# 3.2e-5), every leaf within 2.3e-3 relative L2 (a GDN beta; median
+# 3.0e-6), cosine 0.999997 at worst.
+TRAIN_SMALL_F32_TOL = {"loss": ("rel", 1e-4), "rate_bpp": ("rel", 1e-4),
+                       "psnr": ("abs", 1e-3), "grad_norm": ("rel", 1e-3)}
+TRAIN_SMALL_F32_LEAF_MAX_REL_L2 = 0.02
+TRAIN_SMALL_F32_LEAF_MIN_COSINE = 0.9998
+# The round-5 continuation recipe (docs/STATUS.md:208-216), as a slice of
+# a leg: --steps STEP0 + N with --step0 STEP0 past the 200-step warmup, so
+# the N steps take the schedule's peak rate with Adam's state fresh.
+RECIPE_STEP0, RECIPE_STEPS = 200, 6
+
+
+class HostNoise:
+    """A noise source (ops/quantizer.py) drawing on the host from a seeded
+    generator and copying to the asking tensor's device, so that two
+    devices see the same noise.  The trainer draws on the device
+    (GeneratorNoise); this is for comparisons only."""
+
+    def __init__(self, seed: int):
+        self.gen = torch.Generator().manual_seed(seed)
+
+    def uniform(self, like: torch.Tensor) -> torch.Tensor:
+        u = torch.rand(tuple(like.shape), generator=self.gen) - 0.5
+        return u.to(like.device)
+
+
+@contextlib.contextmanager
+def plain_float_warp():
+    """The float warp off the AIVC_WARP=pallas route for the block, as in
+    a process without the switch (the trainer's): that route, like JAX's,
+    has no gradient."""
+    saved = warp_ops._USE_PALLAS
+    warp_ops._USE_PALLAS = False
+    try:
+        yield
+    finally:
+        warp_ops._USE_PALLAS = saved
+
+
+def _train_small_step(model, cfg, gop, frames, dev, accum, idx_rate, lr):
+    """One make_train_step step: its logs with the seconds and largest
+    parameter change, and each parameter's gradient on the host."""
+    from aivc_tpu_torch.train.trainer import make_optimizer, make_train_step
+
+    params = [p for _, p in model.named_parameters()]
+    before = [p.detach().clone() for p in params]
+    step = make_train_step(model, cfg, gop, make_optimizer(params, lr),
+                           dist_loss="ms_ssim", accum=accum)
+    sync(dev)
+    t0 = time.time()
+    logs = step(frames.to(dev), idx_rate, HostNoise(5))
+    sync(dev)
+    logs["seconds"] = time.time() - t0
+    logs["max_param_change"] = max(float((p.detach() - b).abs().max())
+                                   for p, b in zip(params, before))
+    if logs["step_skipped"] or not all(math.isfinite(v)
+                                       for v in logs.values()):
+        raise AssertionError(f"train-small on {dev}: {logs}")
+    return logs, {n: p.grad.detach().float().cpu()
+                  for n, p in model.named_parameters()}
+
+
+def train_small(ckpt: str, device: torch.device, size: int = 128,
+                batch: int = 2, accum: int = 2, gop_name: str = "1_GOP_2",
+                idx_rate: int = 3, lr: float = 4e-6) -> Dict:
+    """One train step of ``ckpt`` on ``device`` and on the host, with the
+    same frames (train/data.py:make_batch, no photos) and the same noise
+    (HostNoise), in the checkpoint's own precision and then with both
+    nets in float32: each side's logs, seconds and largest parameter
+    change; the cosine and relative L2 distance of the device's gradient
+    vector from the host's, with the worst leaf's; and of the float32
+    step the worst leaf's.  Raises past TRAIN_SMALL_TOL and the gradient
+    limits, and past TRAIN_SMALL_F32_* in float32."""
+    import dataclasses as dc
+
+    from aivc_tpu_torch.config import ModelConfig
+    from aivc_tpu_torch.train.data import make_batch
+    from aivc_tpu_torch.utils.checkpoint import model_from_params, read_params
+
+    gop = generate_gop_struct(gop_name)
+    frames = torch.from_numpy(make_batch(
+        np.random.default_rng(0), len(gop), batch * accum, size)).permute(
+            0, 1, 4, 2, 3).contiguous()
+    cfg = ModelConfig.from_json((Path(ckpt) / "config.json").read_text())
+    cfg32 = dc.replace(cfg, mofnet=dc.replace(cfg.mofnet, dtype="float32"),
+                       codecnet=dc.replace(cfg.codecnet, dtype="float32"))
+    raw = read_params(ckpt)
+    res = {}
+    with plain_float_warp():
+        for prec, c in (("own", cfg), ("f32", cfg32)):
+            for name, dev in (("device", device),
+                              ("host", torch.device("cpu"))):
+                model = model_from_params(c, raw, dev)
+                res[prec, name] = _train_small_step(
+                    model, c, gop, frames, dev, accum, idx_rate, lr)
+                del model
+    out = {}
+    for prec, tol in (("own", TRAIN_SMALL_TOL), ("f32", TRAIN_SMALL_F32_TOL)):
+        (ld, gd), (lh, gh) = res[prec, "device"], res[prec, "host"]
+        diffs = compare_logs(ld, lh, tol, f"train-small ({prec})")
+        g = torch.cat([v.reshape(-1) for v in gd.values()]).double()
+        h = torch.cat([v.reshape(-1) for v in gh.values()]).double()
+        rows = leaf_distances(gd, gh)
+        out[prec] = {
+            "device": ld, "host": lh, "diffs": diffs,
+            "cosine": float(torch.dot(g, h) / (g.norm() * h.norm())),
+            "rel_l2": float((g - h).norm() / h.norm()),
+            "n_params": g.numel(), "n_leaves": len(rows),
+            "worst_leaf_rel_l2": max(rows, key=lambda r: r[1]),
+            "worst_leaf_cosine": min(rows, key=lambda r: r[2])}
+    own, f32 = out["own"], out["f32"]
+    if not (own["cosine"] >= TRAIN_SMALL_MIN_COSINE
+            and own["rel_l2"] <= TRAIN_SMALL_MAX_REL_L2):
+        raise AssertionError(
+            f"train-small: gradient cosine {own['cosine']} (limit "
+            f"{TRAIN_SMALL_MIN_COSINE}), relative L2 {own['rel_l2']} "
+            f"(limit {TRAIN_SMALL_MAX_REL_L2})")
+    if not (f32["worst_leaf_rel_l2"][1] <= TRAIN_SMALL_F32_LEAF_MAX_REL_L2
+            and f32["worst_leaf_cosine"][2]
+            >= TRAIN_SMALL_F32_LEAF_MIN_COSINE):
+        raise AssertionError(
+            f"train-small (float32): worst leaf relative L2 "
+            f"{f32['worst_leaf_rel_l2']} (limit "
+            f"{TRAIN_SMALL_F32_LEAF_MAX_REL_L2}), worst leaf cosine "
+            f"{f32['worst_leaf_cosine']} (limit "
+            f"{TRAIN_SMALL_F32_LEAF_MIN_COSINE})")
+    return dict(own, f32=f32)
+
+
+def leaf_distances(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]
+                   ) -> List[tuple]:
+    """(name, relative L2 of a from b, cosine) for each gradient leaf,
+    in float64; a leaf zero on both sides reads (0, 1), zero on one side
+    only (inf, 0)."""
+    rows = []
+    for k, bv in b.items():
+        x, y = a[k].double().reshape(-1), bv.double().reshape(-1)
+        nx, ny = float(x.norm()), float(y.norm())
+        if ny == 0.0 or nx == 0.0:
+            rows.append((k, 0.0, 1.0) if nx == ny else (k, math.inf, 0.0))
+            continue
+        rows.append((k, float((x - y).norm()) / ny,
+                     float(torch.dot(x, y)) / (nx * ny)))
+    return rows
+
+
+def recipe_argv(ckpt: str, out: str, steps: int = RECIPE_STEPS,
+                step0: int = RECIPE_STEP0) -> List[str]:
+    """The round-5 continuation recipe of bf16-r5 at 192x192."""
+    return ["--resume", ckpt, "--size", "192", "--batch", "2", "--accum",
+            "4", "--gop", "1_GOP_4", "--dist", "ms_ssim", "--ema", "0.998",
+            "--lr", "4e-6", "--lr_final", "1e-6", "--warmup", "200",
+            "--steps", str(step0 + steps), "--step0", str(step0),
+            "--log_every", "1", "--out", out]
+
+
+def train_recipe(ckpt: str, out: str, root, device: torch.device,
+                 steps: int = RECIPE_STEPS, timeout_s: int = 600) -> Dict:
+    """``python -m aivc_tpu_torch.train`` with the recipe on ``device``, in
+    a subprocess whose environment has no AIVC_WARP (the trainer's own
+    settings), then
+    checks: every logged loss finite, at least one step applied, the
+    files of the checkpoint, its optimizer state and the EMA twin, each
+    reloaded through the port's reader, the parameters moved from
+    ``ckpt``'s, and the eval forward of the written checkpoint at
+    128x128 finite."""
+    from aivc_tpu_torch.train.trainer import make_optimizer
+    from aivc_tpu_torch.utils.checkpoint import read_opt_state
+
+    env = {k: v for k, v in os.environ.items() if k != "AIVC_WARP"}
+    env["PYTHONPATH"] = str(root)
+    argv = recipe_argv(ckpt, out, steps)
+    if device.type == "cpu":
+        argv.append("--cpu")
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "aivc_tpu_torch.train"]
+                          + argv, capture_output=True, text=True, env=env,
+                          cwd=root, timeout=timeout_s)
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"train-recipe exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    step_lines = [ln for ln in lines if ln.startswith("step ")
+                  and " loss " in ln]
+    skipped = [ln for ln in lines if ln.startswith("step ")
+               and "skipped" in ln]
+    losses = [float(ln.split(" loss ")[1].split()[0]) for ln in step_lines]
+    if len(step_lines) != steps or not all(math.isfinite(v)
+                                           for v in losses):
+        raise AssertionError(f"train-recipe: step lines {step_lines}")
+    if len(skipped) >= steps:
+        raise AssertionError(f"train-recipe: every step skipped {skipped}")
+    paths = {"params": Path(out) / "params.msgpack",
+             "config": Path(out) / "config.json",
+             "opt_state": Path(out) / "opt_state.msgpack",
+             "ema": Path(f"{out}-ema") / "params.msgpack"}
+    missing = [k for k, p in paths.items() if not p.is_file()]
+    if missing:
+        raise AssertionError(f"train-recipe: missing files {missing}")
+    _, start = load_checkpoint(ckpt, device="cpu")
+    cfg, model = load_checkpoint(out, device="cpu")
+    _, ema = load_checkpoint(f"{out}-ema", device="cpu")
+    sd0, sd1, sde = start.state_dict(), model.state_dict(), ema.state_dict()
+    moved = max(float((sd1[k] - sd0[k]).abs().max()) for k in sd0)
+    ema_moved = max(float((sde[k] - sd0[k]).abs().max()) for k in sd0)
+    if not moved > 0.0:
+        raise AssertionError("train-recipe: the parameters did not move")
+    names = [n for n, _ in model.named_parameters()]
+    opt = make_optimizer([p for _, p in model.named_parameters()], 4e-6,
+                         lr_final=1e-6, decay_steps=RECIPE_STEP0 + steps,
+                         warmup_steps=200)
+    read_opt_state(paths["opt_state"], opt, names)
+    applied = steps - len(skipped)
+    if opt.count != applied or opt.schedule_count != RECIPE_STEP0 + applied:
+        raise AssertionError(f"train-recipe: optimizer counts {opt.count} / "
+                             f"{opt.schedule_count} after {applied} steps")
+    del start, model, ema, sd0, sd1, sde
+    fwd = forward_small(out, device, 0.0)["device"]
+    timing = [ln for ln in lines if ln.startswith("timing: ")]
+    return {"lines": [ln for ln in lines if ln.startswith(
+                ("resumed", "WARNING", "schedule", "photo", "step ",
+                 "timing", "saved"))],
+            "wall_s": wall, "losses": losses, "skipped": len(skipped),
+            "max_param_change": moved, "ema_max_change": ema_moved,
+            "opt_count": opt.count, "schedule_count": opt.schedule_count,
+            "file_mb": {k: p.stat().st_size / 2**20
+                        for k, p in paths.items()},
+            "forward_logs": fwd, "timing": timing[0] if timing else ""}

@@ -1,4 +1,4 @@
-"""Rate-distortion loss over a GOP, eval mode (counterpart of
+"""Rate-distortion loss over a GOP (counterpart of
 aivc_tpu/train/loss.py:34-190):
 
   loss = sum_frames [ l_codec * R_codec + l_mof * R_mode + D ]
@@ -6,8 +6,10 @@ aivc_tpu/train/loss.py:34-190):
 with D = MSE or 1 - MS-SSIM (plus 0.25 * MSE) on pixel-count-weighted
 YUV planes, I-frame weighting, and padded frames contributing rate but
 not distortion.  The GOP is walked in coding order; references are the
-clipped reconstructions.  Training (noise quantizer, backward, optimizer)
-waits for a later slice (ROADMAP A.7).
+clipped reconstructions, through which the gradient reaches MOFNet.  In
+training the latents carry uniform noise from a noise source
+(ops/quantizer.py), drawn frame by frame in coding order, as JAX splits
+one key per frame.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch.nn.functional as F
 
 from aivc_tpu_torch.config import FRAME_B, FRAME_I
 from aivc_tpu_torch.gop import GopStruct
+from aivc_tpu_torch.ops import ties
 from aivc_tpu_torch.ops.layers import x444_to_yuv420
 from aivc_tpu_torch.ops.metrics import yuv_mse, yuv_msssim
 
@@ -32,16 +35,16 @@ def gop_rd_loss(model, frames444: List[torch.Tensor], gop: GopStruct,
                 idx_rate: float, l_codec: float, l_mof: float,
                 dist_loss: str = "mse", weight_i_frame_loss: float = 1.0,
                 nb_pad_frame: int = 0, training: bool = False,
-                flow_penalty: float = 0.0, alpha_penalty: float = 0.0):
+                flow_penalty: float = 0.0, alpha_penalty: float = 0.0,
+                noise=None):
     """frames444: [B, 3, H, W] padded frames in display order.
+    ``training`` needs the noise source ``noise``.
 
     Returns (loss, logs) with JAX's log keys: rate_bpp, mode_rate_bpp,
     codec_rate_bpp, mse, dist, dist_pure, psnr, flow_mag, flow_max and
     alpha_mean, each a 0-d float32 tensor."""
-    if training:
-        raise NotImplementedError(
-            "gop_rd_loss(training=True) waits for the training slice "
-            "(ROADMAP A.7)")
+    if training and noise is None:
+        raise ValueError("gop_rd_loss(training=True) needs a noise source")
     n = len(gop)
     B, _, H, W = frames444[0].shape
     nb_pixel = H * W
@@ -64,10 +67,10 @@ def gop_rd_loss(model, frames444: List[torch.Tensor], gop: GopStruct,
         nxt = (recon.get(spec.next_ref, zeros)
                if spec.next_ref is not None else zeros)
         x_hat, aux = model.forward_frame(frame, prev, nxt, idx_rate,
-                                         spec.frame_type)
+                                         spec.frame_type, training, noise)
         # References are pixel-range reconstructions, as at inference;
         # the distortion reads the unclipped x_hat (loss.py:73-82).
-        recon[spec.idx] = torch.clamp(x_hat, 0.0, 1.0)
+        recon[spec.idx] = ties.clip(x_hat, 0.0, 1.0)
 
         cod = aux["cod"]
         codec_rate = (cod["rate_y"].sum() + cod["rate_z"].sum()) / (
@@ -91,7 +94,7 @@ def gop_rd_loss(model, frames444: List[torch.Tensor], gop: GopStruct,
                     F.softplus(4.0 * raw[:, 0:1]))
             if flow_penalty > 0.0:
                 total_loss = total_loss + flow_penalty * torch.mean(
-                    torch.abs(raw))
+                    ties.abs_(raw))
         else:
             mode_rate = zero
 
@@ -125,8 +128,8 @@ def gop_rd_loss(model, frames444: List[torch.Tensor], gop: GopStruct,
     if n_dist > 0:
         for k in ("mse", "dist", "dist_pure"):
             logs[k] = logs[k] * n / n_dist
-    logs["psnr"] = 10.0 * torch.log10(1.0 / torch.clamp_min(logs["mse"],
-                                                            1e-12))
+    logs["psnr"] = 10.0 * torch.log10(1.0 / ties.floor_at(logs["mse"],
+                                                          1e-12))
     logs["flow_mag"] = flow_sum / max(n_inter, 1)
     logs["flow_max"] = flow_max
     logs["alpha_mean"] = alpha_sum / max(n_inter, 1)

@@ -1,11 +1,13 @@
-"""Checkpoint loading without flax or msgpack.
+"""Checkpoints without flax or msgpack: read and write.
 
 A checkpoint is a directory with ``config.json`` (ModelConfig) and
 ``params.msgpack``: a flax-serialized parameter tree, i.e. msgpack maps of
-strings whose leaves are msgpack ext type 1 carrying the packed triple
-(shape, dtype name, raw bytes).  ``read_msgpack`` decodes that subset in
-pure Python, ``params_from_jax`` turns the nested numpy tree into a torch
-``state_dict`` for ``models.fullnet.FullNet``:
+strings, keys sorted as flax writes them, whose leaves are msgpack ext
+type 1 carrying the packed triple (shape, dtype name, raw bytes).
+``read_msgpack`` and ``write_msgpack`` code that subset in pure Python,
+byte for byte as flax does.  ``params_from_jax`` turns the nested numpy
+tree into a torch ``state_dict`` for ``models.fullnet.FullNet``, and
+``params_to_jax`` is its exact inverse:
 
 * conv kernels HWIO -> OIHW;
 * the 4*C-channel conv of every shuffle ``UpBlock`` is permuted from the
@@ -13,13 +15,20 @@ pure Python, ``params_from_jax`` turns the nested numpy tree into a torch
   (aivc_tpu/ops/layers.py:134-140) to the (c, i, j) order that
   ``torch.nn.functional.pixel_shuffle`` reads;
 * flax ``kernel`` leaves become ``weight``.
+
+A training run also keeps ``opt_state.msgpack``: the state of optax's
+``chain(clip_by_global_norm, adam(schedule))`` as flax serializes it,
+``{"0": {}, "1": {"0": {"count", "mu", "nu"}, "1": {"count"} or {}}}``
+with mu and nu trees of the parameters' shape.  ``write_opt_state`` and
+``read_opt_state`` map it to and from ``train.trainer.Optimizer``, so
+either package resumes the other's leg with Adam's memory.
 """
 
 from __future__ import annotations
 
 import struct
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -116,6 +125,114 @@ def read_msgpack(data: bytes):
     return obj
 
 
+def _pack_int(out: bytearray, n: int) -> None:
+    if 0 <= n <= 0x7F or -32 <= n < 0:
+        out += struct.pack(">b" if n < 0 else ">B", n)
+    elif n >= 0:
+        for code, fmt, top in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
+                               (0xCE, ">I", 0xFFFFFFFF),
+                               (0xCF, ">Q", 2 ** 64 - 1)):
+            if n <= top:
+                out += bytes([code]) + struct.pack(fmt, n)
+                return
+        raise ValueError(f"int {n} too large for msgpack")
+    else:
+        for code, fmt, bot in ((0xD0, ">b", -2 ** 7), (0xD1, ">h", -2 ** 15),
+                               (0xD2, ">i", -2 ** 31), (0xD3, ">q", -2 ** 63)):
+            if n >= bot:
+                out += bytes([code]) + struct.pack(fmt, n)
+                return
+        raise ValueError(f"int {n} too small for msgpack")
+
+
+def _pack_len(out: bytearray, n: int, fix: int, fix_max: int, codes) -> None:
+    """A length header: the fix form up to fix_max, then the 8- (where
+    the type has one), 16- and 32-bit forms."""
+    if fix is not None and n <= fix_max:
+        out.append(fix | n)
+        return
+    for code, fmt, top in codes:
+        if n <= top:
+            out += bytes([code]) + struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _pack(out: bytearray, obj) -> None:
+    if isinstance(obj, int) and not isinstance(obj, bool):
+        _pack_int(out, obj)
+    elif isinstance(obj, str):
+        b = obj.encode("utf-8")
+        _pack_len(out, len(b), 0xA0, 31, ((0xD9, ">B", 0xFF),
+                                          (0xDA, ">H", 0xFFFF),
+                                          (0xDB, ">I", 0xFFFFFFFF)))
+        out += b
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        b = bytes(obj)
+        _pack_len(out, len(b), None, 0, ((0xC4, ">B", 0xFF),
+                                         (0xC5, ">H", 0xFFFF),
+                                         (0xC6, ">I", 0xFFFFFFFF)))
+        out += b
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(out, len(obj), 0x90, 15, ((0xDC, ">H", 0xFFFF),
+                                            (0xDD, ">I", 0xFFFFFFFF)))
+        for v in obj:
+            _pack(out, v)
+    elif isinstance(obj, dict):
+        _pack_len(out, len(obj), 0x80, 15, ((0xDE, ">H", 0xFFFF),
+                                            (0xDF, ">I", 0xFFFFFFFF)))
+        for k, v in obj.items():
+            _pack(out, k)
+            _pack(out, v)
+    elif isinstance(obj, np.ndarray):
+        _pack_ext(out, _EXT_NDARRAY, write_msgpack(
+            (tuple(int(d) for d in obj.shape), obj.dtype.name,
+             np.ascontiguousarray(obj).tobytes())))
+    else:
+        raise TypeError(f"cannot pack {type(obj).__name__} as msgpack")
+
+
+def _pack_ext(out: bytearray, code: int, payload: bytes) -> None:
+    n = len(payload)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixext:
+        out.append(fixext[n])
+    else:
+        _pack_len(out, n, None, 0, ((0xC7, ">B", 0xFF), (0xC8, ">H", 0xFFFF),
+                                    (0xC9, ">I", 0xFFFFFFFF)))
+    out += struct.pack(">b", code) + payload
+
+
+def _sorted_tree(obj):
+    """Dict keys sorted at every level, as flax's serializer leaves them
+    (it maps the tree through jax.tree_util, which sorts dict keys)."""
+    if isinstance(obj, dict):
+        return {k: _sorted_tree(obj[k]) for k in sorted(obj)}
+    return obj
+
+
+def write_msgpack(obj) -> bytes:
+    """Encode ``obj`` (nested dicts with str keys, lists, tuples, ints,
+    str, bytes and numpy arrays: what flax writes for a tree of arrays)
+    as flax's ``msgpack_serialize`` does:
+    dict keys sorted, arrays as ext type 1.  Arrays of a GiB or more,
+    which flax would split into chunks, are refused."""
+    out = bytearray()
+    _pack(out, _sorted_tree(obj))
+    return bytes(out)
+
+
+def _nest(flat: Mapping[str, np.ndarray]) -> dict:
+    tree: dict = {}
+    for key, arr in flat.items():
+        node = tree
+        parts = key.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = arr
+    return tree
+
+
 def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     out = {}
     for k, v in tree.items():
@@ -155,9 +272,102 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
             parts[-1] = "weight"
         elif parts[-1] == "bias" and is_up_conv:
             arr = arr[shuffle_perm(arr.shape[0] // 4)]
-        sd[".".join(parts)] = torch.from_numpy(
-            np.ascontiguousarray(arr, dtype=np.float32))
+        arr = np.ascontiguousarray(arr, dtype=np.float32)
+        if not arr.flags.writeable:     # a view of a JAX array
+            arr = arr.copy()
+        sd[".".join(parts)] = torch.from_numpy(arr)
     return sd
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """FullNet ``state_dict`` (or any dict of its parameter names, such as
+    Adam's moments) -> the nested numpy tree of the JAX package, under a
+    top-level ``params`` key: the exact inverse of ``params_from_jax``."""
+    flat = {}
+    for key, t in state_dict.items():
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        parts = key.split(".")
+        is_up_conv = (len(parts) >= 3 and parts[-2] == "Conv_0"
+                      and parts[-3].startswith("UpBlock_"))
+        if is_up_conv and parts[-1] in ("weight", "bias"):
+            arr = arr[np.argsort(shuffle_perm(arr.shape[0] // 4))]
+        if parts[-1] == "weight":
+            if arr.ndim != 4:
+                raise ValueError(f"unexpected weight rank at {key}")
+            arr = arr.transpose(2, 3, 1, 0)          # OIHW -> HWIO
+            parts[-1] = "kernel"
+        flat[".".join(parts)] = np.ascontiguousarray(arr)
+    return {"params": _nest(flat)}
+
+
+def write_params(path: str | Path, state_dict: Mapping[str, torch.Tensor]
+                 ) -> None:
+    Path(path).write_bytes(write_msgpack(params_to_jax(state_dict)))
+
+
+def save_checkpoint(ckpt_dir: str | Path, cfg: ModelConfig, params) -> None:
+    """Write ``config.json`` and ``params.msgpack`` of a FullNet (or of its
+    ``state_dict``-like dict of tensors, e.g. an EMA shadow): the files
+    aivc_tpu/utils/checkpoint.py:save_checkpoint writes for the same
+    parameters."""
+    if isinstance(params, torch.nn.Module):
+        params = params.state_dict()
+    ckpt_dir = Path(ckpt_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    (ckpt_dir / "config.json").write_text(cfg.to_json())
+    write_params(ckpt_dir / "params.msgpack", params)
+
+
+def _scalar(n: int) -> np.ndarray:
+    return np.asarray(n, np.int32)
+
+
+def write_opt_state(path: str | Path, optimizer, names: List[str]) -> None:
+    """``opt_state.msgpack`` of ``optimizer`` (train.trainer.Optimizer,
+    one tensor of mu and nu per name in ``names``) in the layout of
+    flax's serialization of optax's chain(clip_by_global_norm,
+    adam(lr)) state."""
+    adam = {"count": _scalar(optimizer.count),
+            "mu": params_to_jax(dict(zip(names, optimizer.mu))),
+            "nu": params_to_jax(dict(zip(names, optimizer.nu)))}
+    sched = ({} if optimizer.schedule_count is None
+             else {"count": _scalar(optimizer.schedule_count)})
+    Path(path).write_bytes(write_msgpack({"0": {}, "1": {"0": adam,
+                                                         "1": sched}}))
+
+
+def read_opt_state(path: str | Path, optimizer, names: List[str]) -> None:
+    """Load ``opt_state.msgpack`` (written by either package) into
+    ``optimizer``.  Raises ValueError where the layout, the parameter
+    names or a shape differ, or where the file has a schedule count and
+    the optimizer a constant rate (or the reverse), as flax's
+    ``from_bytes`` would."""
+    tree = read_msgpack(Path(path).read_bytes())
+    try:
+        adam, sched = tree["1"]["0"], tree["1"]["1"]
+        mu = params_from_jax(adam["mu"])
+        nu = params_from_jax(adam["nu"])
+        count = int(adam["count"])
+    except (KeyError, TypeError) as e:
+        raise ValueError(f"{path}: not an optax adam state ({e})") from None
+    if set(mu) != set(names) or set(nu) != set(names):
+        raise ValueError(f"{path}: parameter names differ from the model's")
+    if ("count" in sched) != (optimizer.schedule_count is not None):
+        raise ValueError(f"{path}: schedule state does not match the "
+                         f"optimizer's learning rate")
+    for i, n in enumerate(names):
+        for dst, src in ((optimizer.mu, mu), (optimizer.nu, nu)):
+            if tuple(src[n].shape) != tuple(dst[i].shape):
+                raise ValueError(f"{path}: {n} has shape "
+                                 f"{tuple(src[n].shape)}, the model "
+                                 f"{tuple(dst[i].shape)}")
+    with torch.no_grad():
+        for i, n in enumerate(names):
+            optimizer.mu[i].copy_(mu[n])
+            optimizer.nu[i].copy_(nu[n])
+    optimizer.count = count
+    if "count" in sched:
+        optimizer.schedule_count = int(sched["count"])
 
 
 def read_params(ckpt_dir: str | Path):

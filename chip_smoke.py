@@ -25,6 +25,16 @@ times; then it encodes the clip once more to capture the inputs of one of
 K3's launches (a B-frame wave: the clip's own flows), and checks and times
 K3 on them.
 
+The training phases (no kernel lies on their path): train-small, one
+make_train_step step of bf16-r5 (128x128, batch 2, accum 2, 1_GOP_2,
+ms_ssim) on the card and on the host with the same frames and noise,
+whose logs and gradient vectors must agree within smoke.py's limits; then
+train-recipe, ``python -m aivc_tpu_torch.train`` with the round-5
+continuation recipe at 192x192 for 6 steps in a subprocess (a temporary
+--out under tmp/), whose losses must be finite, whose checkpoint,
+optimizer state and EMA twin must reload through the port's reader with
+moved parameters, and whose checkpoint's eval forward must be finite.
+
 The CLI phase writes the same 9 frames to a temporary
 clip_1920x1080_30_420.yuv and runs ``python -m aivc_tpu_torch``'s main
 on it (``smoke.cli_runs``): RA with --rate_audit, whose bitstream file
@@ -264,6 +274,50 @@ def main() -> int:
         raise AssertionError(f"gdn_fused launched {rec4['launches']} times "
                              f"on {len(smoke.GDN_LAYERS)} GDN inputs")
     records += [rec4, rec5]
+
+    # -- training path ----------------------------------------------------
+    # No kernel lies on it: the training forward takes the plain float
+    # warp (K5 has no gradient, in JAX as here) and the GDN layers
+    # gdn_apply.  Both phases run after the launch counts were read.
+    tsm = smoke.train_small(ckpt, dev)
+    for prec, t in (("bf16", tsm), ("float32", tsm["f32"])):
+        for name in ("device", "host"):
+            q = t[name]
+            ph.say(f"train-small: 128x128 {prec} {name}: loss "
+                   f"{q['loss']:.6f}, rate_bpp {q['rate_bpp']:.6f}, psnr "
+                   f"{q['psnr']:.4f}, grad norm {q['grad_norm']:.4f}, "
+                   f"micro_skipped {q['micro_skipped']:.0f}, largest "
+                   f"parameter change {q['max_param_change']:.3e}, "
+                   f"{q['seconds']:.2f} s")
+        wr, wc = t["worst_leaf_rel_l2"], t["worst_leaf_cosine"]
+        ph.say(f"train-small: {prec} differences {t['diffs']}; gradients "
+               f"of {t['n_params']} parameters: cosine {t['cosine']:.6f}, "
+               f"relative L2 {t['rel_l2']:.4e}; of {t['n_leaves']} leaves "
+               f"the worst: relative L2 {wr[1]:.4e} ({wr[0]}), cosine "
+               f"{wc[2]:.6f} ({wc[0]})")
+    ph.say(f"train-small: limits: bf16 cosine >= "
+           f"{smoke.TRAIN_SMALL_MIN_COSINE} and relative L2 <= "
+           f"{smoke.TRAIN_SMALL_MAX_REL_L2} on the whole vector; float32 "
+           f"every leaf relative L2 <= "
+           f"{smoke.TRAIN_SMALL_F32_LEAF_MAX_REL_L2} and cosine >= "
+           f"{smoke.TRAIN_SMALL_F32_LEAF_MIN_COSINE}")
+    (root / "tmp").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root / "tmp") as tmp:
+        rec = smoke.train_recipe(ckpt, str(Path(tmp) / "r5-port"), root,
+                                 dev)
+    for line in rec["lines"]:
+        ph.say(f"train-recipe: {line}")
+    sizes = {k: round(v, 1) for k, v in rec["file_mb"].items()}
+    ph.say(f"train-recipe: on {info['smi']}: {rec['timing']}")
+    ph.say(f"train-recipe: {len(rec['losses'])} steps in a subprocess "
+           f"({rec['wall_s']:.1f} s wall), {rec['skipped']} skipped; "
+           f"largest parameter change from {CKPT} "
+           f"{rec['max_param_change']:.3e}, EMA twin "
+           f"{rec['ema_max_change']:.3e}; optimizer counts "
+           f"{rec['opt_count']} / {rec['schedule_count']}; files (MiB) "
+           f"{json.dumps(sizes)}")
+    ph.say(f"train-recipe: the written checkpoint's eval forward at 128x128 "
+           f"{json.dumps(rec['forward_logs'])}")
 
     launches = {k: main_launches[k]
                 for k in ("rans_encode", "rans_decode", "warp_packed")}

@@ -217,16 +217,19 @@ def test_missing_ladder_checkpoint_is_refused(clip, tmp_path, monkeypatch,
 
 
 def test_port_imports_nothing_of_jax():
-    """Import the CLI and every module of the port in a fresh process:
-    none of jax, flax or the JAX package may be loaded."""
+    """Import the CLI, the training entry point and every module of the
+    port in a fresh process: none of jax, flax, optax, the JAX package or
+    its scripts may be loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import aivc_tpu_torch, aivc_tpu_torch.cli, aivc_tpu_torch.__main__\n"
+        "import aivc_tpu_torch.train.__main__, aivc_tpu_torch.train.run\n"
         "for m in pkgutil.walk_packages(aivc_tpu_torch.__path__, "
         "'aivc_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'aivc_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'aivc_tpu', 'scripts', "
+        "'train_toy', 'photo_pool'))\n"
         "print(len([n for n in sys.modules if n.startswith("
         "'aivc_tpu_torch')]), bad)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

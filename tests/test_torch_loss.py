@@ -12,8 +12,12 @@ on the host:
   measured 1.2e-7; the rate proxy on the same probabilities: 1e-6
   relative, measured 9.5e-7 bits on values near 16.
 * ``ste_round``: round half to even, identity gradient.
+* Training and the mixture entropy models, refused before the training
+  slice: ``gop_rd_loss(training=True)`` on an I-frame, and a mixture
+  ConditionalNet's eval latents and rates, against JAX's.
 """
 
+import dataclasses
 import importlib
 from pathlib import Path
 
@@ -87,17 +91,57 @@ def test_gop_rd_loss_matches_jax(dist_loss, monkeypatch):
 
 
 def test_gop_rd_loss_refuses_training():
+    """gop_rd_loss(training=True), which raised before the training slice,
+    matches JAX's on an I-frame of tiny-toy with JAX's noise injected
+    (the limits of tests/test_torch_train_loss.py: 1e-5 relative on the
+    loss and logs, 1e-3 relative L2 on each gradient leaf); without a
+    noise source it refuses."""
+    from tests.torch_train_ref import compare_training_loss, tiny_toy
+
     _, model = load_checkpoint(ROOT / "models_ckpt" / "tiny-toy",
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="A.7"):
+    with pytest.raises(ValueError, match="noise source"):
         gop_rd_loss(model, [torch.zeros((1, 3, 64, 64))],
                     generate_gop_struct("1_GOP_0"), 0.0, 0.01, 0.01,
                     training=True)
+    jcfg, params = tiny_toy()
+    compare_training_loss(jcfg, params, model, "1_GOP_0", "ms_ssim",
+                          batch=1)
 
 
 def test_mixture_model_refused():
-    with pytest.raises(NotImplementedError, match="A.4"):
-        ConditionalNet(ConditionalNetConfig(ec_mode="two"))
+    """A mixture ConditionalNet (ec_mode two), which the port refused
+    before the training slice, computes JAX's eval latents and rates:
+    y_cq and z_q equal, mu, sigma and the rate maps within 1e-5 of the
+    largest value (measured 6.8e-7, on mu)."""
+    from aivc_tpu.models.conditional import ConditionalNet as JNet
+    from aivc_tpu.models.zoo import TINY as J_TINY
+    from aivc_tpu_torch.utils.checkpoint import params_from_jax
+
+    jc = dataclasses.replace(J_TINY.codecnet, ec_mode="two",
+                             in_c_shortcut=0, gain_p_b=False)
+    x = np.random.default_rng(5).random((1, 64, 64, jc.in_c)).astype(
+        np.float32)
+    jnet = JNet(jc)
+    variables = jax.jit(lambda r, v: jnet.init(r, v, None, 0.0, 0))(
+        jax.random.PRNGKey(1), jnp.asarray(x))
+    jlat = jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda p, v: jnet.apply(p, v, 0.0, 0, method=JNet.encode_latents))(
+            variables, jnp.asarray(x)))
+    net = ConditionalNet(ConditionalNetConfig(**dataclasses.asdict(jc)))
+    net.load_state_dict(params_from_jax(jax.tree_util.tree_map(
+        np.asarray, variables)), strict=True)
+    assert net.h_s.ConvBlock_0.Conv_0.weight.shape[0] == 5 * jc.nb_ft_y
+    with torch.inference_mode():
+        lat = net.encode_latents(torch.from_numpy(np.ascontiguousarray(
+            x.transpose(0, 3, 1, 2))), 0.0, 0)
+    assert sorted(lat) == sorted(jlat)
+    for k in ("y_cq", "z_q"):
+        assert np.array_equal(lat[k].permute(0, 2, 3, 1).numpy(), jlat[k])
+    for k in ("mu", "sigma", "rate_y", "rate_z"):
+        out = lat[k].permute(0, 2, 3, 1).numpy()
+        err = np.abs(out - jlat[k]).max() / np.abs(jlat[k]).max()
+        assert err <= 1e-5, (k, err)
 
 
 def test_factorized_prior_matches_jax():
