@@ -2,7 +2,8 @@
 
 Entry points: the command line, ``python -m aivc_tpu_torch`` (``cli.py``,
 ``--cpu`` for the host), training, ``python -m aivc_tpu_torch.train``
-(``train/run.py``, ``--cpu`` for the host), and the library:
+(``train/run.py``, ``--cpu`` for the host), the golden suite, ``python -m
+aivc_tpu_torch.eval.golden`` (``--cpu`` for the host), and the library:
 ``utils.checkpoint.load_checkpoint``, ``models.zoo``,
 ``pipeline.codec.FrameCodec``, ``pipeline.video.encode_video`` and
 ``decode_video``, ``train.trainer.make_train_step``; they run on the

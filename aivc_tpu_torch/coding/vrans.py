@@ -399,6 +399,17 @@ def decode_batch(words, states, rows, table: RansTable, k: int, g0=None):
 CHUNK_V2 = 0x80
 
 
+def serialize_chunk(k: int, states: np.ndarray, words: np.ndarray) -> bytes:
+    """v1 (dense) chunk: [1B log2 K][4B BE word count][K*4B BE states]
+    [words BE]."""
+    out = bytearray()
+    out.append(int(k).bit_length() - 1)
+    out.extend(int(words.size).to_bytes(4, "big"))
+    out.extend(np.asarray(states).astype(">u4").tobytes())
+    out.extend(np.asarray(words).astype(">u2").tobytes())
+    return bytes(out)
+
+
 def serialize_chunk_v2(k: int, states: np.ndarray, words: np.ndarray,
                        bitmaps) -> bytes:
     """[1B log2 K | 0x80][1B n_bitmaps]([1B len][bitmap])* then the v1

@@ -25,17 +25,22 @@ lines, and the in-band latent md5 trailer, checked at decode),
 flush stays ~1% of the payload).
 
 Format: v2 fused streams with all-zero y channels elided
-(codec.py:665-990,1221-1300), host-backend chunks with the same elision
-(coding/bitstream.py), per-frame DC trailer (codec.py:494-541), schedule
-byte 0x1F.  The DC plane sums are int64 (the JAX sums are int32, which
-agree below ~8.4M luma pixels).
+(codec.py:665-990,1221-1300), or under AIVC_VRANS_ELIDE=0 the dense v1
+fused stream (codec.py:243-248, 357-367, 1184-1200); host-backend chunks
+with the same elision (coding/bitstream.py); the per-frame DC trailer
+(codec.py:494-541); the schedule byte of the video header, from the
+five switches JAX reads at construction (``SCHED_SWITCHES``).  The DC
+plane sums are int64 (the JAX sums are int32, which agree below ~8.4M
+luma pixels).
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import functools
 import math
+import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
@@ -64,11 +69,50 @@ from aivc_tpu_torch.models.fullnet import FullNet
 from aivc_tpu_torch.ops.layers import x444_to_yuv420, yuv420_to_444
 from aivc_tpu_torch.ops.warp import warp_engine
 
-# Compute-schedule byte of the video header: the JAX package's defaults
-# (lane-packed heads, low-precision GDN, channel-major maps, s2d analysis,
-# DC correction).  The port computes lowp GDN (bit 1) and the DC trailer
-# (bit 4); bits 0, 2 and 3 only reschedule the same sums.
-SCHED_BITS = 0x1F
+# The compute-schedule switches of the JAX package's FrameCodec
+# (aivc_tpu/pipeline/codec.py:169-218), bit i of the video header's
+# schedule byte each, all on unless set to "0".  Bit 1 (GDN parameters in
+# the compute dtype of a bf16 model) and bit 4 (the closed-loop DC
+# correction and its trailer) change the port's values.  Bits 0, 2 and 3
+# are recorded only: the port has no lane-packed head, channel-major
+# maps or space-to-depth convs to switch, so they leave its values
+# unchanged; a stream is still decoded only by a codec with all five
+# bits equal.
+SCHED_SWITCHES = ("AIVC_PACKED_HEAD", "AIVC_GDN_LOWP", "AIVC_MAPS_CM",
+                  "AIVC_S2D", "AIVC_DC_OFFSET")
+
+
+def switch_on(name: str) -> bool:
+    """A switch of the JAX package's environment: on unless "0"."""
+    return os.environ.get(name, "1") != "0"
+
+
+def head_lane_pack_auto(out_ft: int) -> int:
+    """The JAX package's lane-pack group of a synthesis head
+    (aivc_tpu/ops/layers.py:head_lane_pack_auto): the largest power of two
+    G with G * 4 * out_ft <= 128."""
+    g = 1
+    while 2 * g * 4 * out_ft <= 128:
+        g *= 2
+    return g
+
+
+def scheduled_config(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` with the schedule switches applied as the JAX package's
+    FrameCodec applies them: a switch that is on sets its fields, one that
+    is off leaves the checkpoint's own values."""
+    rp = dataclasses.replace
+    m, c = cfg.mofnet, cfg.codecnet
+    if switch_on("AIVC_PACKED_HEAD"):
+        m = rp(m, head_lane_pack=head_lane_pack_auto(m.out_c))
+        c = rp(c, head_lane_pack=head_lane_pack_auto(c.out_c))
+    if switch_on("AIVC_GDN_LOWP"):
+        m, c = rp(m, gdn_lowp=True), rp(c, gdn_lowp=True)
+    if switch_on("AIVC_MAPS_CM"):
+        m = rp(m, maps_cm=True)
+    if switch_on("AIVC_S2D"):
+        m, c = rp(m, s2d_analysis=True), rp(c, s2d_analysis=True)
+    return rp(cfg, mofnet=m, codecnet=c)
 
 
 def configure_determinism(cfg: ModelConfig) -> None:
@@ -180,12 +224,13 @@ class FrameCodec:
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             configure_determinism(cfg)
-        # Inference runs GDN with low-precision parameters (sched bit 1).
-        import dataclasses as dc
-
-        cfg = dc.replace(
-            cfg, mofnet=dc.replace(cfg.mofnet, gdn_lowp=True),
-            codecnet=dc.replace(cfg.codecnet, gdn_lowp=True))
+        # The schedule switches, read once here, as in JAX.
+        cfg = scheduled_config(cfg)
+        self.dc_offset = switch_on("AIVC_DC_OFFSET")
+        # The device backend writes the v2 fused stream with all-zero y
+        # channels elided, or under AIVC_VRANS_ELIDE=0 the dense v1 one.
+        self.elide = (entropy_backend == "device"
+                      and switch_on("AIVC_VRANS_ELIDE"))
         self.cfg = cfg
         self.model = FullNet(cfg)
         self.model.load_state_dict(model.state_dict())
@@ -200,6 +245,10 @@ class FrameCodec:
         self._n_z = {
             "mofnet": self.hz * self.wz * cfg.mofnet.nb_ft_z,
             "codecnet": self.hz * self.wz * cfg.codecnet.nb_ft_z,
+        }
+        self._n_y = {
+            "mofnet": self.hy * self.wy * cfg.mofnet.nb_ft_y,
+            "codecnet": self.hy * self.wy * cfg.codecnet.nb_ft_y,
         }
         self.warp_engine = warp_engine(cfg.flow_bound)
 
@@ -232,8 +281,19 @@ class FrameCodec:
         self._k_hint: Dict[int, int] = {}
 
     # ------------------------------------------------------------------
-    # K policy (codec.py:382-424)
+    # K policy (codec.py:357-424)
     # ------------------------------------------------------------------
+    def _fused_n(self, frame_type: int, k: int):
+        """(total padded symbols, per-segment padded lengths) of a frame's
+        dense (v1) fused stream at stream count k."""
+        segs = []
+        if frame_type != FRAME_I:
+            segs.append(-(-self._n_z["mofnet"] // k) * k)
+            segs.append(-(-self._n_y["mofnet"] // k) * k)
+        segs.append(-(-self._n_z["codecnet"] // k) * k)
+        segs.append(-(-self._n_y["codecnet"] // k) * k)
+        return sum(segs), tuple(segs)
+
     def _fused_n2(self, frame_type: int, k: int, bm: int, bc: int):
         """(total padded symbols, per-segment padded lengths) of a frame's
         elided fused stream at stream count k."""
@@ -385,6 +445,17 @@ class FrameCodec:
                          idx.long()[:, :, None].expand(-1, -1, H * W))
         return g.reshape(B, -1)
 
+    def _y_seg(self, q, bins, k: int):
+        """Dense (v1) y segment: every symbol in the JAX (H, W, C) order,
+        its row from the sigma bin."""
+        B = q.shape[0]
+        sym = (q.permute(0, 2, 3, 1).reshape(B, -1).to(torch.int32)
+               + self.ac_max)
+        rows = (bins.permute(0, 2, 3, 1).reshape(B, -1).to(torch.int32)
+                + self._row_off["y"])
+        return self._pad_seg(sym, rows, k, self._pad_sym["y"],
+                             self._row_off["y"])
+
     def _y_seg_el(self, q, bins, idx, nkeep, k: int):
         """Elided y segment: channel-major symbols of the kept channels;
         slots beyond a frame's nkeep carry the pad symbol."""
@@ -455,7 +526,9 @@ class FrameCodec:
         mu_c, bins_c = self._hyper("codecnet", z_qc)
         q_c = canonical(self._quantize_y(y_c, mu_c))
         x_hat = m.codecnet_synth(q_c, mu_c, pred, skip, idx_rate, frame_type)
-        out, dc = self._dc_correct_enc(self._cast_planes(x_hat), orig)
+        out, dc = self._cast_planes(x_hat), None
+        if self.dc_offset:
+            out, dc = self._dc_correct_enc(out, orig)
         ref444 = planes_to_444(out["y"], out["u"], out["v"])
         w.update(z_c=z_qc, q_c=q_c, bins_c=bins_c, dc=dc,
                  decoded=self._split_decoded(out, ref444, len(frames_u8)))
@@ -486,9 +559,9 @@ class FrameCodec:
         return [{"alpha_mean": float(a[i]), "beta_mean": float(b[i])}
                 for i in range(k)]
 
-    def _entropy_device(self, w):
-        """v2 fused entropy coding: channel masks to the host, wave-shared
-        buckets, one K1 launch for the wave."""
+    def _fused_parts_v2(self, w):
+        """(K, segments, their (z_m, y_m, z_c, y_c) columns, per-frame
+        channel bitmaps) of a wave's elided stream."""
         k, frame_type = w["k"], w["frame_type"]
         q_m, q_c = w["q_m"], w["q_c"]
         cm, cc = self.cfg.mofnet.nb_ft_y, self.cfg.codecnet.nb_ft_y
@@ -525,6 +598,37 @@ class FrameCodec:
         if bc:
             parts.append(self._y_seg_el(q_c, w["bins_c"], idxc, nkc, kk))
             cols.append(3)
+        return kk, parts, cols, bitmaps
+
+    def _fused_parts_v1(self, w):
+        """The same for the dense stream (no bitmaps): K from the dense
+        total (codec.py:1190-1192), every segment present."""
+        frame_type = w["frame_type"]
+        kk = self._pick_k(frame_type, self._fused_n(frame_type, 8)[0])
+        parts = []
+        if frame_type != FRAME_I:
+            parts += [self._z_seg(w["z_m"], "z_m", kk),
+                      self._y_seg(w["q_m"], w["bins_m"], kk)]
+        parts += [self._z_seg(w["z_c"], "z_c", kk),
+                  self._y_seg(w["q_c"], w["bins_c"], kk)]
+        cols = [2, 3] if frame_type == FRAME_I else [0, 1, 2, 3]
+        return kk, parts, cols, None
+
+    def _dc_trailers(self, w) -> List[Optional[tuple]]:
+        """Each frame's DC trailer, or None without the correction."""
+        if w["dc"] is None:
+            return [None] * w["k"]
+        return [tuple(int(v) for v in row) for row in w["dc"].cpu().numpy()]
+
+    def _entropy_device(self, w):
+        """Fused entropy coding of a wave, one K1 launch: the v2 stream
+        (channel masks to the host, wave-shared buckets) or, without
+        elision, the dense v1 stream of every y symbol."""
+        k, frame_type = w["k"], w["frame_type"]
+        if self.elide:
+            kk, parts, cols, bitmaps = self._fused_parts_v2(w)
+        else:
+            kk, parts, cols, bitmaps = self._fused_parts_v1(w)
         sym = torch.cat([p[0] for p in parts], dim=1).contiguous()
         rows = torch.cat([p[1] for p in parts], dim=1).contiguous()
         segs = tuple(p[0].shape[1] // kk for p in parts)
@@ -543,19 +647,20 @@ class FrameCodec:
         for i in range(k):
             t = int(totals[i])
             words = (tail[i, mmax - t:] if t else np.empty(0, np.uint16))
-            chunks.append(vrans.serialize_chunk_v2(kk, states_np[i], words,
-                                                   bitmaps[i]))
+            chunks.append(
+                vrans.serialize_chunk(kk, states_np[i], words)
+                if bitmaps is None else
+                vrans.serialize_chunk_v2(kk, states_np[i], words, bitmaps[i]))
         digs = None
         if self.debug:
             digs = self._wave_digests(w)
             for i in range(k):
                 self._debug_vr_frame(chunks[i], sym[i], rows[i], i)
-        dc_np = w["dc"].cpu().numpy()
+        dcs = self._dc_trailers(w)
         frame_bytes, stats = [], self._base_stats(w)
         for i in range(k):
             fb = bs.pack_frame({"codecnet_z": chunks[i]},
-                               digs[i] if digs else None,
-                               dc=tuple(int(v) for v in dc_np[i]))
+                               digs[i] if digs else None, dc=dcs[i])
             frame_bytes.append(fb)
             stats[i].update({
                 "bytes": len(fb),
@@ -591,12 +696,11 @@ class FrameCodec:
         for (i, name, _), out in zip(jobs, outs):
             chunks[i][name] = out
         digs = self._wave_digests(w) if self.debug else None
-        dc_np = w["dc"].cpu().numpy()
+        dcs = self._dc_trailers(w)
         frame_bytes, stats = [], self._base_stats(w)
         for i in range(k):
             c = chunks[i]
-            fb = bs.pack_frame(c, digs[i] if digs else None,
-                               dc=tuple(int(v) for v in dc_np[i]))
+            fb = bs.pack_frame(c, digs[i] if digs else None, dc=dcs[i])
             frame_bytes.append(fb)
             stats[i].update({
                 "bytes": len(fb),
@@ -748,6 +852,19 @@ class FrameCodec:
         z = z.reshape(B, self.hz, self.wz, C).permute(0, 3, 1, 2)
         return canonical(z), st, g
 
+    def _dec_y(self, words, st, g, bins, n: int, k: int, C: int):
+        """Decode one dense (v1) y segment -> float32 [B, C, Hy, Wy]."""
+        B = words.shape[0]
+        nraw = self.hy * self.wy * C
+        rows = (bins.permute(0, 2, 3, 1).reshape(B, -1).to(torch.int32)
+                + self._row_off["y"])
+        rows = F.pad(rows, (0, n - nraw), value=self._row_off["y"])
+        syms, st, g = vrans.decode_batch(words, st, rows.contiguous(),
+                                         self.table, k, g)
+        y = (syms[:, :nraw] - self.ac_max).to(torch.float32)
+        y = y.reshape(B, self.hy, self.wy, C).permute(0, 3, 1, 2)
+        return canonical(y), st, g
+
     def _dec_y_el(self, words, st, g, bins, idx, nkeep, n: int, k: int,
                   C: int):
         """Decode one elided y segment and scatter it back to a dense
@@ -790,13 +907,17 @@ class FrameCodec:
                 chunks, digests, prev, nxt, frame_type, idx_rate)
         x_hat = self.model.codecnet_synth(q_c, mu_c, pred, skip, idx_rate,
                                           frame_type)
-        dcs = []
-        for c in chunks:
-            if c.get("__dc__") is None:
-                raise ValueError("frame carries no DC trailer")
-            dcs.append(c["__dc__"])
-        dc = torch.tensor(dcs, dtype=torch.int32, device=self.device)
-        out = self._apply_dc(self._cast_planes(x_hat), dc)
+        out = self._cast_planes(x_hat)
+        if self.dc_offset:
+            dcs = []
+            for c in chunks:
+                if c.get("__dc__") is None:
+                    raise ValueError(
+                        "dc_offset enabled but a frame carries no DC trailer "
+                        "(stream from an AIVC_DC_OFFSET=0 encoder?)")
+                dcs.append(c["__dc__"])
+            out = self._apply_dc(out, torch.tensor(dcs, dtype=torch.int32,
+                                                   device=self.device))
         ref444 = planes_to_444(out["y"], out["u"], out["v"])
         return self._split_decoded(out, ref444, len(chunks))
 
@@ -822,20 +943,25 @@ class FrameCodec:
         kk = parsed[0][2]
         if any(p[2] != kk for p in parsed):
             raise ValueError("inconsistent vrans stream counts in a wave")
-        if any(p[3] is None for p in parsed):
-            raise ValueError("dense (v1) chunks wait for a later slice")
+        v2 = parsed[0][3] is not None
+        if any((p[3] is not None) != v2 for p in parsed):
+            raise ValueError("mixed v1/v2 vrans chunks in a wave")
         cm, cc = self.cfg.mofnet.nb_ft_y, self.cfg.codecnet.nb_ft_y
-        ch_m, ch_c = [], []
-        for _, _, _, bms in parsed:
-            if frame_type != FRAME_I:
-                ch_m.append(vrans.bitmap_channels(bms[0], cm))
-                ch_c.append(vrans.bitmap_channels(bms[1], cc))
-            else:
-                ch_c.append(vrans.bitmap_channels(bms[0], cc))
-        bc = vrans.elide_bucket(max(c.size for c in ch_c), cc)
-        bm = vrans.elide_bucket(max(c.size for c in ch_m), cm) if ch_m else 0
-        idxc, nkc = self._pack_idx(ch_c, bc)
-        _, segs = self._fused_n2(frame_type, kk, bm, bc)
+        if v2:
+            ch_m, ch_c = [], []
+            for _, _, _, bms in parsed:
+                if frame_type != FRAME_I:
+                    ch_m.append(vrans.bitmap_channels(bms[0], cm))
+                    ch_c.append(vrans.bitmap_channels(bms[1], cc))
+                else:
+                    ch_c.append(vrans.bitmap_channels(bms[0], cc))
+            bc = vrans.elide_bucket(max(c.size for c in ch_c), cc)
+            bm = (vrans.elide_bucket(max(c.size for c in ch_m), cm)
+                  if ch_m else 0)
+            idxc, nkc = self._pack_idx(ch_c, bc)
+            _, segs = self._fused_n2(frame_type, kk, bm, bc)
+        else:
+            _, segs = self._fused_n(frame_type, kk)
         seg_it = iter(segs)
 
         mw = vrans.bucket(max(max(p[0].size for p in parsed), 1), 1 << 30)
@@ -853,7 +979,10 @@ class FrameCodec:
             z_qm, st, g = self._dec_z(words, st, g, next(seg_it), kk,
                                       self.cfg.mofnet.nb_ft_z, "z_m")
             mu_m, bins_m = self._hyper("mofnet", z_qm)
-            if bm:
+            if not v2:
+                q_m, st, g = self._dec_y(words, st, g, bins_m, next(seg_it),
+                                         kk, cm)
+            elif bm:
                 idxm, nkm = self._pack_idx(ch_m, bm)
                 q_m, st, g = self._dec_y_el(words, st, g, bins_m, idxm, nkm,
                                             next(seg_it), kk, cm)
@@ -867,7 +996,10 @@ class FrameCodec:
         z_qc, st, g = self._dec_z(words, st, g, next(seg_it), kk,
                                   self.cfg.codecnet.nb_ft_z, "z_c")
         mu_c, bins_c = self._hyper("codecnet", z_qc)
-        if bc:
+        if not v2:
+            q_c, st, g = self._dec_y(words, st, g, bins_c, next(seg_it), kk,
+                                     cc)
+        elif bc:
             q_c, st, g = self._dec_y_el(words, st, g, bins_c, idxc, nkc,
                                         next(seg_it), kk, cc)
         else:
@@ -916,15 +1048,27 @@ class FrameCodec:
     # ------------------------------------------------------------------
     @property
     def sched_bits(self) -> int:
-        return SCHED_BITS
+        """Compute-schedule byte of the video header, as JAX computes it
+        (codec.py:1865-1875): bit0 lane-packed heads, bit1 low-precision
+        GDN, bit2 channel-major MOFNet maps, bit3 space-to-depth analysis
+        convs, bit4 closed-loop DC-offset correction."""
+        return ((1 if self.cfg.codecnet.head_lane_pack > 1 else 0)
+                | (2 if self.cfg.codecnet.gdn_lowp else 0)
+                | (4 if self.cfg.mofnet.maps_cm else 0)
+                | (8 if self.cfg.codecnet.s2d_analysis else 0)
+                | (16 if self.dc_offset else 0))
 
     def check_sched(self, header: bs.VideoHeader) -> None:
         """Raise if the stream's compute-schedule byte is not this
-        codec's (a mismatched decoder would drift through the GOP)."""
+        codec's (a mismatched decoder would drift through the GOP), with
+        JAX's message naming the switches that rebuild the right codec."""
         if header.sched != self.sched_bits:
+            sets = " ".join(f"{name}={1 if header.sched >> i & 1 else 0}"
+                            for i, name in enumerate(SCHED_SWITCHES))
             raise ValueError(
                 f"bitstream compute schedule {header.sched:#04x} != this "
-                f"codec's {self.sched_bits:#04x}")
+                f"codec's {self.sched_bits:#04x}; set {sets} and rebuild the "
+                f"codec to decode this stream bit-exactly")
 
     def video_header(self, nb_gop: int, idx_first: int, idx_last: int,
                      wave_batch: int = 1) -> bs.VideoHeader:

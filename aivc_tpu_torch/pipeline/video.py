@@ -262,8 +262,8 @@ def encode_video(codec: FrameCodec, frames: Sequence[Dict[str, np.ndarray]],
             "n_frames": n_frames, "gop": name, "h": codec.h, "w": codec.w,
             "idx_rate": coding.idx_rate, "wave_batch": wave_batch,
             "backend": codec.backend, "model": codec.cfg.name,
-            # the device backend writes the v2 (elided) fused stream
-            "elide": codec.backend == "device",
+            # v2 (elided) or dense v1 fused stream
+            "elide": codec.elide,
         })
 
     if gop_len == 1 and wave_batch > 1:

@@ -30,6 +30,17 @@ take their plain versions).  On the card:
            plain versions on the same inputs (K4's bf16 path within
            GDN_PLAIN_ULPS), each timed beside its bound (K5 also with L2
            cold)
+  (the CLI and training phases: ``cli_runs``, ``train_small``,
+  ``train_recipe``)
+  golden   the golden suite's pins (eval/golden.py) within the card's
+           limits, each decode bit-exact, each MS-SSIM against the numpy
+           oracle on the host, K1-K3 launched (``golden_runs``)
+  formats  the clip as the default v2 stream, the dense v1 stream
+           (AIVC_VRANS_ELIDE=0: K1 and K2 on new segment plans, held
+           against their plain versions) and schedule 0x0D
+           (AIVC_GDN_LOWP=0 AIVC_DC_OFFSET=0), each bit-exact, and a
+           stream refused by a codec of another schedule
+           (``formats_runs``)
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from aivc_tpu_torch import kernels, profile_kernels
+from aivc_tpu_torch.coding import bitstream as bs
 from aivc_tpu_torch.coding import range_coder, vrans
 from aivc_tpu_torch.config import FRAME_B, FRAME_P, CodingConfig
 from aivc_tpu_torch.gop import generate_gop_struct
@@ -1381,3 +1393,201 @@ def train_recipe(ckpt: str, out: str, root, device: torch.device,
             "file_mb": {k: p.stat().st_size / 2**20
                         for k, p in paths.items()},
             "forward_logs": fwd, "timing": timing[0] if timing else ""}
+
+
+# ---------------------------------------------------------------------------
+# golden: the suite's pins on the card (eval/golden.py)
+# ---------------------------------------------------------------------------
+
+# The pins the card runs: every suite pin of bf16-r5, the sanity pin, and
+# ra_240p_lowrate, whose checkpoint (models_ckpt/bf16-lr) .chiprunignore
+# keeps off the card's machine, so it is reported as skipped there.
+GOLDEN_PINS = ("ai_240p", "ra_240p", "ldp_240p", "ra_720p", "ra_1080p",
+               "golden_sanity", "ra_240p_lowrate")
+# The port's torch MS-SSIM (evaluate_frames, float32 on the card) against
+# the numpy oracle (ops/metrics_np.msssim_np, float64 on the host) on the
+# same decoded frames; tests/test_ops.py holds JAX's msssim to the oracle
+# within the same 2e-4.
+ORACLE_MS_SSIM_TOL = 2e-4
+
+
+def golden_runs(device: torch.device, names=GOLDEN_PINS, limits=None,
+                say: Callable[[str], None] = print) -> Dict[str, Dict]:
+    """Each pin through eval/golden.py:run_pin on ``device`` (a skipped
+    pin says why), held against the pin within ``limits`` (the card's by
+    default), its decode bit-exact, its MS-SSIM against the numpy oracle
+    on the host; one line each.  Raises after the last pin if any
+    failed."""
+    from aivc_tpu_torch.eval import golden
+
+    limits = limits or golden.CARD_LIMITS
+    pins = golden.suite_pins()
+    loaded, out, failed = {}, {}, []
+    for name in names:
+        pin = pins[name]
+        reason = golden.skip_reason(pin)
+        if reason:
+            out[name] = {"skipped": reason}
+            say(f"golden {name}: skipped ({reason})")
+            continue
+        if pin["ckpt"] not in loaded:
+            loaded[pin["ckpt"]] = load_checkpoint(
+                str(golden.REPO / pin["ckpt"]), device=device)
+        got = golden.run_pin(pin, device, keep=True,
+                             loaded=loaded[pin["ckpt"]])
+        t0 = time.time()
+        oracle = golden.oracle_ms_ssim(got.pop("frames"),
+                                       got.pop("decoded"))["ms_ssim"]
+        got["oracle_s"] = time.time() - t0
+        got["oracle_ms_ssim"] = oracle
+        got["oracle_err"] = abs(got["ms_ssim"] - oracle)
+        cmp = golden.compare(got, pin["expect"], limits)
+        got.update(cmp=cmp, expect=pin["expect"])
+        out[name] = got
+        la = got["launches"]
+        say(golden.report_line(name, got, pin["expect"], cmp)
+            .replace("[GOLDEN] ", "golden "))
+        say(f"golden {name}: encode {got['encode_s']:.2f} s, decode "
+            f"{got['decode_s']:.2f} s; launches rans_encode "
+            f"{la['rans_encode']}, rans_decode {la['rans_decode']}, "
+            f"warp_packed {la['warp_packed']}; MS-SSIM {got['ms_ssim']:.7f} "
+            f"against the numpy oracle's {oracle:.7f}: "
+            f"{got['oracle_err']:.2e} (limit {ORACLE_MS_SSIM_TOL}; oracle "
+            f"{got['oracle_s']:.1f} s on the host)")
+        need = ["rans_encode", "rans_decode"]
+        if pin["config"]["coding"] != "AI":
+            need.append("warp_packed")
+        if device.type == "cuda" and any(la[k] == 0 for k in need):
+            failed.append(f"{name}: kernels {need} not all launched {la}")
+        if not cmp["ok"]:
+            failed.append(f"{name}: outside the limits {limits} or decode "
+                          f"not bit-exact")
+        if not got["oracle_err"] <= ORACLE_MS_SSIM_TOL:
+            failed.append(f"{name}: MS-SSIM {got['oracle_err']:.2e} from "
+                          f"the numpy oracle")
+    if failed:
+        raise AssertionError("golden: " + "; ".join(failed))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# formats: the dense v1 stream and another schedule byte
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def switched(**switches: str):
+    """The environment switches set while a codec is built inside, and
+    restored after (FrameCodec reads them at construction)."""
+    old = {k: os.environ.get(k) for k in switches}
+    os.environ.update(switches)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class RansDecodeWatch:
+    """Wraps coding/vrans.py:decode_cuda and keeps the inputs (words,
+    states, rows, table, k, g0) of every launch while open."""
+
+    def __init__(self):
+        self.inputs = []
+        self._kernel = vrans.decode_cuda
+        vrans.decode_cuda = self._call
+
+    def _call(self, words, states, rows, table, k, g0=None):
+        self.inputs.append((words.clone(), states.clone(), rows.clone(),
+                            table, k, None if g0 is None else g0.clone()))
+        return self._kernel(words, states, rows, table, k, g0)
+
+    def close(self) -> None:
+        if vrans.decode_cuda == self._call:
+            vrans.decode_cuda = self._kernel
+
+
+def check_encode_launch(inputs) -> Dict:
+    """K1 on a captured launch (RansWatch), segments and all, against its
+    plain version on the same inputs, bit for bit."""
+    sym, rows, table, k, segs = inputs
+    t0 = time.time()
+    ref = vrans.encode_plain(sym, rows, table, k, segs)
+    plain_s = time.time() - t0
+    if not encode_equal(vrans.encode_batch(sym, rows, table, k, segs), ref):
+        raise AssertionError(f"K1 differs from the plain encode on the "
+                             f"captured launch {list(sym.shape)}")
+    return {"shape": list(sym.shape), "k": k, "segments": list(segs),
+            "steps": sym.shape[1] // k, "plain_s": plain_s}
+
+
+def check_decode_launches(launches) -> Dict:
+    """Every captured K2 launch (RansDecodeWatch) against its plain
+    version on the same inputs: symbols, states and word offsets."""
+    shapes = []
+    for words, states, rows, table, k, g0 in launches:
+        got = vrans.decode_batch(words, states, rows, table, k, g0)
+        ref = vrans.decode_plain(words, states, rows, table, k, g0)
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"K2 differs from the plain decode on a "
+                                 f"captured launch {list(rows.shape)} K {k}")
+        shapes.append((list(rows.shape), k))
+    return {"launches": len(shapes), "shapes": shapes}
+
+
+def frame_chunks(bitstream: bytes) -> List[Dict]:
+    """Every frame container of a muxed bitstream, unpacked."""
+    return [bs.unpack_frame(fb) for g in bs.unpack_video(bitstream)[1]
+            for fb in bs.unpack_gop(g)[1]]
+
+
+def formats_runs(ckpt: str, frames, device: torch.device,
+                 wave_batch: int = 8, gop: int = 8) -> Dict[str, Dict]:
+    """The clip coded three ways through the entry points, each decode
+    bit-exact (code_clip) with its kernels' launches (counts set to 0
+    just before, read just after): the default v2 stream; the dense v1
+    stream (AIVC_VRANS_ELIDE=0), whose deepest K1 launch and every K2
+    launch are kept for their checks ("captured_enc", "captured_dec";
+    none on the host); and AIVC_GDN_LOWP=0 AIVC_DC_OFFSET=0 (schedule
+    0x0D).  Then the v2 stream handed to the 0x0D codec must raise the
+    schedule error."""
+    cfg, model = load_checkpoint(ckpt, device=device)
+    h, w = frames[0]["y"].shape
+    out, codecs = {}, {}
+    for name, switches in (("v2", {}), ("v1", {"AIVC_VRANS_ELIDE": "0"}),
+                           ("sched", {"AIVC_GDN_LOWP": "0",
+                                      "AIVC_DC_OFFSET": "0"})):
+        with switched(**switches):
+            codec = FrameCodec(cfg, model, h, w, device=device)
+        watches = ((RansWatch(), RansDecodeWatch()) if name == "v1"
+                   else ())
+        kernels.reset_launches()
+        try:
+            res = code_clip(codec, frames, wave_batch=wave_batch, gop=gop)
+        finally:
+            for wt in watches:
+                wt.close()
+        res["launches"] = dict(kernels.LAUNCHES)
+        res["sched"] = codec.sched_bits
+        res["elide"] = codec.elide
+        codecs[name] = codec
+        if watches:
+            res["captured_enc"] = watches[0].inputs
+            res["captured_dec"] = watches[1].inputs
+        out[name] = res
+    if any(c["codecnet_z"][0] & vrans.CHUNK_V2
+           for c in frame_chunks(out["v1"]["bitstream"])):
+        raise AssertionError("AIVC_VRANS_ELIDE=0 wrote a v2 chunk")
+    if any(c.get("__dc__") is not None
+           for c in frame_chunks(out["sched"]["bitstream"])):
+        raise AssertionError("AIVC_DC_OFFSET=0 wrote a DC trailer")
+    try:
+        decode_video(codecs["sched"], out["v2"]["bitstream"])
+    except ValueError as e:
+        out["refused"] = str(e)
+    else:
+        raise AssertionError("a codec with schedule 0x0D decoded a 0x1F "
+                             "stream")
+    return out

@@ -3,92 +3,29 @@ scripts/train_toy.py:33-273): procedurally generated moving textures,
 pure numpy, driven by one ``np.random.Generator``, so the same seed gives
 the same clips as the JAX package's generator.
 
-The natural-photo family crops photographs that ship as assets inside
-installed packages (``photo_pool``: sklearn's sample images,
-matplotlib's grace_hopper and the material textures of simulation-asset
-packages, the training half of scripts/photo_pool.py).  Where those
-packages are missing the pool is empty and the family is never drawn;
-the generator takes the pool as an argument and the training entry point
-prints its size.
+The natural-photo family crops photographs: the training half of the
+reference's photo pool (scripts/photo_pool.py:train_pool: sklearn's
+sample images, matplotlib's grace_hopper and the material textures of
+simulation-asset packages), which the port reads from its committed
+pool file (``photo_pool`` -> eval/photos.py:train_pool), so the card's
+machine draws the family as the host does.  The generator takes the pool
+as an argument and the training entry point prints its size.
 """
 
 from __future__ import annotations
 
-import sysconfig
-from pathlib import Path
 from typing import List, Sequence
 
 import numpy as np
 
-# Training photographs among the installed packages' assets, relative to
-# site-packages (scripts/photo_pool.py:TRAIN_TEXTURES; the held-out ones
-# are never trained on).
-_GYM = "gymnasium_robotics/envs/assets/"
-_KITCHEN = _GYM + "kitchen_franka/kitchen_assets/textures/"
-_HAND = _GYM + "adroit_hand/resources/textures/"
-_DMC = "dm_control/"
-_SOCCER = _DMC + "locomotion/soccer/assets/"
-_LAB = "labmaze/assets/"
-TRAIN_TEXTURES = (
-    _KITCHEN + "wood1.png",
-    _KITCHEN + "white_marble_tile.png",
-    _KITCHEN + "marble1.png",
-    _KITCHEN + "metal1.png",
-    _HAND + "skin.png",
-    _HAND + "silverRaw.png",
-    _DMC + "locomotion/arenas/assets/outdoor_natural/OutdoorSkybox2048.png",
-    _DMC + "locomotion/arenas/assets/outdoor_natural/OutdoorGrassFloorD.png",
-    _DMC + "suite/dog_assets/skin_texture.png",
-    _SOCCER + "pitch/pitch_m.png",
-    _DMC + "locomotion/walkers/assets/jumping_ball/jumping_ball_body.png",
-    _SOCCER + "humanoid/B_01.png",
-    _SOCCER + "humanoid/B_05.png",
-    _SOCCER + "humanoid/R_03.png",
-    _DMC + "suite/dog_assets/tennis_ball.png",
-    _DMC + "blender/mujoco_exporter/doc/install_plugin.png",
-    _DMC + "blender/mujoco_exporter/doc/limits.png",
-    _LAB + "sky_01/up.png",
-    _LAB + "style_01/floor_light_m.png",
-    _LAB + "style_02/wall_purple_d.png",
-    _LAB + "style_05/floor_blue_d.png",
-    _LAB + "style_03/floor_orange_d.png",
-)
+from aivc_tpu_torch.eval.photos import train_pool
 
 
 def photo_pool() -> List[np.ndarray]:
-    """The training photographs found among the installed packages, in
-    scripts/photo_pool.py:train_pool's order: sklearn's two sample images,
-    matplotlib's grace_hopper, then TRAIN_TEXTURES.  A missing package or
-    file is left out."""
-    pool: List[np.ndarray] = []
-    try:
-        from sklearn.datasets import load_sample_images
-
-        for im in load_sample_images().images:
-            pool.append(np.asarray(im, np.float32) / 255.0)
-    except ImportError:
-        pass
-    try:
-        import matplotlib.cbook as cbook
-        from PIL import Image
-
-        with cbook.get_sample_data("grace_hopper.jpg") as f:
-            pool.append(np.asarray(Image.open(f).convert("RGB"),
-                                   np.float32) / 255.0)
-    except (ImportError, OSError):
-        pass
-    try:
-        from PIL import Image
-    except ImportError:
-        return pool
-    site = Path(sysconfig.get_paths()["purelib"])
-    for rel in TRAIN_TEXTURES:
-        try:
-            im = Image.open(site / rel).convert("RGB")
-        except OSError:
-            continue
-        pool.append(np.asarray(im, np.float32) / 255.0)
-    return pool
+    """The training photographs, float32 RGB in [0, 1], in
+    scripts/photo_pool.py:train_pool's order (eval/photos.py; raises if
+    the committed pool file is missing or damaged)."""
+    return train_pool()
 
 
 def _texture_1f(rng: np.random.Generator, s2: int):

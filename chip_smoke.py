@@ -51,6 +51,22 @@ name 7 refused where its checkpoint is absent.  Every run's decode is
 held against its encoder's reconstruction, and each prints its bytes,
 bpp, PSNR, MS-SSIM, encode and decode fps and the kernels' launches.
 
+The golden phase runs the golden suite's pins (docs/golden_suite.json,
+docs/golden_sanity.json; aivc_tpu_torch/eval/golden.py) on the card:
+ai_240p, ra_240p, ldp_240p, ra_720p, ra_1080p and the 33-frame sanity pin
+on clips made from the committed held-out photographs, each decoded bit
+for bit against its encoder's reconstruction, held against its pin's
+bytes, PSNR and MS-SSIM within golden.CARD_LIMITS, its MS-SSIM held
+against the numpy oracle (ops/metrics_np.msssim_np) on the host, with
+K1-K3's launches per pin; ra_240p_lowrate is reported as skipped where
+models_ckpt/bf16-lr is not in the checkout.  The formats phase codes the
+9-frame 1080p clip as the default v2 stream, as the dense v1 stream
+(AIVC_VRANS_ELIDE=0), whose deepest K1 launch and every K2 launch are
+held against their plain versions, and under AIVC_GDN_LOWP=0
+AIVC_DC_OFFSET=0 (schedule byte 0x0d), each decoded bit-exactly, with
+bytes, fps and launches side by side; the v2 stream handed to the 0x0d
+codec must raise the schedule error.
+
 Every phase prints its elapsed seconds.  The last lines are the card's
 name and power limit, the kernels' JSON record and the result; any failed
 check raises (nonzero exit).  Exits nonzero, printing no result, when
@@ -80,6 +96,7 @@ def main() -> int:
     # Read when the package's warp module is imported, as in JAX.
     os.environ["AIVC_WARP"] = "pallas"
     from aivc_tpu_torch import kernels, smoke
+    from aivc_tpu_torch.eval import golden
     from aivc_tpu_torch.ops import warp as warp_ops
     from aivc_tpu_torch.pipeline.codec import FrameCodec
     from aivc_tpu_torch.pipeline.video import frames_444, synthetic_frames
@@ -318,6 +335,46 @@ def main() -> int:
            f"{json.dumps(sizes)}")
     ph.say(f"train-recipe: the written checkpoint's eval forward at 128x128 "
            f"{json.dumps(rec['forward_logs'])}")
+
+    # -- golden suite ----------------------------------------------------
+    t_phase = time.time()
+    gold = smoke.golden_runs(dev, say=ph.say)
+    ran = [n for n, r in gold.items() if "skipped" not in r]
+    ph.say(f"golden: {len(ran)} pins within the card's limits "
+           f"{golden.CARD_LIMITS}, each decode bit-exact, "
+           f"{len(gold) - len(ran)} skipped; worst |MS-SSIM - oracle| "
+           f"{max(gold[n]['oracle_err'] for n in ran):.2e}; "
+           f"{time.time() - t_phase:.1f} s")
+
+    # -- stream formats ---------------------------------------------------
+    t_phase = time.time()
+    fmt = smoke.formats_runs(ckpt, frames, dev, wave_batch=WAVE_BATCH,
+                             gop=GOP)
+    for name in ("v2", "v1", "sched"):
+        r = fmt[name]
+        ph.say(f"formats {name}: schedule {r['sched']:#04x}, "
+               f"{'v2 elided' if r['elide'] else 'dense v1'} fused stream, "
+               f"{r['bytes']} B, PSNR {r['psnr']:.4f} dB, MS-SSIM "
+               f"{r['ms_ssim']:.6f}, encode {r['encode_fps']:.3f} fps, "
+               f"decode {r['decode_fps']:.3f} fps, decode bit-exact, "
+               f"launches {r['launches']}, K1 steps {r['encode_steps']}, "
+               f"K2 steps {r['decode_steps']}")
+    v1 = fmt["v1"]
+    if v1["launches"]["rans_encode"] == 0 or \
+            v1["launches"]["rans_decode"] == 0:
+        raise AssertionError(f"the v1 stream launched {v1['launches']}")
+    if v1["captured_enc"] is None or not v1["captured_dec"]:
+        raise AssertionError("no K1 / K2 launch captured on the v1 path")
+    enc1 = smoke.check_encode_launch(v1.pop("captured_enc"))
+    dec1 = smoke.check_decode_launches(v1.pop("captured_dec"))
+    ph.say(f"formats v1: kernel rans_encode on its deepest launch "
+           f"{enc1['shape']} (K {enc1['k']}, segments {enc1['segments']} "
+           f"steps): bit-identical to its plain version (plain "
+           f"{enc1['plain_s']:.2f} s); kernel rans_decode on all its "
+           f"{dec1['launches']} launches (rows, K): bit-identical to its "
+           f"plain version: {dec1['shapes']}")
+    ph.say(f"formats: a v2 stream handed to the 0x0d codec: {fmt['refused']}")
+    ph.say(f"formats: {time.time() - t_phase:.1f} s")
 
     launches = {k: main_launches[k]
                 for k in ("rans_encode", "rans_decode", "warp_packed")}

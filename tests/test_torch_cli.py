@@ -218,8 +218,8 @@ def test_missing_ladder_checkpoint_is_refused(clip, tmp_path, monkeypatch,
 
 def test_port_imports_nothing_of_jax():
     """Import the CLI, the training entry point and every module of the
-    port in a fresh process: none of jax, flax, optax, the JAX package or
-    its scripts may be loaded."""
+    port (the golden runner among them) in a fresh process: none of jax,
+    flax, optax, the JAX package or its scripts may be loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import aivc_tpu_torch, aivc_tpu_torch.cli, aivc_tpu_torch.__main__\n"
@@ -229,7 +229,7 @@ def test_port_imports_nothing_of_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'aivc_tpu', 'scripts', "
-        "'train_toy', 'photo_pool'))\n"
+        "'train_toy', 'photo_pool', 'eval_data', 'sanity'))\n"
         "print(len([n for n in sys.modules if n.startswith("
         "'aivc_tpu_torch')]), bad)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

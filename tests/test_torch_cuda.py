@@ -869,3 +869,93 @@ def test_tiny_train_step_on_card_matches_host(card):
     rows = leaf_distances(gc, gh)
     assert max(r[1] for r in rows) <= TINY_LEAF_MAX_REL_L2, rows
     assert min(r[2] for r in rows) >= TINY_LEAF_MIN_COSINE, rows
+
+
+def _dense_v1_wave(codec, frame_type, batch, rng):
+    """Symbols and rows of a dense (v1) wave in the codec's segment plan
+    (FrameCodec._fused_n at the K that _pick_k gives the dense total):
+    z segments on their channels' rows, y segments on random sigma
+    rows, each padded to a multiple of K."""
+    cfg, off = codec.cfg, codec._row_off
+    k = codec._pick_k(frame_type, codec._fused_n(frame_type, 8)[0])
+    _, plan = codec._fused_n(frame_type, k)
+    parts = [("z_m", cfg.mofnet.nb_ft_z), ("y", 0),
+             ("z_c", cfg.codecnet.nb_ft_z), ("y", 0)]
+    if frame_type == 0:
+        parts = parts[2:]
+    rows = []
+    for (fam, c), n_pad in zip(parts, plan):
+        if fam == "y":
+            r = off["y"] + rng.integers(0, 48, size=(batch, n_pad))
+        else:
+            r = np.tile(np.arange(c) + off[fam], (batch, -(-n_pad // c)))
+            r = r[:, :n_pad]
+        rows.append(r.astype(np.int32))
+    rows = np.concatenate(rows, axis=1)
+    sym = _symbols(rng, codec.fused_rows, rows)
+    dev = codec.device
+    return (torch.from_numpy(sym).to(dev), torch.from_numpy(rows).to(dev),
+            k, tuple(n // k for n in plan))
+
+
+@pytest.mark.parametrize("size", [(128, 192), (1080, 1920)])
+@pytest.mark.parametrize("frame_type", [0, 2])
+def test_rans_kernels_on_dense_v1_segment_plans(card, size, frame_type):
+    """K1 on a whole dense v1 wave (4 frames) and K2 segment by segment
+    with the carry, as the codec decodes it, against their plain
+    versions."""
+    codec = _r5_codec(card, *size)
+    rng = np.random.default_rng(size[0] + frame_type)
+    sym, rows, k, segs = _dense_v1_wave(codec, frame_type, 4, rng)
+    t = codec.table
+    out = vrans.encode_batch(sym, rows, t, k, segs)
+    ref = vrans.encode_plain(sym, rows, t, k, segs)
+    assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
+    buf, st, seg_g = out
+    n_pad = sym.shape[1]
+    for i in range(4):
+        s = int(seg_g[i, 0])
+        assert torch.equal(buf[i, s:], ref[0][i, s:])
+    words = torch.zeros((4, vrans.bucket(n_pad, 1 << 30)),
+                        dtype=torch.uint16, device=card)
+    for i in range(4):
+        s = int(seg_g[i, 0])
+        words[i, :n_pad - s] = buf[i, s:]
+    g = torch.zeros(4, dtype=torch.int32, device=card)
+    gp, stp, pos = g.clone(), st, 0
+    for n in segs:
+        r = rows[:, pos:pos + n * k].contiguous()
+        got = vrans.decode_batch(words, st, r, t, k, g)
+        exp = vrans.decode_plain(words, stp, r, t, k, gp)
+        assert all(torch.equal(a, b) for a, b in zip(got, exp))
+        assert torch.equal(got[0], sym[:, pos:pos + n * k])
+        _, st, g = got
+        _, stp, gp = exp
+        pos += n * k
+
+
+@pytest.mark.parametrize("switches", [{"AIVC_VRANS_ELIDE": "0"},
+                                      {"AIVC_GDN_LOWP": "0",
+                                       "AIVC_DC_OFFSET": "0"}])
+def test_stream_formats_closed_loop_on_card(card, switches, monkeypatch):
+    """The dense v1 stream and schedule 0x0d on the card: encode ->
+    decode bit-exact, K1 and K2 launched."""
+    from aivc_tpu_torch.config import CodingConfig
+    from aivc_tpu_torch.pipeline import video
+
+    for name, value in switches.items():
+        monkeypatch.setenv(name, value)
+    codec = _r5_codec(card, 128, 192)
+    assert codec.elide == ("AIVC_VRANS_ELIDE" not in switches)
+    assert codec.sched_bits == (0x0D if "AIVC_GDN_LOWP" in switches
+                                else 0x1F)
+    frames = video.synthetic_frames(5, 128, 192)
+    kernels.reset_launches()
+    enc = video.encode_video(codec, frames, CodingConfig(
+        coding_config="RA", gop_size=4, intra_period=4), wave_batch=2)
+    dec = video.decode_video(codec, enc.bitstream)
+    for i in range(5):
+        for c in ("y", "u", "v"):
+            assert np.array_equal(dec[i][c], enc.decoded_frames[i][c])
+    assert kernels.LAUNCHES["rans_encode"] > 0
+    assert kernels.LAUNCHES["rans_decode"] > 0
