@@ -84,8 +84,12 @@ def _avg_pool2(x: torch.Tensor) -> torch.Tensor:
 
 
 def msssim(img1: torch.Tensor, img2: torch.Tensor,
-           val_range: float = 1.0) -> torch.Tensor:
-    """Multi-scale SSIM of NCHW images (means over the whole batch)."""
+           val_range: float = 1.0, batch_mean=None) -> torch.Tensor:
+    """Multi-scale SSIM of NCHW images (means over the whole batch).
+    ``batch_mean``, where the batch is one rank's equal slice of a larger
+    one, maps the stacked per-scale means of the slice to the whole
+    batch's (parallel/mesh.py:mean_over_data), before the floor and the
+    powers, as one computation over the whole batch takes them."""
     weights = torch.tensor(MSSSIM_WEIGHTS, dtype=img1.dtype,
                            device=img1.device)
     mssim, mcs = [], []
@@ -95,10 +99,14 @@ def msssim(img1: torch.Tensor, img2: torch.Tensor,
         mcs.append(cs)
         img1 = _avg_pool2(_reflect_pad_to_even(img1))
         img2 = _avg_pool2(_reflect_pad_to_even(img2))
+    mssim_t, mcs_t = torch.stack(mssim), torch.stack(mcs)
+    if batch_mean is not None:
+        both = batch_mean(torch.cat([mssim_t, mcs_t]))
+        mssim_t, mcs_t = both[:len(mssim)], both[len(mssim):]
     # The floor before the fractional powers keeps their gradients finite
     # (metrics.py:96-104); a tie passes half the gradient, as jnp.maximum.
-    mssim_t = ties.floor_at(torch.stack(mssim), 1e-4)
-    mcs_t = ties.floor_at(torch.stack(mcs), 1e-4)
+    mssim_t = ties.floor_at(mssim_t, 1e-4)
+    mcs_t = ties.floor_at(mcs_t, 1e-4)
     pow1 = mcs_t ** weights
     pow2 = mssim_t ** weights
     return torch.prod(pow1[:-1]) * pow2[-1]
@@ -119,12 +127,14 @@ def yuv_psnr(a, b, max_value: float = 1.0) -> torch.Tensor:
     return psnr(yuv_mse(a, b), max_value)
 
 
-def yuv_msssim(a, b, max_value: float = 1.0) -> torch.Tensor:
-    """Pixel-count-weighted per-plane MS-SSIM."""
+def yuv_msssim(a, b, max_value: float = 1.0, batch_mean=None
+               ) -> torch.Tensor:
+    """Pixel-count-weighted per-plane MS-SSIM (``batch_mean``: msssim's)."""
     total = 0.0
     n = 0
     for k in ("y", "u", "v"):
-        total = total + msssim(a[k], b[k], val_range=max_value) * a[k].numel()
+        total = total + msssim(a[k], b[k], val_range=max_value,
+                               batch_mean=batch_mean) * a[k].numel()
         n += a[k].numel()
     return total / n
 

@@ -20,9 +20,12 @@ and of the reference loop are bit-identical on both sides of one card.
 
 Options, as in JAX: ``debug`` (per-chunk lossless self-check with [AC]
 lines, and the in-band latent md5 trailer, checked at decode),
-``audit`` (per-frame analytic bits under the coder's own CDFs) and
+``audit`` (per-frame analytic bits under the coder's own CDFs),
 ``rate_priority`` (more rANS steps, fewer streams: the per-frame state
-flush stays ~1% of the payload).
+flush stays ~1% of the payload) and ``mesh`` (parallel/mesh.py: each
+rank runs the nets on its slice of a wave, encoder and decoder alike,
+and entropy-codes the whole wave, so every rank holds the same bytes
+and references; 'spatial' > 1 is refused).
 
 Format: v2 fused streams with all-zero y channels elided
 (codec.py:665-990,1221-1300), or under AIVC_VRANS_ELIDE=0 the dense v1
@@ -68,6 +71,12 @@ from aivc_tpu_torch.device import full_float32, resolve_device
 from aivc_tpu_torch.models.fullnet import FullNet
 from aivc_tpu_torch.ops.layers import x444_to_yuv420, yuv420_to_444
 from aivc_tpu_torch.ops.warp import warp_engine
+from aivc_tpu_torch.parallel.mesh import (
+    all_gather_cat,
+    batch_slice,
+    check_mesh,
+    shard_params,
+)
 
 # The compute-schedule switches of the JAX package's FrameCodec
 # (aivc_tpu/pipeline/codec.py:169-218), bit i of the video header's
@@ -151,6 +160,12 @@ def canonical(x: torch.Tensor) -> torch.Tensor:
     return x.clone(memory_format=torch.contiguous_format)
 
 
+def _part(x: torch.Tensor, sl: slice) -> torch.Tensor:
+    """This rank's slice of a wave's tensor, in a fresh buffer as the
+    encoder's own slice was (``x`` itself where the slice is all)."""
+    return x if sl == slice(None) else canonical(x[sl])
+
+
 def _pad_edge(x: torch.Tensor, mult: int) -> torch.Tensor:
     """Edge-pad H, W of [B, C, H, W] up to a multiple of ``mult``."""
     ph = (-x.shape[2]) % mult
@@ -213,7 +228,8 @@ class FrameCodec:
     def __init__(self, cfg: ModelConfig, model: FullNet, height: int,
                  width: int, device=None, debug: bool = False,
                  entropy_backend: str = "device",
-                 rate_priority: bool = False, audit: bool = False):
+                 rate_priority: bool = False, audit: bool = False,
+                 mesh=None):
         if entropy_backend not in ("device", "host"):
             raise ValueError(f"unknown entropy backend {entropy_backend!r}")
         # The backend used to ENCODE; decoding follows the stream's header.
@@ -235,6 +251,14 @@ class FrameCodec:
         self.model = FullNet(cfg)
         self.model.load_state_dict(model.state_dict())
         self.model = self.model.to(self.device).eval()
+        # Optional ('data', 'spatial') mesh (parallel/mesh.py): the nets of
+        # a wave run on this rank's slice of it where 'data' divides the
+        # wave; entropy coding runs on the whole wave on every rank.  The
+        # parameters are replicated from the first rank.
+        self.mesh = mesh
+        if mesh is not None:
+            check_mesh(mesh, "FrameCodec")
+            shard_params(self.model, mesh)
 
         self.h, self.w = height, width
         self.hp = math.ceil(height / PAD_MULTIPLE) * PAD_MULTIPLE
@@ -314,7 +338,14 @@ class FrameCodec:
         scan stays <= 2048 steps.  Rate priority floors the scan at 65536
         steps instead and sizes K for ~1% flush overhead (K doubles while
         K * 2 * bytes_per_stream <= payload; the flush is 4 bytes a
-        stream, so its share is at most 2 / bytes_per_stream)."""
+        stream, so its share is at most 2 / bytes_per_stream).
+        AIVC_VRANS_K, read on each call, overrides the policy (JAX's
+        override for tests and tuning, unchecked as there): it pins K, and
+        with it the bytes, where the policy's history differs, as in a
+        GOP round-robin encode (parallel/multihost.py)."""
+        env_k = os.environ.get("AIVC_VRANS_K")
+        if env_k:
+            return int(env_k)
         max_steps = 65536 if self.rate_priority else 2048
         bytes_per_stream = 200 if self.rate_priority else 40
         k_lo = 8
@@ -491,11 +522,17 @@ class FrameCodec:
         mu, sigma = getattr(self.model, f"{which}_hyper")(z_q)
         return mu, sigma_to_bin(sigma)
 
-    def _encode_transforms(self, frames_u8, prev_refs, next_refs,
-                           frame_type: int, idx_rate: float) -> Dict:
-        """The device half of a wave's encode: the nets, the quantized
-        latents (NCHW float, integer values), their sigma bins and the
-        DC-corrected reconstruction."""
+    # The tensors a wave's nets hand to entropy coding and to the
+    # reconstruction, gathered in this order under a mesh.
+    WAVE_KEYS = ("z_m", "q_m", "bins_m", "alpha_mean", "beta_mean", "z_c",
+                 "q_c", "bins_c", "dc", "y", "u", "v")
+
+    def _encode_nets(self, frames_u8, prev_refs, next_refs, frame_type: int,
+                     idx_rate: float) -> Dict:
+        """The nets of an encode on a batch of frames: the quantized
+        latents (NCHW float, integer values), their sigma bins, the motion
+        stats and the DC-corrected uint8 planes (``WAVE_KEYS``; None
+        where a frame type or the schedule has none)."""
         m = self.model
         acv = self.ac_max
         orig_dev = self._to_device_planes(frames_u8)
@@ -504,8 +541,7 @@ class FrameCodec:
         prev = self._stack_refs(prev_refs)
         nxt = self._stack_refs(next_refs)
 
-        w = {"k": len(frames_u8), "frame_type": frame_type, "z_m": None,
-             "q_m": None, "bins_m": None, "mof": None}
+        t = dict.fromkeys(self.WAVE_KEYS)
         if frame_type == FRAME_I:
             pred = torch.zeros_like(frame)
             skip = torch.zeros_like(frame)
@@ -519,20 +555,41 @@ class FrameCodec:
             mof = m.motion_comp_stage(prev, nxt, maps, frame_type,
                                       self.warp_engine)
             pred, skip = mof["pred"], mof["skip"]
-            w.update(z_m=z_qm, q_m=q_m, bins_m=bins_m, mof=mof)
+            t.update(z_m=z_qm, q_m=q_m, bins_m=bins_m,
+                     alpha_mean=mof["alpha_mean"], beta_mean=mof["beta_mean"])
 
         y_c, z_qc = m.cod_analyze(frame, pred, idx_rate, frame_type)
         z_qc = canonical(torch.clamp(z_qc, -acv, acv - 1))
         mu_c, bins_c = self._hyper("codecnet", z_qc)
         q_c = canonical(self._quantize_y(y_c, mu_c))
         x_hat = m.codecnet_synth(q_c, mu_c, pred, skip, idx_rate, frame_type)
-        out, dc = self._cast_planes(x_hat), None
+        out = self._cast_planes(x_hat)
         if self.dc_offset:
-            out, dc = self._dc_correct_enc(out, orig)
+            out, t["dc"] = self._dc_correct_enc(out, orig)
+        t.update(z_c=z_qc, q_c=q_c, bins_c=bins_c, **out)
+        return t
+
+    def _encode_transforms(self, frames_u8, prev_refs, next_refs,
+                           frame_type: int, idx_rate: float) -> Dict:
+        """The device half of a wave's encode: ``_encode_nets`` on the
+        whole wave, or under a mesh on this rank's slice of it with the
+        slices gathered from every rank; then the references from the
+        planes of the whole wave."""
+        k = len(frames_u8)
+        sl = batch_slice(self.mesh, k)
+        t = self._encode_nets(frames_u8[sl], prev_refs[sl], next_refs[sl],
+                              frame_type, idx_rate)
+        if sl != slice(None):
+            t = dict(zip(self.WAVE_KEYS, all_gather_cat(
+                self.mesh, [t[key] for key in self.WAVE_KEYS])))
+        out = {c: t[c] for c in ("y", "u", "v")}
         ref444 = planes_to_444(out["y"], out["u"], out["v"])
-        w.update(z_c=z_qc, q_c=q_c, bins_c=bins_c, dc=dc,
-                 decoded=self._split_decoded(out, ref444, len(frames_u8)))
-        return w
+        mof = (None if t["alpha_mean"] is None else
+               {"alpha_mean": t["alpha_mean"], "beta_mean": t["beta_mean"]})
+        return {"k": k, "frame_type": frame_type, "z_m": t["z_m"],
+                "q_m": t["q_m"], "bins_m": t["bins_m"], "mof": mof,
+                "z_c": t["z_c"], "q_c": t["q_c"], "bins_c": t["bins_c"],
+                "dc": t["dc"], "decoded": self._split_decoded(out, ref444, k)}
 
     @torch.no_grad()
     def encode_frames_batch(self, frames_u8, prev_refs, next_refs,
@@ -897,16 +954,19 @@ class FrameCodec:
         video header's flag) and defaults to this codec's own."""
         chunks = [bs.unpack_frame(fb) for fb in frame_bytes_list]
         digests = [c.get("__digests__") for c in chunks]
-        prev = self._stack_refs(prev_refs)
-        nxt = self._stack_refs(next_refs)
+        # Under a mesh the entropy decode runs on the whole wave on every
+        # rank and the nets on this rank's slice, the encoder's split.
+        sl = batch_slice(self.mesh, len(chunks))
+        prev = self._stack_refs(prev_refs[sl])
+        nxt = self._stack_refs(next_refs[sl])
         if (backend or self.backend) == "device":
             q_c, mu_c, pred, skip = self._decode_latents_device(
-                chunks, digests, prev, nxt, frame_type, idx_rate)
+                chunks, digests, prev, nxt, frame_type, idx_rate, sl)
         else:
             q_c, mu_c, pred, skip = self._decode_latents_host(
-                chunks, digests, prev, nxt, frame_type, idx_rate)
-        x_hat = self.model.codecnet_synth(q_c, mu_c, pred, skip, idx_rate,
-                                          frame_type)
+                chunks, digests, prev, nxt, frame_type, idx_rate, sl)
+        x_hat = self.model.codecnet_synth(_part(q_c, sl), mu_c, pred, skip,
+                                          idx_rate, frame_type)
         out = self._cast_planes(x_hat)
         if self.dc_offset:
             dcs = []
@@ -916,10 +976,23 @@ class FrameCodec:
                         "dc_offset enabled but a frame carries no DC trailer "
                         "(stream from an AIVC_DC_OFFSET=0 encoder?)")
                 dcs.append(c["__dc__"])
-            out = self._apply_dc(out, torch.tensor(dcs, dtype=torch.int32,
+            out = self._apply_dc(out, torch.tensor(dcs[sl], dtype=torch.int32,
                                                    device=self.device))
+        if sl != slice(None):
+            out = dict(zip(("y", "u", "v"), all_gather_cat(
+                self.mesh, [out[c] for c in ("y", "u", "v")])))
         ref444 = planes_to_444(out["y"], out["u"], out["v"])
         return self._split_decoded(out, ref444, len(chunks))
+
+    def _hyper_wave(self, which: str, z_q, sl: slice):
+        """The hyper stage of a decode on this rank's slice of the wave's
+        z (all of it without a mesh), as the encoder ran it -> (mu of the
+        slice, the sigma bins of the whole wave, which the entropy decode
+        of y needs on every rank)."""
+        mu, bins = self._hyper(which, _part(z_q, sl))
+        if sl != slice(None):
+            bins = all_gather_cat(self.mesh, [bins])[0]
+        return mu, bins
 
     def _motion(self, q_m, mu_m, prev, nxt, frame_type: int,
                 idx_rate: float):
@@ -935,9 +1008,10 @@ class FrameCodec:
         return pred, torch.zeros_like(pred)
 
     def _decode_latents_device(self, chunks, digests, prev, nxt,
-                               frame_type: int, idx_rate: float):
+                               frame_type: int, idx_rate: float, sl: slice):
         """Staged rANS decode of the fused stream (K2) interleaved with
-        the hyper and synthesis stages -> (q_c, mu_c, pred, skip)."""
+        the hyper and synthesis stages -> (q_c of the whole wave; mu_c,
+        pred, skip of this rank's slice ``sl``)."""
         k = len(chunks)
         parsed = [vrans.parse_chunk_v2(c["codecnet_z"]) for c in chunks]
         kk = parsed[0][2]
@@ -974,11 +1048,11 @@ class FrameCodec:
         g = torch.zeros(k, dtype=torch.int32, device=self.device)
 
         if frame_type == FRAME_I:
-            pred, skip = self._zero_pred(k)
+            pred, skip = self._zero_pred(len(range(k)[sl]))
         else:
             z_qm, st, g = self._dec_z(words, st, g, next(seg_it), kk,
                                       self.cfg.mofnet.nb_ft_z, "z_m")
-            mu_m, bins_m = self._hyper("mofnet", z_qm)
+            mu_m, bins_m = self._hyper_wave("mofnet", z_qm, sl)
             if not v2:
                 q_m, st, g = self._dec_y(words, st, g, bins_m, next(seg_it),
                                          kk, cm)
@@ -990,12 +1064,12 @@ class FrameCodec:
                 q_m = torch.zeros((k, cm, self.hy, self.wy),
                                   dtype=torch.float32, device=self.device)
             self._verify_latents(digests, "mofnet", z_qm, q_m)
-            pred, skip = self._motion(q_m, mu_m, prev, nxt, frame_type,
-                                      idx_rate)
+            pred, skip = self._motion(_part(q_m, sl), mu_m, prev, nxt,
+                                      frame_type, idx_rate)
 
         z_qc, st, g = self._dec_z(words, st, g, next(seg_it), kk,
                                   self.cfg.codecnet.nb_ft_z, "z_c")
-        mu_c, bins_c = self._hyper("codecnet", z_qc)
+        mu_c, bins_c = self._hyper_wave("codecnet", z_qc, sl)
         if not v2:
             q_c, st, g = self._dec_y(words, st, g, bins_c, next(seg_it), kk,
                                      cc)
@@ -1009,10 +1083,11 @@ class FrameCodec:
         return q_c, mu_c, pred, skip
 
     def _decode_latents_host(self, chunks, digests, prev, nxt,
-                             frame_type: int, idx_rate: float):
+                             frame_type: int, idx_rate: float, sl: slice):
         """Host-backend chunks: each net's z decoded on the host, its
         hyper stage on the device, the sigma bins back to the host for
-        the y decode -> (q_c, mu_c, pred, skip)."""
+        the y decode -> (q_c of the whole wave; mu_c, pred, skip of this
+        rank's slice ``sl``)."""
         k = len(chunks)
 
         def latents(fam: str):
@@ -1021,7 +1096,7 @@ class FrameCodec:
                 c[f"{fam}_z"], (self.hz, self.wz, ncfg.nb_ft_z),
                 self.z_rows[fam]), chunks))
             z_q = self._from_nhwc(z_np)
-            mu, bins = self._hyper(fam, z_q)
+            mu, bins = self._hyper_wave(fam, z_q, sl)
             bins_np = _nhwc(bins)
             y_np = np.stack(_par_map(lambda ic: bs.decode_y_chunk(
                 ic[1][f"{fam}_y"], (self.hy, self.wy, ncfg.nb_ft_y),
@@ -1031,11 +1106,11 @@ class FrameCodec:
             return q, mu
 
         if frame_type == FRAME_I:
-            pred, skip = self._zero_pred(k)
+            pred, skip = self._zero_pred(len(range(k)[sl]))
         else:
             q_m, mu_m = latents("mofnet")
-            pred, skip = self._motion(q_m, mu_m, prev, nxt, frame_type,
-                                      idx_rate)
+            pred, skip = self._motion(_part(q_m, sl), mu_m, prev, nxt,
+                                      frame_type, idx_rate)
         q_c, mu_c = latents("codecnet")
         return q_c, mu_c, pred, skip
 

@@ -46,6 +46,7 @@ take their plain versions).  On the card:
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import math
@@ -59,6 +60,7 @@ from typing import Callable, Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from aivc_tpu_torch import kernels, profile_kernels
@@ -69,6 +71,7 @@ from aivc_tpu_torch.gop import generate_gop_struct
 from aivc_tpu_torch.io.yuv import YuvReader, YuvWriter, parse_geometry
 from aivc_tpu_torch.ops import gdn as gdn_ops
 from aivc_tpu_torch.ops import warp as warp_ops
+from aivc_tpu_torch.parallel.launch import run_ranks
 from aivc_tpu_torch.pipeline import video as video_mod
 from aivc_tpu_torch.pipeline.codec import FrameCodec
 from aivc_tpu_torch.pipeline.video import (
@@ -1203,15 +1206,17 @@ def plain_float_warp():
         warp_ops._USE_PALLAS = saved
 
 
-def _train_small_step(model, cfg, gop, frames, dev, accum, idx_rate, lr):
-    """One make_train_step step: its logs with the seconds and largest
-    parameter change, and each parameter's gradient on the host."""
+def _train_small_step(model, cfg, gop, frames, dev, accum, idx_rate, lr,
+                      mesh=None):
+    """One make_train_step step (over ``mesh`` where given): its logs
+    with the seconds and largest parameter change, and each parameter's
+    gradient on the host."""
     from aivc_tpu_torch.train.trainer import make_optimizer, make_train_step
 
     params = [p for _, p in model.named_parameters()]
     before = [p.detach().clone() for p in params]
     step = make_train_step(model, cfg, gop, make_optimizer(params, lr),
-                           dist_loss="ms_ssim", accum=accum)
+                           dist_loss="ms_ssim", accum=accum, mesh=mesh)
     sync(dev)
     t0 = time.time()
     logs = step(frames.to(dev), idx_rate, HostNoise(5))
@@ -1226,6 +1231,26 @@ def _train_small_step(model, cfg, gop, frames, dev, accum, idx_rate, lr):
                   for n, p in model.named_parameters()}
 
 
+def train_small_inputs(size: int = 128, batch: int = 2, accum: int = 2,
+                       gop_name: str = "1_GOP_2") -> torch.Tensor:
+    """train-small's frames (train/data.py:make_batch, no photos), [n, B,
+    3, H, W] on the host."""
+    from aivc_tpu_torch.train.data import make_batch
+
+    n = len(generate_gop_struct(gop_name))
+    return torch.from_numpy(make_batch(
+        np.random.default_rng(0), n, batch * accum, size)).permute(
+            0, 1, 4, 2, 3).contiguous()
+
+
+def f32_config(cfg):
+    """``cfg`` with both nets in float32 (train-small's second step)."""
+    import dataclasses as dc
+
+    return dc.replace(cfg, mofnet=dc.replace(cfg.mofnet, dtype="float32"),
+                      codecnet=dc.replace(cfg.codecnet, dtype="float32"))
+
+
 def train_small(ckpt: str, device: torch.device, size: int = 128,
                 batch: int = 2, accum: int = 2, gop_name: str = "1_GOP_2",
                 idx_rate: int = 3, lr: float = 4e-6) -> Dict:
@@ -1237,19 +1262,13 @@ def train_small(ckpt: str, device: torch.device, size: int = 128,
     vector from the host's, with the worst leaf's; and of the float32
     step the worst leaf's.  Raises past TRAIN_SMALL_TOL and the gradient
     limits, and past TRAIN_SMALL_F32_* in float32."""
-    import dataclasses as dc
-
     from aivc_tpu_torch.config import ModelConfig
-    from aivc_tpu_torch.train.data import make_batch
     from aivc_tpu_torch.utils.checkpoint import model_from_params, read_params
 
     gop = generate_gop_struct(gop_name)
-    frames = torch.from_numpy(make_batch(
-        np.random.default_rng(0), len(gop), batch * accum, size)).permute(
-            0, 1, 4, 2, 3).contiguous()
+    frames = train_small_inputs(size, batch, accum, gop_name)
     cfg = ModelConfig.from_json((Path(ckpt) / "config.json").read_text())
-    cfg32 = dc.replace(cfg, mofnet=dc.replace(cfg.mofnet, dtype="float32"),
-                       codecnet=dc.replace(cfg.codecnet, dtype="float32"))
+    cfg32 = f32_config(cfg)
     raw = read_params(ckpt)
     res = {}
     with plain_float_warp():
@@ -1590,4 +1609,298 @@ def formats_runs(ckpt: str, frames, device: torch.device,
     else:
         raise AssertionError("a codec with schedule 0x0D decoded a 0x1F "
                              "stream")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# multidevice: ranks over torch.distributed (parallel/)
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's ranks share one card, and NCCL refuses two ranks on one
+# GPU: the phase runs on gloo, whose collectives go through host copies.
+MULTI_BACKEND = "gloo"
+MULTI_WORLD = 2
+# The K of the round-robin's pinned encodes: the policy's own choice for
+# most 1080p waves (PERF.md §6), so the pin moves the bytes least.
+MULTI_PIN_K = 1024
+# The most the phase's ranks may take, all three parts.
+MULTI_TIMEOUT_S = 600.0
+# The train step's two layouts over 'data' = 2, as (batch, accum) of
+# train_small_inputs: a whole microbatch a rank (accum 2), and one
+# microbatch of 2 split a sample a rank (accum 1).
+MULTI_TRAIN_CASES = {"microbatch_per_rank": (2, 2),
+                     "split_microbatch": (2, 1)}
+
+
+def recon_md5(decoded, indices) -> Dict[int, str]:
+    """md5 of each frame's y, u and v planes, by frame index."""
+    return {i: hashlib.md5(b"".join(np.ascontiguousarray(decoded[i][c])
+                                    .tobytes() for c in ("y", "u", "v"))
+                           ).hexdigest() for i in indices}
+
+
+def stream_ks(bitstream: bytes) -> List[int]:
+    """The K of each frame's fused chunk of a device-backend stream, in
+    stream order."""
+    if bs.unpack_video(bitstream)[0].backend != bs.BACKEND_DEVICE:
+        raise ValueError("a host-backend stream has no fused chunks")
+    return [vrans.parse_chunk_v2(c["codecnet_z"])[2]
+            for c in frame_chunks(bitstream)]
+
+
+def _barrier_sync(device: torch.device) -> None:
+    sync(device)
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def rank_round_robin(device, ckpt: str, frames, gop: int, wave_batch: int,
+                     pin_k: int = 0) -> Dict:
+    """On a rank: the GOP round-robin encode (encode_video_multihost) of
+    the RA clip with a fresh codec, under AIVC_VRANS_K=pin_k where pin_k
+    is set; the muxed stream, the md5 of this rank's reconstructions and
+    the seconds from a barrier to the stream on this rank."""
+    from aivc_tpu_torch.parallel.multihost import encode_video_multihost
+
+    cfg, model = load_checkpoint(ckpt, device=device)
+    h, w = frames[0]["y"].shape
+    codec = FrameCodec(cfg, model, h, w, device=device)
+    decoded = {}
+    _barrier_sync(device)
+    t0 = time.time()
+    with switched(**({"AIVC_VRANS_K": str(pin_k)} if pin_k else {})):
+        stream = encode_video_multihost(codec, frames, ra_coding(gop),
+                                        wave_batch=wave_batch,
+                                        decoded=decoded)
+    sync(device)
+    return {"bitstream": stream, "seconds": time.time() - t0,
+            "md5": recon_md5(decoded, sorted(decoded))}
+
+
+def rank_mesh_codec(device, ckpt: str, frames, gop: int,
+                    wave_batch: int) -> Dict:
+    """On a rank: the clip encoded and decoded by a FrameCodec over the
+    'data' mesh of every rank; the decode must equal the encoder's
+    reconstructions bit for bit.  The stream, the md5 of the
+    reconstructions, PSNR, seconds and the collectives' seconds."""
+    from aivc_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    cfg, model = load_checkpoint(ckpt, device=device)
+    h, w = frames[0]["y"].shape
+    codec = FrameCodec(cfg, model, h, w, device=device, mesh=mesh)
+    comm0 = mesh.comm_seconds
+    _barrier_sync(device)
+    t0 = time.time()
+    enc = encode_video(codec, frames, ra_coding(gop), wave_batch=wave_batch)
+    sync(device)
+    t1 = time.time()
+    dec = decode_video(codec, enc.bitstream)
+    md5 = recon_md5(dec, range(len(frames)))
+    sync(device)
+    t2 = time.time()
+    if md5 != recon_md5(enc.decoded_frames, range(len(frames))):
+        raise AssertionError("the mesh codec's decode differs from its "
+                             "encoder's reconstructions")
+    q = evaluate_frames(frames, dec, device=device)
+    return {"bitstream": enc.bitstream, "md5": md5, "psnr": q["psnr"],
+            "encode_s": t1 - t0, "decode_s": t2 - t1,
+            "comm_s": mesh.comm_seconds - comm0}
+
+
+def train_step_on(ckpt: str, device: torch.device, frames: torch.Tensor,
+                  accum: int, gop_name: str = "1_GOP_2", idx_rate: int = 3,
+                  lr: float = 4e-6, mesh=None) -> Dict:
+    """One train-small step of ``ckpt`` with both nets in float32 (over
+    ``mesh`` where given): logs, gradients on the host and the sha256 of
+    the updated parameters' bytes."""
+    from aivc_tpu_torch.config import ModelConfig
+    from aivc_tpu_torch.utils.checkpoint import model_from_params, read_params
+
+    cfg = f32_config(ModelConfig.from_json(
+        (Path(ckpt) / "config.json").read_text()))
+    model = model_from_params(cfg, read_params(ckpt), device)
+    with plain_float_warp():
+        logs, grads = _train_small_step(
+            model, cfg, generate_gop_struct(gop_name), frames, device,
+            accum, idx_rate, lr, mesh=mesh)
+    digest = hashlib.sha256()
+    for p in model.parameters():
+        digest.update(p.detach().cpu().numpy().tobytes())
+    return {"logs": logs, "grads": grads, "params_sha256": digest.hexdigest()}
+
+
+def rank_train_step(device, ckpt: str, frames: torch.Tensor, accum: int,
+                    **kw) -> Dict:
+    """On a rank: train_step_on over the 'data' mesh of every rank."""
+    from aivc_tpu_torch.parallel.mesh import make_mesh
+
+    return train_step_on(ckpt, device, frames, accum, mesh=make_mesh(), **kw)
+
+
+def rank_multidevice(device, ckpt: str, rr: Dict, mesh: Dict,
+                     train: Dict[str, Dict]) -> Dict:
+    """chip_smoke.py's multidevice phase on one rank: the round-robin
+    encode pinned (which warms the shapes) then free, the mesh codec, the
+    data-parallel train step of each case of ``train``; K1-K3's launches
+    over the two coding parts."""
+    kernels.reset_launches()
+    out = {"rr_pinned": rank_round_robin(device, ckpt, **rr,
+                                         pin_k=MULTI_PIN_K),
+           "rr_free": rank_round_robin(device, ckpt, **rr)}
+    out["mesh"] = rank_mesh_codec(device, ckpt, **mesh)
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["train"] = {name: rank_train_step(device, ckpt, **kw)
+                    for name, kw in train.items()}
+    return out
+
+
+def _same(results: List[Dict], key: str, what: str):
+    first = results[0][key]
+    if any(r[key] != first for r in results[1:]):
+        raise AssertionError(f"{what}: the ranks disagree on {key}")
+    return first
+
+
+def _decode_check(codec: FrameCodec, stream: bytes, md5: Dict[int, str],
+                  what: str) -> None:
+    dec = decode_video(codec, stream)
+    if recon_md5(dec, sorted(md5)) != md5:
+        raise AssertionError(f"{what}: the decode differs from the ranks' "
+                             f"encoder reconstructions")
+
+
+def multidevice_runs(ckpt: str, device: torch.device, workdir,
+                     rr_frames, mesh_frames, mesh_stream: bytes,
+                     rr_gop: int = 4, rr_wave: int = 4, mesh_gop: int = 8,
+                     mesh_wave: int = 8, train_size: int = 128,
+                     train_idx_rate: int = 3) -> Dict:
+    """chip_smoke.py's multidevice phase: MULTI_WORLD ranks on
+    MULTI_BACKEND (parallel/launch.py) against one process here.
+
+    (a) GOP round-robin of ``rr_frames`` (RA ``rr_gop``): both ranks
+        return the same stream; pinned (AIVC_VRANS_K=MULTI_PIN_K) it
+        equals this process's pinned encode byte for byte; free, its
+        difference from this process's free encode (bytes, K per frame)
+        is returned; both decode here bit-exactly against the ranks'
+        reconstructions.  Encode seconds warm: one process against the
+        ranks' free encode.
+    (b) the mesh codec on ``mesh_frames``: both ranks return the same
+        stream, which their own decode reproduced bit for bit; its bytes
+        and PSNR against ``mesh_stream`` (one process's stream of the
+        clip), and whether this process decodes it bit-exactly.
+    (c) train-small in float32 over the ranks against one process, in
+        each layout of MULTI_TRAIN_CASES (whole microbatches a rank; one
+        microbatch split over the ranks): TRAIN_SMALL_F32_TOL on the
+        logs, each gradient leaf within TRAIN_SMALL_F32_LEAF_MAX_REL_L2,
+        and the updated parameters equal on the ranks.
+    Raises on any failed check; the ranks' K1-K3 launches are returned
+    and, on the card, each must be nonzero."""
+    cfg, model = load_checkpoint(ckpt, device=device)
+    h, w = rr_frames[0]["y"].shape
+    coding = ra_coding(rr_gop)
+    one = {}
+    for name, pin in (("pinned", MULTI_PIN_K), ("free", 0)):
+        codec = FrameCodec(cfg, model, h, w, device=device)
+        sync(device)
+        t0 = time.time()
+        with switched(**({"AIVC_VRANS_K": str(pin)} if pin else {})):
+            enc = encode_video(codec, rr_frames, coding, wave_batch=rr_wave)
+        sync(device)
+        one[name] = {"bitstream": enc.bitstream, "seconds": time.time() - t0}
+    train_kw, train_one = {}, {}
+    t0 = time.time()
+    for name, (batch, accum) in MULTI_TRAIN_CASES.items():
+        train_kw[name] = {"frames": train_small_inputs(train_size, batch,
+                                                       accum),
+                          "accum": accum, "idx_rate": train_idx_rate}
+        train_one[name] = train_step_on(ckpt, device, **train_kw[name])
+    train_one_s = time.time() - t0
+
+    t0 = time.time()
+    ranks = run_ranks(
+        "aivc_tpu_torch.smoke:rank_multidevice", MULTI_WORLD, MULTI_BACKEND,
+        workdir, timeout_s=MULTI_TIMEOUT_S,
+        device=None if device.type == "cuda" else "cpu",
+        kwargs={"ckpt": ckpt,
+                "rr": {"frames": rr_frames, "gop": rr_gop,
+                       "wave_batch": rr_wave},
+                "mesh": {"frames": mesh_frames, "gop": mesh_gop,
+                         "wave_batch": mesh_wave},
+                "train": train_kw})
+    ranks_s = time.time() - t0
+    out = {"ranks_s": ranks_s, "one": one, "train_one_s": train_one_s,
+           "launches": [r["launches"] for r in ranks]}
+
+    # (a)
+    codec = FrameCodec(cfg, model, h, w, device=device)
+    rr = {}
+    for name in ("pinned", "free"):
+        res = [r[f"rr_{name}"] for r in ranks]
+        stream = _same(res, "bitstream", f"round-robin ({name})")
+        md5 = {}
+        for r in res:
+            md5.update(r["md5"])
+        if sorted(md5) != list(range(len(rr_frames))):
+            raise AssertionError(f"round-robin ({name}): reconstructions of "
+                                 f"frames {sorted(md5)}")
+        _decode_check(codec, stream, md5, f"round-robin ({name})")
+        ref = one[name]["bitstream"]
+        rr[name] = {"bytes": len(stream), "one_bytes": len(ref),
+                    "equal": stream == ref, "ks": stream_ks(stream),
+                    "one_ks": stream_ks(ref),
+                    "seconds": max(r["seconds"] for r in res),
+                    "one_seconds": one[name]["seconds"]}
+    if not rr["pinned"]["equal"]:
+        raise AssertionError(
+            f"round-robin with AIVC_VRANS_K={MULTI_PIN_K}: "
+            f"{rr['pinned']['bytes']} B against one process's "
+            f"{rr['pinned']['one_bytes']} B")
+    out["rr"] = rr
+
+    # (b)
+    res = [r["mesh"] for r in ranks]
+    stream = _same(res, "bitstream", "mesh codec")
+    md5 = _same(res, "md5", "mesh codec")
+    mh, mw = mesh_frames[0]["y"].shape
+    single = FrameCodec(cfg, model, mh, mw, device=device)
+    dec = decode_video(single, stream)
+    q_one = evaluate_frames(mesh_frames, decode_video(single, mesh_stream),
+                            device=device)
+    out["mesh"] = {
+        "bytes": len(stream), "one_bytes": len(mesh_stream),
+        "equal": stream == mesh_stream, "psnr": res[0]["psnr"],
+        "one_psnr": q_one["psnr"],
+        "one_decode_differs": sum(
+            v != md5[i] for i, v in recon_md5(dec, sorted(md5)).items()),
+        "encode_s": [r["encode_s"] for r in res],
+        "decode_s": [r["decode_s"] for r in res],
+        "comm_s": [r["comm_s"] for r in res]}
+
+    # (c)
+    out["train"] = {}
+    for name in MULTI_TRAIN_CASES:
+        what = f"multidevice train step ({name})"
+        res = [r["train"][name] for r in ranks]
+        if len({r["params_sha256"] for r in res}) != 1:
+            raise AssertionError(f"{what}: the ranks' parameters differ "
+                                 f"after the update")
+        one = train_one[name]
+        diffs = compare_logs(res[0]["logs"], one["logs"],
+                             TRAIN_SMALL_F32_TOL, what)
+        rows = leaf_distances(res[0]["grads"], one["grads"])
+        worst = max(rows, key=lambda r: r[1])
+        if not worst[1] <= TRAIN_SMALL_F32_LEAF_MAX_REL_L2:
+            raise AssertionError(f"{what}: gradient leaf {worst[0]} "
+                                 f"relative L2 {worst[1]} (limit "
+                                 f"{TRAIN_SMALL_F32_LEAF_MAX_REL_L2})")
+        out["train"][name] = {"diffs": diffs, "worst_leaf_rel_l2": worst,
+                              "n_leaves": len(rows),
+                              "ranks": res[0]["logs"], "one": one["logs"]}
+    if device.type == "cuda":
+        for i, la in enumerate(out["launches"]):
+            missing = [k for k in ("rans_encode", "rans_decode",
+                                   "warp_packed") if la[k] == 0]
+            if missing:
+                raise AssertionError(f"rank {i} never launched {missing}")
     return out

@@ -31,14 +31,23 @@ def _to_yuv(x444: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {"y": y, "u": u, "v": v}
 
 
+def psnr_of_mse(mse: torch.Tensor) -> torch.Tensor:
+    """The psnr log of a GOP's mean mse (aivc_tpu/train/loss.py:182)."""
+    return 10.0 * torch.log10(1.0 / ties.floor_at(mse, 1e-12))
+
+
 def gop_rd_loss(model, frames444: List[torch.Tensor], gop: GopStruct,
                 idx_rate: float, l_codec: float, l_mof: float,
                 dist_loss: str = "mse", weight_i_frame_loss: float = 1.0,
                 nb_pad_frame: int = 0, training: bool = False,
                 flow_penalty: float = 0.0, alpha_penalty: float = 0.0,
-                noise=None):
+                noise=None, batch_mean=None):
     """frames444: [B, 3, H, W] padded frames in display order.
-    ``training`` needs the noise source ``noise``.
+    ``training`` needs the noise source ``noise``.  ``batch_mean`` (one
+    rank's slice of a batch split over a mesh) makes MS-SSIM's means
+    those of the whole batch (ops/metrics.py:msssim); every other term
+    is a batch mean already, so the slices' values average to the whole
+    batch's.
 
     Returns (loss, logs) with JAX's log keys: rate_bpp, mode_rate_bpp,
     codec_rate_bpp, mse, dist, dist_pure, psnr, flow_mag, flow_max and
@@ -107,7 +116,8 @@ def gop_rd_loss(model, frames444: List[torch.Tensor], gop: GopStruct,
             if dist_loss == "ms_ssim":
                 # The MSE anchor prices DC offsets MS-SSIM is blind to;
                 # dist_pure is the un-anchored objective (loss.py:134-156).
-                dist_pure = 1.0 - yuv_msssim(yuv_hat, yuv_ref)
+                dist_pure = 1.0 - yuv_msssim(yuv_hat, yuv_ref,
+                                             batch_mean=batch_mean)
                 dist = dist_pure + 0.25 * mse
             else:
                 dist = dist_pure = mse
@@ -128,8 +138,7 @@ def gop_rd_loss(model, frames444: List[torch.Tensor], gop: GopStruct,
     if n_dist > 0:
         for k in ("mse", "dist", "dist_pure"):
             logs[k] = logs[k] * n / n_dist
-    logs["psnr"] = 10.0 * torch.log10(1.0 / ties.floor_at(logs["mse"],
-                                                          1e-12))
+    logs["psnr"] = psnr_of_mse(logs["mse"])
     logs["flow_mag"] = flow_sum / max(n_inter, 1)
     logs["flow_max"] = flow_max
     logs["alpha_mean"] = alpha_sum / max(n_inter, 1)

@@ -23,7 +23,14 @@ import numpy as np
 import torch
 
 from aivc_tpu_torch.device import float32_precision
-from aivc_tpu_torch.train.loss import gop_rd_loss
+from aivc_tpu_torch.parallel.mesh import (
+    all_reduce,
+    batch_slice,
+    check_mesh,
+    mean_over_data,
+    shard_params,
+)
+from aivc_tpu_torch.train.loss import gop_rd_loss, psnr_of_mse
 
 F32 = np.float32
 
@@ -159,10 +166,35 @@ def micro_ok(loss: torch.Tensor, logs: Dict[str, torch.Tensor],
             & (logs["psnr"] > -20.0) & (gn < 1e5))
 
 
+class _DrawShapes:
+    """A noise source that hands out zeros and keeps the shapes asked."""
+
+    def __init__(self):
+        self.shapes: List[tuple] = []
+
+    def uniform(self, like: torch.Tensor) -> torch.Tensor:
+        self.shapes.append(tuple(like.shape))
+        return torch.zeros(like.shape, dtype=torch.float32,
+                           device=like.device)
+
+
+class _RowsOf:
+    """The rows ``sl`` of what ``noise`` draws for the whole batch, of
+    which the asking latent is the slice ``sl`` of ``d`` equal ones."""
+
+    def __init__(self, noise, sl: slice, d: int):
+        self.noise, self.sl, self.d = noise, sl, d
+
+    def uniform(self, like: torch.Tensor) -> torch.Tensor:
+        full = torch.empty((like.shape[0] * self.d,) + tuple(like.shape[1:]),
+                           device=like.device)
+        return self.noise.uniform(full)[self.sl]
+
+
 def make_train_step(model, cfg, gop, optimizer: Optimizer,
                     dist_loss: Optional[str] = None,
                     flow_penalty: float = 0.0, alpha_penalty: float = 0.0,
-                    accum: int = 1):
+                    accum: int = 1, mesh=None):
     """-> ``train_step(frames, idx_rate, noise) -> logs`` over one GOP
     structure (trainer.py:53-220).
 
@@ -179,24 +211,143 @@ def make_train_step(model, cfg, gop, optimizer: Optimizer,
     does (device.py:float32_precision).
     After the step each parameter's ``.grad`` holds the gradient of the
     update.  Returns the logs of gop_rd_loss plus ``micro_skipped``,
-    ``loss``, ``grad_norm`` and ``step_skipped`` as Python floats."""
+    ``loss``, ``grad_norm`` and ``step_skipped`` as Python floats.
+
+    With ``mesh`` (parallel/mesh.py; 'data' only) every rank of the mesh
+    calls the step with the same frames and a noise source in the same
+    state, and the step is the one-process step over the ranks (the
+    parameters and Adam's state are broadcast from the first rank here):
+    - where 'data' divides ``accum``, each rank takes a block of whole
+      microbatches, guards each one, and the guarded sums, the valid
+      count and each microbatch's loss and logs are all-reduced;
+    - otherwise each microbatch's batch is split over the ranks: MS-SSIM
+      takes its means over the whole microbatch (mean_over_data), the
+      slices' loss, logs and gradients are averaged (``psnr`` from the
+      averaged mse, ``flow_max`` their maximum), and the microbatch's
+      guard decides on those.
+    Each rank draws every microbatch's noise in order and uses its own
+    (of a split microbatch, its rows), so a microbatch's noise is what
+    one process draws for it.  Every guard decides on reduced values and
+    every rank applies the same update, so the parameters stay identical
+    across ranks; the gradients are sums in another order than one
+    process's."""
     dist = dist_loss or cfg.dist_loss
     lambdas = np.asarray(cfg.lambda_tradeoff, np.float32)
     params = list(optimizer.params)
+    d = 1
+    if mesh is not None:
+        check_mesh(mesh, "make_train_step")
+        d = mesh.data_size
+        shard_params(params + optimizer.mu + optimizer.nu, mesh)
+    whole = d > 1 and accum % d == 0
+    split = d > 1 and not whole
+    draw_shapes_of: Dict[tuple, List[tuple]] = {}
 
-    def value_and_grad(fr, idx_rate, lam, noise):
+    def value_and_grad(fr, idx_rate, lam, noise, batch_mean=None):
         for p in params:
             p.grad = None
         loss, logs = gop_rd_loss(
             model, list(fr), gop, float(idx_rate), lam, lam,
             dist_loss=dist, weight_i_frame_loss=cfg.weight_i_frame_loss,
             training=True, flow_penalty=flow_penalty,
-            alpha_penalty=alpha_penalty, noise=noise)
+            alpha_penalty=alpha_penalty, noise=noise, batch_mean=batch_mean)
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
         return (loss.detach(), {k: v.detach() for k, v in logs.items()},
                 grads)
+
+    def split_value_and_grad(fr, idx_rate, lam, noise):
+        """A (micro)batch split over the ranks: this rank's rows, then
+        the slices' loss, logs and gradients averaged over 'data'."""
+        b = fr.shape[1]
+        if b % d:
+            raise ValueError(f"batch {b} not divisible by data={d}")
+        sl = batch_slice(mesh, b)
+        loss, logs, grads = value_and_grad(
+            fr[:, sl], idx_rate, lam, _RowsOf(noise, sl, d),
+            batch_mean=lambda t: mean_over_data(mesh, t))
+        keys = [k for k in logs if k not in ("psnr", "flow_max")]
+        flat = all_reduce(mesh, torch.cat(
+            [loss.reshape(1)] + [logs[k].reshape(1) for k in keys]
+            + [g.float().reshape(-1) for g in grads]), "sum") / d
+        fmax = all_reduce(mesh, logs["flow_max"].reshape(1), "max")[0]
+        mean = dict(zip(keys, flat[1:1 + len(keys)]))
+        mean["psnr"] = psnr_of_mse(mean["mse"])
+        mean["flow_max"] = fmax
+        out, off = [], 1 + len(keys)
+        for p in params:
+            out.append(flat[off:off + p.numel()].view(p.shape).to(p.dtype))
+            off += p.numel()
+        return flat[0], {k: mean[k] for k in logs}, out
+
+    def draw_shapes(fr, idx_rate, lam) -> List[tuple]:
+        """The shapes of the noise one microbatch ``fr`` draws, in order:
+        a forward of its first sample without gradients, once per
+        shape."""
+        key = tuple(fr.shape)
+        if key not in draw_shapes_of:
+            probe = _DrawShapes()
+            with torch.no_grad():
+                gop_rd_loss(
+                    model, list(fr[:, :1]), gop, float(idx_rate), lam, lam,
+                    dist_loss=dist,
+                    weight_i_frame_loss=cfg.weight_i_frame_loss,
+                    training=True, flow_penalty=flow_penalty,
+                    alpha_penalty=alpha_penalty, noise=probe)
+            draw_shapes_of[key] = [(fr.shape[1],) + s[1:]
+                                   for s in probe.shapes]
+        return draw_shapes_of[key]
+
+    def combine(gsum, losses, oks, logs_st):
+        oks_t = torch.stack(oks)
+        cnt = oks_t.sum()
+        denom = torch.clamp_min(cnt, 1.0)
+        grads = [(a / denom).to(p.dtype) for a, p in zip(gsum, params)]
+        w = oks_t / denom
+        loss = torch.sum(torch.stack(losses) * w)
+        logs = {k: torch.sum(torch.stack([lg[k] for lg in logs_st]) * w)
+                for k in logs_st[0]}
+        logs["flow_max"] = torch.max(torch.where(
+            oks_t > 0.5, torch.stack([lg["flow_max"] for lg in logs_st]),
+            0.0))
+        logs["micro_skipped"] = accum - cnt
+        return loss, logs, grads, bool(cnt < 0.5)
+
+    def whole_microbatches(frames, idx_rate, lam, noise, bm):
+        """'data' divides accum: this rank's block of microbatches, the
+        others' noise drawn and dropped, the sums all-reduced."""
+        per = accum // d
+        mine = range(mesh.data_index * per, (mesh.data_index + 1) * per)
+        gsum = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        rows = {}
+        for m in range(accum):
+            fr = frames[:, m * bm:(m + 1) * bm]
+            if m not in mine:
+                for shape in draw_shapes(fr, idx_rate, lam):
+                    noise.uniform(torch.empty(shape, device=frames.device))
+                continue
+            mloss, mlogs, mgrads = value_and_grad(fr, idx_rate, lam, noise)
+            ok = micro_ok(mloss, mlogs, global_norm(mgrads))
+            for a, g in zip(gsum, mgrads):
+                a.add_(torch.where(ok, g.float(), 0.0))
+            rows[m] = torch.stack(
+                [torch.where(ok, mloss, 0.0), ok.float()]
+                + [torch.where(ok, v, 0.0) for v in mlogs.values()]).float()
+            keys = list(mlogs)
+        table = torch.zeros((accum, 2 + len(keys)), dtype=torch.float32,
+                            device=frames.device)
+        for m, row in rows.items():
+            table[m] = row
+        flat = all_reduce(mesh, torch.cat(
+            [table.reshape(-1)] + [a.reshape(-1) for a in gsum]), "sum")
+        table = flat[:table.numel()].view(table.shape)
+        off = table.numel()
+        for i, a in enumerate(gsum):
+            gsum[i] = flat[off:off + a.numel()].view(a.shape)
+            off += a.numel()
+        return combine(gsum, list(table[:, 0]), list(table[:, 1]),
+                       [dict(zip(keys, r)) for r in table[:, 2:]])
 
     def train_step(frames: torch.Tensor, idx_rate: int, noise):
         with float32_precision(cfg):
@@ -210,34 +361,29 @@ def make_train_step(model, cfg, gop, optimizer: Optimizer,
                 raise ValueError(f"batch {bt} not divisible by accum "
                                  f"{accum}")
             bm = bt // accum
-            gsum = [torch.zeros_like(p, dtype=torch.float32)
-                    for p in params]
-            losses, oks, logs_st = [], [], []
-            for m in range(accum):
-                mloss, mlogs, mgrads = value_and_grad(
-                    frames[:, m * bm:(m + 1) * bm], idx_rate, lam, noise)
-                ok = micro_ok(mloss, mlogs, global_norm(mgrads))
-                for a, g in zip(gsum, mgrads):
-                    a.add_(torch.where(ok, g.float(), 0.0))
-                losses.append(torch.where(ok, mloss, 0.0))
-                logs_st.append({k: torch.where(ok, v, 0.0)
-                                for k, v in mlogs.items()})
-                oks.append(ok.float())
-            oks_t = torch.stack(oks)
-            cnt = oks_t.sum()
-            denom = torch.clamp_min(cnt, 1.0)
-            grads = [(a / denom).to(p.dtype) for a, p in zip(gsum, params)]
-            w = oks_t / denom
-            loss = torch.sum(torch.stack(losses) * w)
-            logs = {k: torch.sum(torch.stack([lg[k] for lg in logs_st]) * w)
-                    for k in logs_st[0]}
-            logs["flow_max"] = torch.max(torch.where(
-                oks_t > 0.5, torch.stack([lg["flow_max"] for lg in logs_st]),
-                0.0))
-            logs["micro_skipped"] = accum - cnt
-            all_bad = bool(cnt < 0.5)
+            if whole:
+                loss, logs, grads, all_bad = whole_microbatches(
+                    frames, idx_rate, lam, noise, bm)
+            else:
+                gsum = [torch.zeros_like(p, dtype=torch.float32)
+                        for p in params]
+                losses, oks, logs_st = [], [], []
+                vg = split_value_and_grad if split else value_and_grad
+                for m in range(accum):
+                    mloss, mlogs, mgrads = vg(
+                        frames[:, m * bm:(m + 1) * bm], idx_rate, lam, noise)
+                    ok = micro_ok(mloss, mlogs, global_norm(mgrads))
+                    for a, g in zip(gsum, mgrads):
+                        a.add_(torch.where(ok, g.float(), 0.0))
+                    losses.append(torch.where(ok, mloss, 0.0))
+                    logs_st.append({k: torch.where(ok, v, 0.0)
+                                    for k, v in mlogs.items()})
+                    oks.append(ok.float())
+                loss, logs, grads, all_bad = combine(gsum, losses, oks,
+                                                     logs_st)
         else:
-            loss, logs, grads = value_and_grad(frames, idx_rate, lam, noise)
+            vg = split_value_and_grad if split else value_and_grad
+            loss, logs, grads = vg(frames, idx_rate, lam, noise)
             logs["micro_skipped"] = torch.zeros((), device=frames.device)
             all_bad = False
         gnorm = global_norm(grads)

@@ -67,6 +67,25 @@ AIVC_DC_OFFSET=0 (schedule byte 0x0d), each decoded bit-exactly, with
 bytes, fps and launches side by side; the v2 stream handed to the 0x0d
 codec must raise the schedule error.
 
+The multidevice phase (``smoke.multidevice_runs``) runs two ranks, one
+process each, on the one card over gloo (NCCL refuses two ranks on one
+GPU; gloo's gathers go through host copies), started by
+aivc_tpu_torch/parallel/launch.py, against this process: (a) the GOP
+round-robin (parallel/multihost.py) of a 17-frame 1080p RA clip (GOP 4,
+wave batch 4) with AIVC_VRANS_K pinned, equal byte for byte to this
+process's pinned encode, and free, whose difference (bytes, the K of
+each frame) is printed, both decoded here bit-exactly against the ranks'
+reconstructions, with the warm encode seconds of one process and of the
+two ranks; (b) the 9-frame clip through FrameCodec(mesh=...) with data 2
+(a B wave of 4 split 2 and 2), its own decode bit-exact, its bytes and
+PSNR against the main phase's stream, whether this process decodes it
+bit-exactly, and the seconds of the host-side gathers; (c) train-small
+in float32 over the two ranks against this process, in both layouts of
+the step over 'data' (accum 2: a whole microbatch a rank; accum 1: the
+microbatch of 2 split a sample a rank), within train-small's float32
+limits, with the parameters after the update equal on both ranks.  Each rank's K1-K3 launches are printed and
+must be nonzero.
+
 Every phase prints its elapsed seconds.  The last lines are the card's
 name and power limit, the kernels' JSON record and the result; any failed
 check raises (nonzero exit).  Exits nonzero, printing no result, when
@@ -87,6 +106,8 @@ H, W = 1080, 1920
 N_FRAMES, GOP, WAVE_BATCH = 9, 8, 8
 FH, FW = 720, 1280
 IDX_RATE = 0.0
+# multidevice: the GOP round-robin's clip, at least four GOPs
+MULTI_RR_FRAMES, MULTI_RR_GOP, MULTI_RR_WAVE = 17, 4, 4
 
 
 def main() -> int:
@@ -375,6 +396,62 @@ def main() -> int:
            f"plain version: {dec1['shapes']}")
     ph.say(f"formats: a v2 stream handed to the 0x0d codec: {fmt['refused']}")
     ph.say(f"formats: {time.time() - t_phase:.1f} s")
+
+    # -- multidevice -------------------------------------------------------
+    t_phase = time.time()
+    ph.say(f"multidevice: {smoke.MULTI_WORLD} ranks, one process each, on "
+           f"the one card over {smoke.MULTI_BACKEND} (NCCL refuses two "
+           f"ranks on one GPU; gloo's collectives take host tensors, so "
+           f"every gather goes through host copies)")
+    rr_frames = synthetic_frames(MULTI_RR_FRAMES, H, W)
+    with tempfile.TemporaryDirectory(dir=root / "tmp") as tmp:
+        md = smoke.multidevice_runs(ckpt, dev, tmp, rr_frames, frames,
+                                    res["bitstream"], rr_gop=MULTI_RR_GOP,
+                                    rr_wave=MULTI_RR_WAVE, mesh_gop=GOP,
+                                    mesh_wave=WAVE_BATCH)
+    for i, la in enumerate(md["launches"]):
+        ph.say(f"multidevice: rank {i} launches (round-robin and mesh "
+               f"codec) {la}")
+    rr = md["rr"]
+    ph.say(f"multidevice round-robin: {MULTI_RR_FRAMES} frames {W}x{H} RA "
+           f"GOP{MULTI_RR_GOP}, wave batch {MULTI_RR_WAVE}: with "
+           f"AIVC_VRANS_K={smoke.MULTI_PIN_K} both ranks' stream = one "
+           f"process's, {rr['pinned']['bytes']} B, decoded here bit-exactly "
+           f"against the ranks' reconstructions")
+    free = rr["free"]
+    ph.say(f"multidevice round-robin: free K: {free['bytes']} B (one "
+           f"process {free['one_bytes']} B, "
+           f"{'equal' if free['equal'] else 'different'}), decoded "
+           f"bit-exactly; K per frame {free['ks']} (one process "
+           f"{free['one_ks']})")
+    ph.say(f"multidevice round-robin: encode warm on {info['smi']}: one "
+           f"process {free['one_seconds']:.3f} s = "
+           f"{MULTI_RR_FRAMES / free['one_seconds']:.3f} fps, "
+           f"{smoke.MULTI_WORLD} ranks {free['seconds']:.3f} s = "
+           f"{MULTI_RR_FRAMES / free['seconds']:.3f} fps")
+    mc = md["mesh"]
+    ph.say(f"multidevice mesh codec (data={smoke.MULTI_WORLD}): "
+           f"{N_FRAMES} frames RA GOP{GOP}, wave batch {WAVE_BATCH}: its own "
+           f"decode bit-exact; {mc['bytes']} B against one process's "
+           f"{mc['one_bytes']} B ({'equal' if mc['equal'] else 'different'}),"
+           f" PSNR {mc['psnr']:.4f} dB against {mc['one_psnr']:.4f} dB; "
+           f"one process's decode of the mesh stream differs from the "
+           f"mesh codec's in {mc['one_decode_differs']} of {N_FRAMES} frames")
+    ph.say(f"multidevice mesh codec: encode {mc['encode_s']} s, decode "
+           f"{mc['decode_s']} s, host-side gathers {mc['comm_s']} s per rank")
+    for name, (batch, accum) in smoke.MULTI_TRAIN_CASES.items():
+        tr = md["train"][name]
+        ph.say(f"multidevice train step {name} (train-small in float32, "
+               f"batch {batch}, accum {accum} over data={smoke.MULTI_WORLD})"
+               f": differences from one process {tr['diffs']}; worst of "
+               f"{tr['n_leaves']} gradient leaves relative L2 "
+               f"{tr['worst_leaf_rel_l2'][1]:.3e} "
+               f"({tr['worst_leaf_rel_l2'][0]}); limits "
+               f"{smoke.TRAIN_SMALL_F32_TOL}, leaf "
+               f"{smoke.TRAIN_SMALL_F32_LEAF_MAX_REL_L2}; parameters after "
+               f"the update bitwise equal across the ranks")
+    ph.say(f"multidevice: ranks {md['ranks_s']:.1f} s wall; phase "
+           f"{time.time() - t_phase:.1f} s")
 
     launches = {k: main_launches[k]
                 for k in ("rans_encode", "rans_decode", "warp_packed")}

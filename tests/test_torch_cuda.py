@@ -959,3 +959,37 @@ def test_stream_formats_closed_loop_on_card(card, switches, monkeypatch):
             assert np.array_equal(dec[i][c], enc.decoded_frames[i][c])
     assert kernels.LAUNCHES["rans_encode"] > 0
     assert kernels.LAUNCHES["rans_decode"] > 0
+
+
+def test_two_ranks_on_one_card(card, tmp_path):
+    """Two ranks (processes) on the one card over gloo
+    (parallel/launch.py): the mesh codec with data = 2 (bf16-r5, 128x192,
+    RA GOP 4, wave batch 2) returns the same stream on both ranks, which
+    each rank decodes bit-exactly (rank_mesh_codec checks); the GOP
+    round-robin with K pinned returns the same stream on both ranks,
+    equal to one process's, which decodes here bit-exactly against the
+    ranks' reconstructions."""
+    from aivc_tpu_torch import smoke
+    from aivc_tpu_torch.parallel.launch import run_ranks
+    from aivc_tpu_torch.pipeline import video
+
+    kernels.lib()   # built once here, not by both ranks at once
+    ckpt = str(ROOT / "models_ckpt" / "bf16-r5")
+    frames = video.synthetic_frames(9, 128, 192)
+    kw = dict(ckpt=ckpt, frames=frames, gop=4, wave_batch=2)
+    mesh = run_ranks("aivc_tpu_torch.smoke:rank_mesh_codec", 2, "gloo",
+                     tmp_path, kwargs=kw, timeout_s=300)
+    assert mesh[0]["bitstream"] == mesh[1]["bitstream"]
+    assert mesh[0]["md5"] == mesh[1]["md5"]
+    rr = run_ranks("aivc_tpu_torch.smoke:rank_round_robin", 2, "gloo",
+                   tmp_path, kwargs=dict(kw, pin_k=64), timeout_s=300)
+    assert rr[0]["bitstream"] == rr[1]["bitstream"]
+    codec = _r5_codec(card, 128, 192)
+    with smoke.switched(AIVC_VRANS_K="64"):
+        one = video.encode_video(codec, frames, smoke.ra_coding(4),
+                                 wave_batch=2)
+    assert rr[0]["bitstream"] == one.bitstream
+    md5 = {**rr[0]["md5"], **rr[1]["md5"]}
+    assert sorted(md5) == list(range(9))
+    dec = video.decode_video(_r5_codec(card, 128, 192), rr[0]["bitstream"])
+    assert smoke.recon_md5(dec, range(9)) == md5
