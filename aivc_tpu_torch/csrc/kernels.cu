@@ -620,6 +620,10 @@ __global__ void __launch_bounds__(1024)
 // 2-D gather.  The arithmetic keeps warp_packed's operation order with
 // explicit round-to-nearest intrinsics (no FMA contraction), so it is
 // bit-identical to the plain PyTorch version run op by op on the card.
+// A row window (row0, h) warps a band of a frame split over 'spatial':
+// the band's flows and outputs, the whole frame's source rows; output
+// row y samples row (row0 + y) + v, clamped to the frame, as the whole
+// frame's row row0 + y does.
 // ---------------------------------------------------------------------------
 constexpr int kWarpTx = 16;   // threads along x, 4 pixels each
 constexpr int kWarpTy = 16;   // rows
@@ -671,20 +675,25 @@ __device__ __forceinline__ void warp_pixel(const int* __restrict__ src,
   }
 }
 
-template <bool kVec>
+// kBand: a row window (row0, h) of the frame; the whole frame (row0 = 0,
+// h = H) takes the instance without it, which keeps 32 registers (the
+// window's indexing takes 39, a quarter less occupancy).
+template <bool kVec, bool kBand>
 __global__ void __launch_bounds__(kWarpTx * kWarpTy)
     warp_packed_kernel(const int* __restrict__ packed,
                        const float* __restrict__ u,
-                       const float* __restrict__ v, int H, int W,
-                       float* __restrict__ out) {
+                       const float* __restrict__ v, int H, int W, int row0,
+                       int h, float* __restrict__ out) {
   const int b = blockIdx.z;
   const int y = blockIdx.y * kWarpTy + threadIdx.y;
   const int x0 = (blockIdx.x * kWarpTx + threadIdx.x) * 4;
-  if (y >= H || x0 >= W) return;
-  const size_t hw = (size_t)H * W;
+  const int rows = kBand ? h : H;
+  if (y >= rows || x0 >= W) return;
+  const size_t hw = (size_t)rows * W;
   const size_t row = (size_t)b * hw + (size_t)y * W + x0;
-  const int* src = packed + (size_t)b * hw;
+  const int* src = packed + (kBand ? (size_t)b * H * W : (size_t)b * hw);
   float* o0 = out + (size_t)b * 3 * hw + (size_t)y * W + x0;
+  const int sy = kBand ? row0 + y : y;
   if (kVec) {
     const float4 uq = __ldg(reinterpret_cast<const float4*>(u + row));
     const float4 vq = __ldg(reinterpret_cast<const float4*>(v + row));
@@ -692,7 +701,7 @@ __global__ void __launch_bounds__(kWarpTx * kWarpTy)
     const float vv[4] = {vq.x, vq.y, vq.z, vq.w};
     float r[4][3];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) warp_pixel(src, x0 + j, y, uu[j], vv[j], H, W, r[j]);
+    for (int j = 0; j < 4; ++j) warp_pixel(src, x0 + j, sy, uu[j], vv[j], H, W, r[j]);
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) {
       *reinterpret_cast<float4*>(o0 + ch * hw) =
@@ -701,7 +710,7 @@ __global__ void __launch_bounds__(kWarpTx * kWarpTy)
   } else {
     for (int j = 0; j < 4 && x0 + j < W; ++j) {
       float r[3];
-      warp_pixel(src, x0 + j, y, __ldg(u + row + j), __ldg(v + row + j), H,
+      warp_pixel(src, x0 + j, sy, __ldg(u + row + j), __ldg(v + row + j), H,
                  W, r);
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) o0[ch * hw + j] = r[ch];
@@ -1470,14 +1479,18 @@ int aivc_rans_decode(const uint16_t* words, int w_cap,
   return (int)err;
 }
 
-// K3.  packed i32 [B, H, W] (pack_yuv_u32); u, v f32 [B, H, W] flow
-// planes.  Out: f32 [B, 3, H, W].
+// K3.  packed i32 [B, H, W] (pack_yuv_u32); u, v f32 [B, h, W] flow
+// planes of the output rows row0 .. row0 + h - 1 (a band of a frame split
+// over a mesh's 'spatial' axis; row0 = 0, h = H for the whole frame).
+// Out: f32 [B, 3, h, W].
 int aivc_warp_packed(const int* packed, const float* u, const float* v,
-                     int B, int H, int W, float* out, cudaStream_t stream) {
-  if (B == 0 || H == 0 || W == 0) return (int)cudaGetLastError();
+                     int B, int H, int W, int row0, int h, float* out,
+                     cudaStream_t stream) {
+  if (row0 < 0 || h < 0 || row0 + h > H) return (int)cudaErrorInvalidValue;
+  if (B == 0 || h == 0 || W == 0) return (int)cudaGetLastError();
   const dim3 block(kWarpTx, kWarpTy);
   const long gx = ((W + 3) / 4 + kWarpTx - 1) / kWarpTx;
-  const long gy = (H + kWarpTy - 1) / kWarpTy;
+  const long gy = (h + kWarpTy - 1) / kWarpTy;
   if (B > 65535 || gy > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)B);
   // 16-byte flow loads and plane stores: every row starts 16-byte aligned.
@@ -1485,12 +1498,19 @@ int aivc_warp_packed(const int* packed, const float* u, const float* v,
                    ((reinterpret_cast<uintptr_t>(u) |
                      reinterpret_cast<uintptr_t>(v) |
                      reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-  if (vec) {
-    warp_packed_kernel<true><<<grid, block, 0, stream>>>(packed, u, v, H, W,
-                                                         out);
+  const bool band = row0 != 0 || h != H;
+  if (vec && band) {
+    warp_packed_kernel<true, true><<<grid, block, 0, stream>>>(
+        packed, u, v, H, W, row0, h, out);
+  } else if (vec) {
+    warp_packed_kernel<true, false><<<grid, block, 0, stream>>>(
+        packed, u, v, H, W, row0, h, out);
+  } else if (band) {
+    warp_packed_kernel<false, true><<<grid, block, 0, stream>>>(
+        packed, u, v, H, W, row0, h, out);
   } else {
-    warp_packed_kernel<false><<<grid, block, 0, stream>>>(packed, u, v, H,
-                                                          W, out);
+    warp_packed_kernel<false, false><<<grid, block, 0, stream>>>(
+        packed, u, v, H, W, row0, h, out);
   }
   return (int)cudaGetLastError();
 }

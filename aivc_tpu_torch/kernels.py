@@ -116,7 +116,8 @@ def lib() -> ctypes.CDLL:
             [_P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
              _P, _P, _P, _P])
         handle.aivc_rans_decode.restype = _I
-        handle.aivc_warp_packed.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P]
+        handle.aivc_warp_packed.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
+                                             _P, _P]
         handle.aivc_warp_packed.restype = _I
         handle.aivc_gdn_fused.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P,
                                           _P]

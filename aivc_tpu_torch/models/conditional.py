@@ -9,6 +9,15 @@ NCHW (counterpart of aivc_tpu/models/conditional.py:163-321).
                    training, uniform noise replaces both roundings (z's
                    drawn first, then y's) and the rate of a mixture
                    ec_mode sums its components
+
+Row bands (``split_rows``, a parallel/halo.py:RowBand): g_a, g_a_ref and
+g_s run on this rank's band of the frame's rows, with their convs'
+halos exchanged; the hyper stages run whole on every rank, on y gathered
+over 'spatial' (the z grid, hp / 64 rows, does not split, and holds
+1/256 of the pixels).  ``analyze`` then returns the whole y;
+``encode_latents`` this band's y_cq, mu, sigma and rate_y (noise drawn
+for the whole y, this band's rows kept) with the whole z_q and rate_z;
+``synthesize`` takes this band's y_cq, mu and shortcut.
 """
 
 from __future__ import annotations
@@ -40,8 +49,10 @@ from aivc_tpu_torch.ops.layers import (
     ConvBlock,
     SimplifiedAttention,
     UpBlock,
+    split_rows,
 )
 from aivc_tpu_torch.ops.quantizer import quantize
+from aivc_tpu_torch.parallel.halo import BandNoise
 
 
 def _gdn_name(base: str, clamp: float, lowp: bool) -> str:
@@ -153,6 +164,18 @@ class ConditionalNet(nn.Module):
         if c.gain_p_b:
             self.gain_P = GainMatrix(c.n_rates, c.nb_ft_y)
             self.gain_B = GainMatrix(c.n_rates, c.nb_ft_y)
+        self.band = None
+
+    def split_rows(self, band) -> None:
+        """Run g_a, g_a_ref and g_s on the row band ``band`` (a RowBand;
+        None: the whole frame)."""
+        self.band = band
+        for stage in (self.g_a, getattr(self, "g_a_ref", None), self.g_s):
+            if stage is not None:
+                split_rows(stage, band)
+
+    def _whole(self, y: torch.Tensor) -> torch.Tensor:
+        return y if self.band is None else self.band.gather(y)
 
     def _gain(self, x, idx_rate: float, mode: str, frame_type: int):
         if not self.cfg.gain_p_b or frame_type == FRAME_I:
@@ -164,8 +187,10 @@ class ConditionalNet(nn.Module):
         raise ValueError(f"bad frame_type {frame_type}")
 
     def analyze(self, x: torch.Tensor, idx_rate: float, frame_type: int):
-        """x [B, in_c, H, W] -> (gained y, integer-valued z_q), float32."""
-        y = self._gain(self.g_a(x), idx_rate, "enc", frame_type)
+        """x [B, in_c, H, W] -> (gained y, integer-valued z_q), float32
+        (of a row band x: the whole y)."""
+        y = self._whole(self._gain(self.g_a(x), idx_rate, "enc",
+                                   frame_type))
         return y, quantize(self.h_a(y), AC_MAX_VAL)
 
     def _pdf_components(self, z_q: torch.Tensor, hy: int, wy: int):
@@ -196,11 +221,18 @@ class ConditionalNet(nn.Module):
         ``training``: the latents carry uniform noise from the noise
         source ``noise`` (ops/quantizer.py) instead of being rounded."""
         y = self._gain(self.g_a(x), idx_rate, "enc", frame_type)
-        z = self.h_a(y)
+        yw = self._whole(y)
+        z = self.h_a(yw)
         z_q = quantize(z, AC_MAX_VAL, training=training, noise=noise)
-        comps = self._pdf_components(z_q, y.shape[2], y.shape[3])
+        comps = self._pdf_components(z_q, yw.shape[2], yw.shape[3])
+        y_noise = noise
+        if self.band is not None:
+            comps = [{k: self.band.rows(v) for k, v in c.items()}
+                     for c in comps]
+            y_noise = None if noise is None else BandNoise(noise, self.band)
         mu, sigma = comps[0]["mu"], comps[0]["sigma"]
-        y_cq = quantize(y - mu, AC_MAX_VAL, training=training, noise=noise)
+        y_cq = quantize(y - mu, AC_MAX_VAL, training=training,
+                        noise=y_noise)
         if len(comps) == 1:
             p_y = bin_prob(y_cq, sigma, self.cfg.pdf_family)
         else:

@@ -11,6 +11,16 @@ computes: the port's pixel shuffle already yields that layout.
         pred = alpha * x_warp;  skip = (1 - alpha) * x_warp
         (P-frames: beta = 1, v_next = 0)
   I:    pred = skip = 0
+
+Row bands (``split_rows``, a parallel/halo.py:RowBand, set by the codec
+and the trainer over a mesh's 'spatial' axis): the tensors every rank
+holds whole (the frame, the references, the whole latents and mu) go in
+whole and are cut to this rank's band here, with no scatter (the first
+conv of a split stage takes its halo rows through the exchange, as every
+conv there does: CodecNet's inputs hold pred, which only the band has);
+the nets of the split stages run on the band (models/conditional.py),
+the warps read the whole references at the band's rows (``row0``), and
+what comes out (x_hat, maps, pred, skip) is this band's.
 """
 
 from __future__ import annotations
@@ -29,12 +39,14 @@ from aivc_tpu_torch.ops.warp import (
 )
 
 
-def _motion_comp(prev, nxt, v_prev, v_next, beta, frame_type: int):
+def _motion_comp(prev, nxt, v_prev, v_next, beta, frame_type: int,
+                 row0: int = 0):
     """P-frames warp only the previous reference (beta = 1, v_next = 0);
-    B-frames blend both (fullnet.py:45-52)."""
+    B-frames blend both (fullnet.py:45-52).  The flows move the output
+    rows from ``row0``."""
     if frame_type == FRAME_P:
-        return warp(prev, v_prev)
-    return motion_compensation(prev, nxt, v_prev, v_next, beta)
+        return warp(prev, v_prev, row0)
+    return motion_compensation(prev, nxt, v_prev, v_next, beta, row0)
 
 
 def mofnet_maps(m: torch.Tensor, frame_type: int,
@@ -70,6 +82,21 @@ class FullNet(nn.Module):
         self.cfg = cfg
         self.mofnet = ConditionalNet(cfg.mofnet, gain_i=False)
         self.codecnet = ConditionalNet(cfg.codecnet)
+        self.band = None
+
+    def split_rows(self, band) -> None:
+        """Run the full-resolution and y-level stages of both nets on the
+        row band ``band`` (a RowBand; None: the whole frame)."""
+        self.band = band
+        self.mofnet.split_rows(band)
+        self.codecnet.split_rows(band)
+
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This band's rows of a tensor every rank holds whole."""
+        return x if self.band is None else self.band.rows(x)
+
+    def _row0(self, h: int) -> int:
+        return 0 if self.band is None else self.band.row0(h)
 
     def forward_frame(self, frame, prev, nxt, idx_rate: float,
                       frame_type: int, training: bool = False, noise=None):
@@ -82,7 +109,11 @@ class FullNet(nn.Module):
         latents of ConditionalNet.encode_latents; ``mof`` is None for an
         I-frame), ``alpha``, ``beta``, ``x_warp`` and, for P/B frames,
         ``v_prev``, ``v_next`` and ``flow_raw`` (the MOFNet output before
-        the maps)."""
+        the maps).  Under a row band, this band's x_hat and aux maps;
+        ``cod`` and ``mof`` as ConditionalNet.encode_latents gives
+        them."""
+        whole_prev, whole_next = prev, nxt
+        frame, prev, nxt = self._rows(frame), self._rows(prev), self._rows(nxt)
         B, _, H, W = frame.shape
         aux = {}
         if frame_type == FRAME_I:
@@ -101,8 +132,8 @@ class FullNet(nn.Module):
             maps = mofnet_maps(out6, frame_type, self.cfg.flow_bound)
             alpha, beta = maps[:, 0:1], maps[:, 1:2]
             v_prev, v_next = maps[:, 2:4], maps[:, 4:6]
-            x_warp = _motion_comp(prev, nxt, v_prev, v_next, beta,
-                                  frame_type)
+            x_warp = _motion_comp(whole_prev, whole_next, v_prev, v_next,
+                                  beta, frame_type, self._row0(H))
             skip = (1.0 - alpha) * x_warp
             pred = alpha * x_warp
             aux.update(mof=mof_lat, beta=beta, v_prev=v_prev, v_next=v_next,
@@ -118,12 +149,14 @@ class FullNet(nn.Module):
 
     def mof_analyze(self, frame, prev, nxt, idx_rate: float,
                     frame_type: int):
-        return self.mofnet.analyze(torch.cat([frame, prev, nxt], dim=1),
-                                   idx_rate, frame_type)
+        return self.mofnet.analyze(
+            self._rows(torch.cat([frame, prev, nxt], dim=1)), idx_rate,
+            frame_type)
 
     def cod_analyze(self, frame, pred, idx_rate: float, frame_type: int):
-        return self.codecnet.analyze(torch.cat([frame, pred], dim=1),
-                                     idx_rate, frame_type)
+        """``pred`` is this band's."""
+        return self.codecnet.analyze(torch.cat([self._rows(frame), pred],
+                                               dim=1), idx_rate, frame_type)
 
     def mofnet_hyper(self, z_q):
         return self.mofnet.hyper_decode(z_q)
@@ -133,35 +166,37 @@ class FullNet(nn.Module):
 
     def mofnet_synth_maps(self, y_cq, mu, prev, nxt, idx_rate: float,
                           frame_type: int) -> torch.Tensor:
-        """MOFNet synthesis -> maps [B, 6, H, W] (no warp)."""
-        shortcut = (torch.cat([prev, nxt], dim=1)
+        """MOFNet synthesis -> maps [B, 6, H, W] (no warp); of this band
+        from the whole y_cq, mu and references."""
+        shortcut = (self._rows(torch.cat([prev, nxt], dim=1))
                     if frame_type == FRAME_B else None)
-        out = self.mofnet.synthesize(y_cq, mu, shortcut, idx_rate,
-                                     frame_type)
+        out = self.mofnet.synthesize(self._rows(y_cq), self._rows(mu),
+                                     shortcut, idx_rate, frame_type)
         return mofnet_maps(out, frame_type, self.cfg.flow_bound)
 
-    @staticmethod
-    def motion_comp_stage(prev, nxt, maps6, frame_type: int,
+    def motion_comp_stage(self, prev, nxt, maps6, frame_type: int,
                           warp_engine: str = "packed"):
-        """Warp + blend -> pred, skip and the mask means."""
+        """Warp + blend -> pred, skip and the masks alpha, beta (of the
+        band of ``maps6``, from the whole references)."""
         alpha = maps6[:, 0:1]
         beta = maps6[:, 1:2]
+        row0 = self._row0(maps6.shape[2])
         pw = mc_warp(pack_yuv_u32(prev), maps6[:, 2], maps6[:, 3],
-                     warp_engine)
+                     warp_engine, row0)
         if frame_type == FRAME_P:
             x_warp = pw
         else:
             nw = mc_warp(pack_yuv_u32(nxt), maps6[:, 4], maps6[:, 5],
-                         warp_engine)
+                         warp_engine, row0)
             x_warp = beta * pw + (1.0 - beta) * nw
         x_warp = x_warp.to(prev.dtype)
         return {"pred": alpha * x_warp, "skip": (1.0 - alpha) * x_warp,
-                "alpha_mean": alpha.mean(dim=(1, 2, 3)),
-                "beta_mean": beta.mean(dim=(1, 2, 3))}
+                "alpha": alpha, "beta": beta}
 
     def codecnet_synth(self, y_cq, mu, pred, skip, idx_rate: float,
                        frame_type: int):
+        """The whole y_cq and mu; this band's pred and skip."""
         shortcut = pred if frame_type != FRAME_I else None
-        out = self.codecnet.synthesize(y_cq, mu, shortcut, idx_rate,
-                                       frame_type)
+        out = self.codecnet.synthesize(self._rows(y_cq), self._rows(mu),
+                                       shortcut, idx_rate, frame_type)
         return out + skip

@@ -12,6 +12,15 @@ checkpoint tree maps onto ``state_dict`` keys one to one
 * ``UpBlock`` is the shuffle mode (layers.py:209-261): a conv to 4x
   channels and a pixel shuffle.  Its weights are stored in
   ``pixel_shuffle``'s (c, i, j) channel order.
+* Row bands: a ``ConvBlock`` or ``UpBlock`` whose ``rows`` is a
+  ``parallel/halo.py:RowBand`` runs on this rank's band of the frame's
+  rows; its replication padding takes the halo rows from the bands above
+  and below (the frame's edge row at its top and bottom), so each output
+  row is the whole frame's.  A stride-2 conv keeps the rows aligned
+  because every band starts on a multiple of 16 rows
+  (parallel/mesh.py:check_rows); an UpBlock doubles its band.
+  ``split_rows`` sets ``rows`` on every block of a module; the codec and
+  the trainer set it on the stages they split.
 """
 
 from __future__ import annotations
@@ -28,10 +37,22 @@ from aivc_tpu_torch.ops.gdn import GDN
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def replication_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+def replication_pad(x: torch.Tensor, pad: int, rows=None) -> torch.Tensor:
+    """Replication padding of [B, C, H, W]; of a row band where ``rows``
+    (a RowBand) is set: its halo rows from the neighbouring bands."""
+    if rows is not None:
+        return rows.pad(x, pad)
     if pad == 0:
         return x
     return F.pad(x, (pad, pad, pad, pad), mode="replicate")
+
+
+def split_rows(module: nn.Module, rows) -> None:
+    """Run every ConvBlock and UpBlock of ``module`` on the row band
+    ``rows`` (a RowBand; None: the whole frame)."""
+    for m in module.modules():
+        if isinstance(m, (ConvBlock, UpBlock)):
+            m.rows = rows
 
 
 class Conv(nn.Module):
@@ -97,11 +118,13 @@ class ConvBlock(nn.Module):
                  dtype: str = "float32"):
         super().__init__()
         self.pad = k_size // 2
+        self.rows = None
         self.Conv_0 = Conv(cin, out_ft, k_size, stride, dtype)
         _attach_nl(self, non_linearity, out_ft)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _apply_nl(self, self.Conv_0(replication_pad(x, self.pad)))
+        return _apply_nl(self, self.Conv_0(replication_pad(x, self.pad,
+                                                           self.rows)))
 
 
 class UpBlock(nn.Module):
@@ -111,11 +134,13 @@ class UpBlock(nn.Module):
                  non_linearity: str = "leaky_relu", dtype: str = "float32"):
         super().__init__()
         self.pad = k_size // 2
+        self.rows = None
         self.Conv_0 = Conv(cin, 4 * out_ft, k_size, 1, dtype)
         _attach_nl(self, non_linearity, out_ft)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.pixel_shuffle(self.Conv_0(replication_pad(x, self.pad)), 2)
+        x = F.pixel_shuffle(self.Conv_0(replication_pad(x, self.pad,
+                                                        self.rows)), 2)
         return _apply_nl(self, x)
 
 

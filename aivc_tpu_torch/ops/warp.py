@@ -7,6 +7,9 @@ warp_bounded_pallas): ``warp_packed`` is the plain PyTorch version;
 ``warp_packed_cuda`` wraps kernel K3 (csrc/kernels.cu:warp_packed_kernel),
 which is bit-identical to it on the card.  ``mc_warp`` takes the plain
 version for a tensor on the host and the kernel for a tensor on the card.
+Each takes a row window ``row0`` for a band of a frame split over a
+mesh's 'spatial' axis: the whole reference, the band's flows, the band's
+output rows; so does the float ``warp`` (plain only, for a band).
 
 The RD forward path (counterpart of warp.py:32-94,221-234): the float
 ``warp`` and ``motion_compensation``.  With ``AIVC_WARP=pallas`` in the
@@ -46,17 +49,20 @@ def pack_yuv_u32(x: torch.Tensor) -> torch.Tensor:
     return q[:, 0] | (q[:, 1] << 8) | (q[:, 2] << 16)
 
 
-def warp_packed(packed: torch.Tensor, u: torch.Tensor,
-                v: torch.Tensor) -> torch.Tensor:
+def warp_packed(packed: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                row0: int = 0) -> torch.Tensor:
     """Plain version: backward-warp ``packed`` [B, H, W] by the flow planes
-    (u horizontal, v vertical) [B, H, W], border clamp, bilinear.  Returns
-    f32 [B, 3, H, W] in [0, 1].  Every float op is a separate eager op, so
-    nothing is contracted into an FMA."""
+    (u horizontal, v vertical) [B, h, W] of the output rows row0 ..
+    row0 + h - 1 (all rows by default: h = H, row0 = 0), border clamp,
+    bilinear: the source row of output row y is (row0 + y) + v, clamped
+    to the whole frame.  Returns f32 [B, 3, h, W] in [0, 1].  Every float
+    op is a separate eager op, so nothing is contracted into an FMA."""
     B, H, W = packed.shape
+    h = u.shape[1]
     dev = packed.device
     f32 = torch.float32
     xx = torch.arange(W, dtype=f32, device=dev).view(1, 1, W)
-    yy = torch.arange(H, dtype=f32, device=dev).view(1, H, 1)
+    yy = torch.arange(row0, row0 + h, dtype=f32, device=dev).view(1, h, 1)
     sx = torch.clamp(xx + u.to(f32), 0.0, float(W - 1))
     sy = torch.clamp(yy + v.to(f32), 0.0, float(H - 1))
     x0 = torch.floor(sx)
@@ -70,8 +76,8 @@ def warp_packed(packed: torch.Tensor, u: torch.Tensor,
     flat = packed.reshape(B, H * W)
 
     def corner(yi, xi):
-        return torch.gather(flat, 1, (yi * W + xi).reshape(B, H * W)
-                            ).reshape(B, 1, H, W)
+        return torch.gather(flat, 1, (yi * W + xi).reshape(B, h * W)
+                            ).reshape(B, 1, h, W)
 
     shifts = torch.tensor([0, 8, 16], dtype=torch.int32,
                           device=dev).view(1, 3, 1, 1)
@@ -90,17 +96,22 @@ def warp_packed(packed: torch.Tensor, u: torch.Tensor,
 
 
 def warp_packed_cuda(packed: torch.Tensor, u: torch.Tensor,
-                     v: torch.Tensor) -> torch.Tensor:
+                     v: torch.Tensor, row0: int = 0) -> torch.Tensor:
     """Kernel K3 on the card: same contract as ``warp_packed``."""
     B, H, W = packed.shape
+    h = u.shape[1]
+    if not 0 <= row0 <= H - h:
+        raise ValueError(f"rows {row0} .. {row0 + h - 1} are not rows of a "
+                         f"frame of {H}")
     kernels.require(packed, "packed", torch.int32, (B, H, W))
-    kernels.require(u, "u", torch.float32, (B, H, W))
-    kernels.require(v, "v", torch.float32, (B, H, W))
-    out = torch.empty((B, 3, H, W), dtype=torch.float32,
+    kernels.require(u, "u", torch.float32, (B, h, W))
+    kernels.require(v, "v", torch.float32, (B, h, W))
+    out = torch.empty((B, 3, h, W), dtype=torch.float32,
                       device=packed.device)
     lib = kernels.lib()
     rc = lib.aivc_warp_packed(packed.data_ptr(), u.data_ptr(), v.data_ptr(),
-                              B, H, W, out.data_ptr(), kernels.stream_ptr())
+                              B, H, W, row0, h, out.data_ptr(),
+                              kernels.stream_ptr())
     kernels.check("warp_packed", rc)
     kernels.LAUNCHES["warp_packed"] += 1
     return out
@@ -115,29 +126,35 @@ def warp_engine(flow_bound: float) -> str:
 
 
 def mc_warp(packed: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-            engine: str) -> torch.Tensor:
-    """Motion-compensation warp.  On the host both engines run the plain
-    version; on the card the bounded engine launches K3 (no fallback) and
-    the packed engine runs the plain version op by op."""
+            engine: str, row0: int = 0) -> torch.Tensor:
+    """Motion-compensation warp of the output rows from ``row0`` (a band
+    of a frame split over 'spatial': the whole reference, the band's
+    flows).  On the host both engines run the plain version; on the card
+    the bounded engine launches K3 (no fallback) and the packed engine
+    runs the plain version op by op."""
     if packed.device.type == "cuda" and engine == "bounded":
         return warp_packed_cuda(packed.contiguous(), u.contiguous(),
-                                v.contiguous())
-    return warp_packed(packed, u, v)
+                                v.contiguous(), row0)
+    return warp_packed(packed, u, v, row0)
 
 
 # ---------------------------------------------------------------------------
 # Float warp of the RD forward path
 # ---------------------------------------------------------------------------
 
-def _sample_grid(flow: torch.Tensor, vclamp: bool):
-    """Sample coordinates of a backward warp by flow [B, 2, H, W] (plane 0
-    horizontal, 1 vertical), border-clamped; with ``vclamp`` the vertical
-    flow is first clamped to +-(V_RADIUS - 1) rows."""
-    _, _, H, W = flow.shape
+def _sample_grid(flow: torch.Tensor, vclamp: bool, H: int = None,
+                 row0: int = 0):
+    """Sample coordinates of a backward warp by flow [B, 2, h, W] (plane 0
+    horizontal, 1 vertical) of the output rows row0 .. row0 + h - 1 of a
+    frame of H rows (default: h, row0 0), border-clamped; with
+    ``vclamp`` the vertical flow is first clamped to +-(V_RADIUS - 1)
+    rows."""
+    _, _, h, W = flow.shape
+    H = h if H is None else H
     dev = flow.device
     f32 = torch.float32
     xx = torch.arange(W, dtype=f32, device=dev).view(1, 1, W)
-    yy = torch.arange(H, dtype=f32, device=dev).view(1, H, 1)
+    yy = torch.arange(row0, row0 + h, dtype=f32, device=dev).view(1, h, 1)
     fy = flow[:, 1].to(f32)
     if vclamp:
         fy = torch.clamp(fy, -V_RADIUS + 1, V_RADIUS - 1)
@@ -155,24 +172,29 @@ def _sample_grid(flow: torch.Tensor, vclamp: bool):
 
 
 def _corners(x: torch.Tensor, yi, x0i, x1i):
-    """x [B, C, H, W] at rows yi and columns x0i / x1i ([B, H, W])."""
+    """x [B, C, H, W] at rows yi and columns x0i / x1i ([B, h, W])."""
     B, C, H, W = x.shape
+    h = yi.shape[1]
     flat = x.reshape(B, C, H * W)
 
     def at(xi):
-        idx = (yi * W + xi).reshape(B, 1, H * W).expand(B, C, H * W)
-        return torch.gather(flat, 2, idx).reshape(B, C, H, W)
+        idx = (yi * W + xi).reshape(B, 1, h * W).expand(B, C, h * W)
+        return torch.gather(flat, 2, idx).reshape(B, C, h, W)
 
     return at(x0i), at(x1i)
 
 
-def warp_plain(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def warp_plain(x: torch.Tensor, flow: torch.Tensor,
+               row0: int = 0) -> torch.Tensor:
     """The XLA warp of aivc_tpu/ops/warp.py:53-94 on x [B, C, H, W]:
-    border-clamped bilinear, ``top + (bot - top) * wy``.  Autograd
-    differentiates it with respect to x and the flow as ``jax.grad``
-    does JAX's (the coordinate clips split a tie as ``jnp.clip``); the
-    training forward takes it."""
-    wx, wy, x0i, x1i, y0i, y1i = _sample_grid(flow, vclamp=False)
+    border-clamped bilinear, ``top + (bot - top) * wy``.  ``flow``
+    [B, 2, h, W] moves the output rows row0 .. row0 + h - 1 (all of them
+    by default); the result is [B, C, h, W].  Autograd differentiates it
+    with respect to x and the flow as ``jax.grad`` does JAX's (the
+    coordinate clips split a tie as ``jnp.clip``); the training forward
+    takes it."""
+    wx, wy, x0i, x1i, y0i, y1i = _sample_grid(flow, vclamp=False,
+                                              H=x.shape[2], row0=row0)
     wx = wx.to(x.dtype).unsqueeze(1)
     wy = wy.to(x.dtype).unsqueeze(1)
     v00, v01 = _corners(x, y0i, x0i, x1i)
@@ -243,9 +265,11 @@ def warp_vclamped_cuda(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Backward-warp x [B, C, H, W] by flow [B, 2, H, W]:
-    out(y, x) = x(y + v, x + u) (aivc_tpu/ops/warp.py:32-94).
+def warp(x: torch.Tensor, flow: torch.Tensor, row0: int = 0) -> torch.Tensor:
+    """Backward-warp x [B, C, H, W] by flow [B, 2, h, W]:
+    out(y, x) = x(row0 + y + v, x + u) (aivc_tpu/ops/warp.py:32-94; h = H
+    and row0 = 0 but for a band of rows split over 'spatial', which takes
+    the plain warp).
 
     Under ``AIVC_WARP=pallas`` and JAX's shape rule (W % 128 == 0 and
     H % min(H, 256) == 0) the vertically clamped warp: kernel K5 for a
@@ -254,7 +278,8 @@ def warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     Other shapes, or no switch, take the plain border-clamped warp, as in
     JAX."""
     H, W = x.shape[2], x.shape[3]
-    if _USE_PALLAS and W % LANE == 0 and H % min(H, 256) == 0:
+    whole = row0 == 0 and flow.shape[2] == H
+    if _USE_PALLAS and whole and W % LANE == 0 and H % min(H, 256) == 0:
         if torch.is_grad_enabled() and (x.requires_grad
                                         or flow.requires_grad):
             raise ValueError(
@@ -265,12 +290,13 @@ def warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
         if x.device.type == "cuda":
             return warp_vclamped_cuda(x.contiguous(), flow.contiguous())
         return warp_vclamped(x, flow)
-    return warp_plain(x, flow)
+    return warp_plain(x, flow, row0)
 
 
 def motion_compensation(prev: torch.Tensor, nxt: torch.Tensor,
                         v_prev: torch.Tensor, v_next: torch.Tensor,
-                        beta: torch.Tensor) -> torch.Tensor:
+                        beta: torch.Tensor, row0: int = 0) -> torch.Tensor:
     """beta * warp(prev, v_prev) + (1 - beta) * warp(next, v_next)
-    (warp.py:221-234)."""
-    return beta * warp(prev, v_prev) + (1.0 - beta) * warp(nxt, v_next)
+    (warp.py:221-234), of the output rows from ``row0``."""
+    return (beta * warp(prev, v_prev, row0)
+            + (1.0 - beta) * warp(nxt, v_next, row0))

@@ -4,15 +4,18 @@ process per rank.
 
   'data'    splits the batch dimension: the frames of one wave, the
             microbatches (or a microbatch's batch) of a train step;
-  'spatial' would split the rows of frames and latents.  JAX's GSPMD
-            inserts the conv halo exchanges by itself; PyTorch has no
-            such pass, so every consumer here refuses spatial > 1
-            (``check_mesh``, ROADMAP A.4).
+  'spatial' splits the rows of frames and latents into equal bands, one
+            a rank.  JAX's GSPMD inserts the conv halo exchanges by
+            itself; here every conv of a split stage takes its halo rows
+            from its neighbours through ``parallel/halo.py``, and the
+            consumers (FrameCodec, make_train_step) gather the bands
+            where a stage needs the whole frame.  ``check_rows`` refuses
+            a frame whose rows cannot split so.
 
 JAX's placements become plain functions: ``frame_sharding`` gives this
-rank's slice of a batch, ``replicated`` gathers the slices back along the
-batch, ``shard_params`` broadcasts tensors from the first rank on 'data',
-so every rank holds the same weights.
+rank's batch slice and row band, ``replicated`` gathers both back,
+``shard_params`` broadcasts tensors from the first rank of the mesh, so
+every rank holds the same weights.
 
 The collectives run on the backend the caller started the process group
 with (``init_distributed`` takes it as an argument).  gloo's all_gather
@@ -37,6 +40,8 @@ AXES = ("data", "spatial")
 # The longest a rank waits in one collective before its process group
 # raises.
 COLLECTIVE_TIMEOUT_S = 60
+# Rows of a frame per row of the y latent (config.py:Y_DOWNSCALE).
+Y_DOWNSCALE = 16
 
 
 class Mesh:
@@ -55,31 +60,46 @@ class Mesh:
     def shape(self) -> Dict[str, int]:
         return dict(zip(AXES, self.grid.shape))
 
-    @property
-    def data_size(self) -> int:
-        return int(self.grid.shape[0])
+    def size(self, axis: str) -> int:
+        return int(self.grid.shape[AXES.index(axis)])
 
-    @property
-    def data_group(self):
+    def group(self, axis: str):
+        """The process group of this rank's line along ``axis``."""
         return (None if self.device_mesh is None
-                else self.device_mesh.get_group("data"))
+                else self.device_mesh.get_group(axis))
 
-    @property
-    def data_index(self) -> int:
-        """This rank's place on 'data'."""
+    def index(self, axis: str) -> int:
+        """This rank's place on ``axis``."""
         if self.device_mesh is None:
-            if self.data_size > 1:
+            if self.size(axis) > 1:
                 raise ValueError(f"{self} has no process group: start one "
                                  f"(init_distributed) before make_mesh")
             return 0
-        return int(self.device_mesh.get_local_rank("data"))
+        return int(self.device_mesh.get_local_rank(axis))
 
-    def data_rank(self, index: int) -> int:
-        """The global rank at ``index`` on 'data' in this rank's column."""
-        col = 0
-        if self.device_mesh is not None:
-            col = int(self.device_mesh.get_local_rank("spatial"))
-        return int(self.grid[index, col])
+    @property
+    def data_size(self) -> int:
+        return self.size("data")
+
+    @property
+    def data_group(self):
+        return self.group("data")
+
+    @property
+    def data_index(self) -> int:
+        return self.index("data")
+
+    @property
+    def spatial_size(self) -> int:
+        return self.size("spatial")
+
+    @property
+    def spatial_group(self):
+        return self.group("spatial")
+
+    @property
+    def spatial_index(self) -> int:
+        return self.index("spatial")
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"
@@ -117,18 +137,35 @@ def make_mesh(n_devices: Optional[int] = None, spatial: int = 1,
 
 
 def check_mesh(mesh: Mesh, what: str) -> None:
-    """Raise where ``what`` cannot run over the mesh: one that splits
-    rows (the port has no halo exchange), or splits 'data' with no
-    process group to gather over."""
-    if mesh.data_size > 1 and mesh.device_mesh is None:
+    """Raise where ``what`` cannot run over the mesh: one that splits an
+    axis with no process group to gather over."""
+    if mesh.device_mesh is None and (mesh.data_size > 1
+                                     or mesh.spatial_size > 1):
         raise ValueError(f"{what}: {mesh} has no process group: start one "
                          f"(init_distributed) before make_mesh")
-    if mesh.shape["spatial"] > 1:
-        raise NotImplementedError(
-            f"{what}: a mesh with spatial={mesh.shape['spatial']} needs a "
-            f"conv halo exchange written by hand before every strided and "
-            f"transposed conv, and |flow| + 6 halo rows for the warps; not "
-            f"ported yet (ROADMAP A.4, spatial row sharding)")
+
+
+def check_rows(mesh: Optional[Mesh], hp: int, halo: int, what: str) -> None:
+    """Raise ValueError, naming the sizes, where frames of ``hp`` padded
+    rows cannot split over 'spatial' into bands the nets run on: every
+    band must start on a multiple of 16 rows (the y grid: each stride-2
+    conv then keeps its output rows aligned), and hold at least ``halo``
+    rows at the y level (the largest halo of a conv there: a band takes
+    its halo from its neighbours only).  JAX's GSPMD pads such splits
+    instead; the port refuses them."""
+    s = 1 if mesh is None else mesh.spatial_size
+    if s == 1:
+        return
+    if hp % (Y_DOWNSCALE * s):
+        raise ValueError(f"{what}: {hp} padded rows do not split over "
+                         f"spatial={s}: each band must be a multiple of "
+                         f"{Y_DOWNSCALE} rows ({hp} % {Y_DOWNSCALE * s} = "
+                         f"{hp % (Y_DOWNSCALE * s)})")
+    band = hp // Y_DOWNSCALE // s
+    if band < halo:
+        raise ValueError(f"{what}: {hp} padded rows over spatial={s} leave "
+                         f"{band} rows a rank at the y level, fewer than "
+                         f"the {halo}-row halo of its convs")
 
 
 def init_distributed(backend: str, rank: int, world_size: int,
@@ -179,46 +216,60 @@ def batch_slice(mesh: Optional[Mesh], n: int) -> slice:
     return slice(mesh.data_index * b, (mesh.data_index + 1) * b)
 
 
+def row_band(mesh: Mesh, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's band of ``x`` along its row dimension ``dim`` over
+    'spatial' (a view; all of ``x`` with spatial 1)."""
+    s = mesh.spatial_size
+    if x.shape[dim] % s:
+        raise ValueError(f"{x.shape[dim]} rows not divisible by spatial={s}")
+    h = x.shape[dim] // s
+    return x.narrow(dim, mesh.spatial_index * h, h)
+
+
 def frame_sharding(mesh: Mesh, x: torch.Tensor, dim: int = 0
                    ) -> torch.Tensor:
-    """This rank's slice of ``x`` along the batch dimension ``dim`` over
-    'data' (the placement P('data', 'spatial', ...) with spatial 1)."""
+    """This rank's slice of the NCHW batch ``x`` (batch at ``dim``, rows
+    at ``dim + 2``): the batch over 'data', the rows over 'spatial' (the
+    placement P('data', 'spatial', None, None) of JAX's NHWC)."""
     check_mesh(mesh, "frame_sharding")
     if x.shape[dim] % mesh.data_size:
         raise ValueError(f"batch {x.shape[dim]} not divisible by data="
                          f"{mesh.data_size}")
-    return x[(slice(None),) * dim + (batch_slice(mesh, x.shape[dim]),)]
+    x = x[(slice(None),) * dim + (batch_slice(mesh, x.shape[dim]),)]
+    return row_band(mesh, x, dim + 2)
 
 
 def stacked_frame_sharding(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
-    """[n_frames, B, ...] GOP tensor: the batch (dim 1) over 'data'; the
-    frame axis is the sequential DAG and stays whole."""
+    """[n_frames, B, C, H, W] GOP tensor: the batch (dim 1) over 'data',
+    the rows (dim 3) over 'spatial'; the frame axis is the sequential DAG
+    and stays whole."""
     return frame_sharding(mesh, x, dim=1)
 
 
 def all_gather_cat(mesh: Mesh, tensors: List[Optional[torch.Tensor]],
-                   dim: int = 0) -> List[Optional[torch.Tensor]]:
-    """Each tensor's slices of every rank on 'data', concatenated along
-    ``dim`` in the order of the axis; None stays None.  Every rank must
-    pass the same shapes and dtypes.  One collective for all: the tensors
-    travel as one byte buffer."""
+                   dim: int = 0, axis: str = "data"
+                   ) -> List[Optional[torch.Tensor]]:
+    """Each tensor's slices of every rank on ``axis`` ('data', or
+    'spatial' for row bands), concatenated along ``dim`` in the order of
+    the axis; None stays None.  Every rank must pass the same shapes and
+    dtypes.  One collective for all: the tensors travel as one byte
+    buffer."""
     present = [t.contiguous() for t in tensors if t is not None]
     if not present:
         return list(tensors)
-    dev = present[0].device
     # Each tensor's bytes padded to a multiple of 8, so that every slice
     # of the buffer can be viewed as its dtype again.
     sizes = [t.numel() * t.element_size() for t in present]
     flat = torch.cat([F.pad(t.reshape(-1).view(torch.uint8), (0, -n % 8))
                       for t, n in zip(present, sizes)])
-    group = mesh.data_group
+    group = mesh.group(axis)
     cdev = comm_device(group)
 
     def gather():
         src = flat.to(cdev)
-        parts = [torch.empty_like(src) for _ in range(mesh.data_size)]
+        parts = [torch.empty_like(src) for _ in range(mesh.size(axis))]
         dist.all_gather(parts, src, group=group)
-        return [p.to(dev) for p in parts]
+        return [p.to(flat.device) for p in parts]
 
     parts = _timed(mesh, gather)
     out, it, off = [], iter(zip(present, sizes)), 0
@@ -236,16 +287,21 @@ def all_gather_cat(mesh: Mesh, tensors: List[Optional[torch.Tensor]],
 
 def replicated(mesh: Mesh, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """The whole batch on every rank from each rank's slice (the inverse
-    of frame_sharding; the placement P() of the gathered tensor)."""
+    of frame_sharding: the rows gathered over 'spatial', then the batch
+    over 'data'; the placement P() of the gathered tensor)."""
     check_mesh(mesh, "replicated")
-    return all_gather_cat(mesh, [x], dim)[0]
+    if mesh.spatial_size > 1:
+        x = all_gather_cat(mesh, [x], dim + 2, axis="spatial")[0]
+    if mesh.data_size > 1:
+        x = all_gather_cat(mesh, [x], dim)[0]
+    return x
 
 
-def all_reduce(mesh: Mesh, x: torch.Tensor, op: str = "sum"
-               ) -> torch.Tensor:
-    """A new tensor: ``x`` reduced over 'data' ("sum" or "max"), the same
-    on every rank."""
-    group = mesh.data_group
+def all_reduce(mesh: Mesh, x: torch.Tensor, op: str = "sum",
+               axis: str = "data") -> torch.Tensor:
+    """A new tensor: ``x`` reduced over ``axis`` ("sum" or "max"), the
+    same on every rank of the line."""
+    group = mesh.group(axis)
     cdev = comm_device(group)
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
 
@@ -281,21 +337,20 @@ def mean_over_data(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def shard_params(params, mesh: Mesh):
     """Replicate: every tensor of ``params`` (a module or an iterable of
-    tensors) broadcast in place from the first rank on 'data'.  Returns
-    ``params``."""
+    tensors) broadcast in place from the mesh's first rank (grid[0, 0])
+    to every rank.  Returns ``params``."""
     tensors: Iterable[torch.Tensor] = (
         params.parameters() if isinstance(params, torch.nn.Module)
         else params)
-    if mesh.device_mesh is None or mesh.data_size == 1:
+    if mesh.device_mesh is None or mesh.grid.size == 1:
         return params
-    group = mesh.data_group
-    cdev = comm_device(group)
-    src = mesh.data_rank(0)
+    cdev = comm_device()
+    src = int(mesh.grid[0, 0])
 
     def bcast():
         for t in tensors:
             buf = t.detach().to(cdev, copy=True)
-            dist.broadcast(buf, src=src, group=group)
+            dist.broadcast(buf, src=src)
             t.copy_(buf)
 
     _timed(mesh, bcast)

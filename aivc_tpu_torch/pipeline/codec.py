@@ -23,9 +23,27 @@ lines, and the in-band latent md5 trailer, checked at decode),
 ``audit`` (per-frame analytic bits under the coder's own CDFs),
 ``rate_priority`` (more rANS steps, fewer streams: the per-frame state
 flush stays ~1% of the payload) and ``mesh`` (parallel/mesh.py: each
-rank runs the nets on its slice of a wave, encoder and decoder alike,
-and entropy-codes the whole wave, so every rank holds the same bytes
-and references; 'spatial' > 1 is refused).
+rank runs the nets on its slice of a wave over 'data' and on its band of
+rows over 'spatial', encoder and decoder alike, and entropy-codes the
+whole wave, so every rank holds the same bytes and references).
+
+Under 'spatial' > 1 the full-resolution and y-level stages run on this
+rank's band of rows, their convs' halos exchanged (parallel/halo.py);
+y is gathered over 'spatial' for the hyper stages, which run whole on
+every rank (so do the quantization of y and the sigma bins); the warps
+read the whole references at the band's rows (K3's row window); the
+uint8 planes and the alpha / beta maps are gathered into whole frames,
+from which the DC trailer, the mask means and the references are
+computed, so they equal one process's.
+
+An encode is two calls per wave: ``encode_frames_launch`` queues the
+device half (the nets, the cast, the DC correction, the references) and
+returns handles whose ``decoded`` are device references;
+``encode_frames_finish`` does the rest (the K policy, entropy coding,
+packing).  pipeline/video.py:encode_gop keeps up to
+AIVC_PIPELINE_LOOKAHEAD waves launched ahead of the one it finishes;
+the K policy runs in ``encode_frames_finish``, which sees the waves in
+coding order, so every lookahead writes the same bytes.
 
 Format: v2 fused streams with all-zero y channels elided
 (codec.py:665-990,1221-1300), or under AIVC_VRANS_ELIDE=0 the dense v1
@@ -71,10 +89,12 @@ from aivc_tpu_torch.device import full_float32, resolve_device
 from aivc_tpu_torch.models.fullnet import FullNet
 from aivc_tpu_torch.ops.layers import x444_to_yuv420, yuv420_to_444
 from aivc_tpu_torch.ops.warp import warp_engine
+from aivc_tpu_torch.parallel.halo import RowBand
 from aivc_tpu_torch.parallel.mesh import (
     all_gather_cat,
     batch_slice,
     check_mesh,
+    check_rows,
     shard_params,
 )
 
@@ -251,17 +271,25 @@ class FrameCodec:
         self.model = FullNet(cfg)
         self.model.load_state_dict(model.state_dict())
         self.model = self.model.to(self.device).eval()
-        # Optional ('data', 'spatial') mesh (parallel/mesh.py): the nets of
-        # a wave run on this rank's slice of it where 'data' divides the
-        # wave; entropy coding runs on the whole wave on every rank.  The
-        # parameters are replicated from the first rank.
-        self.mesh = mesh
-        if mesh is not None:
-            check_mesh(mesh, "FrameCodec")
-            shard_params(self.model, mesh)
-
         self.h, self.w = height, width
         self.hp = math.ceil(height / PAD_MULTIPLE) * PAD_MULTIPLE
+        # Optional ('data', 'spatial') mesh (parallel/mesh.py): the nets of
+        # a wave run on this rank's slice of it where 'data' divides the
+        # wave, and on this rank's band of rows over 'spatial'; entropy
+        # coding runs on the whole wave on every rank.  The parameters are
+        # replicated from the first rank.
+        self.mesh = mesh
+        self.band = None
+        if mesh is not None:
+            check_mesh(mesh, "FrameCodec")
+            check_rows(mesh, self.hp, max(cfg.mofnet.k_size,
+                                          cfg.codecnet.k_size) // 2,
+                       "FrameCodec")
+            shard_params(self.model, mesh)
+            if mesh.spatial_size > 1:
+                self.band = RowBand(mesh)
+                self.model.split_rows(self.band)
+
         self.wp = math.ceil(width / PAD_MULTIPLE) * PAD_MULTIPLE
         self.h_uv, self.w_uv = math.ceil(height / 2), math.ceil(width / 2)
         self.hy, self.wy = self.hp // Y_DOWNSCALE, self.wp // Y_DOWNSCALE
@@ -395,15 +423,21 @@ class FrameCodec:
         arrs = [r if r is not None else self._zero_ref() for r in refs]
         return torch.cat(arrs, dim=0).contiguous()
 
-    def _cast_planes(self, x444: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Crop, 444 -> 420, quantize to 256 levels: uint8 [B, h, w]."""
-        yf, uf, vf = x444_to_yuv420(x444)
-        crops = {"y": yf[:, 0, :self.h, :self.w],
-                 "u": uf[:, 0, :self.h_uv, :self.w_uv],
-                 "v": vf[:, 0, :self.h_uv, :self.w_uv]}
-        return {k: torch.clamp(torch.round(torch.clamp(p, 0.0, 1.0) * 255.0),
-                               0, 255).to(torch.uint8)
-                for k, p in crops.items()}
+    def _cast_planes(self, x444: torch.Tensor, maps=()):
+        """444 -> 420, quantize to 256 levels, crop: uint8 [B, h, w] each;
+        of a row band, the bands of every rank gathered first, with the
+        float ``maps`` [B, 1, rows, W] (the alpha / beta masks) in the
+        same collective.  -> (planes, the maps of the whole frame)."""
+        ts = [torch.clamp(torch.round(torch.clamp(p, 0.0, 1.0) * 255.0),
+                          0, 255).to(torch.uint8)
+              for p in x444_to_yuv420(x444)] + list(maps)
+        if self.band is not None:
+            ts = all_gather_cat(self.mesh, ts, 2, axis="spatial")
+        y, u, v = (t[:, 0] for t in ts[:3])
+        planes = {"y": y[:, :self.h, :self.w].contiguous(),
+                  "u": u[:, :self.h_uv, :self.w_uv].contiguous(),
+                  "v": v[:, :self.h_uv, :self.w_uv].contiguous()}
+        return planes, ts[3:]
 
     @staticmethod
     def _apply_dc(out, dc: torch.Tensor):
@@ -542,28 +576,33 @@ class FrameCodec:
         nxt = self._stack_refs(next_refs)
 
         t = dict.fromkeys(self.WAVE_KEYS)
+        maps = ()
         if frame_type == FRAME_I:
-            pred = torch.zeros_like(frame)
-            skip = torch.zeros_like(frame)
+            pred = skip = torch.zeros_like(m._rows(frame))
         else:
             y_m, z_qm = m.mof_analyze(frame, prev, nxt, idx_rate, frame_type)
             z_qm = canonical(torch.clamp(z_qm, -acv, acv - 1))
             mu_m, bins_m = self._hyper("mofnet", z_qm)
             q_m = canonical(self._quantize_y(y_m, mu_m))
-            maps = m.mofnet_synth_maps(q_m, mu_m, prev, nxt, idx_rate,
-                                       frame_type)
-            mof = m.motion_comp_stage(prev, nxt, maps, frame_type,
+            maps6 = m.mofnet_synth_maps(q_m, mu_m, prev, nxt, idx_rate,
+                                        frame_type)
+            mof = m.motion_comp_stage(prev, nxt, maps6, frame_type,
                                       self.warp_engine)
             pred, skip = mof["pred"], mof["skip"]
-            t.update(z_m=z_qm, q_m=q_m, bins_m=bins_m,
-                     alpha_mean=mof["alpha_mean"], beta_mean=mof["beta_mean"])
+            maps = (mof["alpha"], mof["beta"])
+            t.update(z_m=z_qm, q_m=q_m, bins_m=bins_m)
 
         y_c, z_qc = m.cod_analyze(frame, pred, idx_rate, frame_type)
         z_qc = canonical(torch.clamp(z_qc, -acv, acv - 1))
         mu_c, bins_c = self._hyper("codecnet", z_qc)
         q_c = canonical(self._quantize_y(y_c, mu_c))
         x_hat = m.codecnet_synth(q_c, mu_c, pred, skip, idx_rate, frame_type)
-        out = self._cast_planes(x_hat)
+        out, maps = self._cast_planes(x_hat, maps)
+        if maps:
+            # On contiguous whole-frame masks, gathered or not, so a mesh
+            # takes the means one process takes.
+            t["alpha_mean"], t["beta_mean"] = (
+                a.contiguous().mean(dim=(1, 2, 3)) for a in maps)
         if self.dc_offset:
             out, t["dc"] = self._dc_correct_enc(out, orig)
         t.update(z_c=z_qc, q_c=q_c, bins_c=bins_c, **out)
@@ -592,20 +631,39 @@ class FrameCodec:
                 "dc": t["dc"], "decoded": self._split_decoded(out, ref444, k)}
 
     @torch.no_grad()
+    def encode_frames_launch(self, frames_u8, prev_refs, next_refs,
+                             frame_type: int, idx_rate: float) -> Dict:
+        """The device half of k same-type frames' encode, queued: the
+        nets, the cast, the DC correction and the references (the host
+        waits for the frames' upload and, under a mesh, the gathers, not
+        for the nets).  Returns the wave's handles;
+        their ``decoded`` (DecodedFrame list) are device references that
+        later waves may take before ``encode_frames_finish``."""
+        return self._encode_transforms(frames_u8, prev_refs, next_refs,
+                                       frame_type, idx_rate)
+
+    @torch.no_grad()
+    def encode_frames_finish(self, handles: Dict):
+        """The host half of a launched wave: the K policy, entropy coding
+        and packing (and the rate audit).  Waves must be finished in the
+        order they were launched.  Returns (frame bytes list,
+        DecodedFrame list, per-frame stats)."""
+        if self.backend == "device":
+            frame_bytes, stats = self._entropy_device(handles)
+        else:
+            frame_bytes, stats = self._entropy_host(handles)
+        if self.audit:
+            for s, bits in zip(stats, self._analytic_bits(handles).tolist()):
+                s["analytic_bits"] = bits
+        return frame_bytes, handles["decoded"], stats
+
     def encode_frames_batch(self, frames_u8, prev_refs, next_refs,
                             frame_type: int, idx_rate: float):
-        """Code k same-type frames as one device batch.  Returns (frame
-        bytes list, DecodedFrame list, per-frame stats)."""
-        w = self._encode_transforms(frames_u8, prev_refs, next_refs,
-                                    frame_type, idx_rate)
-        if self.backend == "device":
-            frame_bytes, stats = self._entropy_device(w)
-        else:
-            frame_bytes, stats = self._entropy_host(w)
-        if self.audit:
-            for s, bits in zip(stats, self._analytic_bits(w).tolist()):
-                s["analytic_bits"] = bits
-        return frame_bytes, w["decoded"], stats
+        """Code k same-type frames as one device batch: launch, then
+        finish.  Returns (frame bytes list, DecodedFrame list, per-frame
+        stats)."""
+        return self.encode_frames_finish(self.encode_frames_launch(
+            frames_u8, prev_refs, next_refs, frame_type, idx_rate))
 
     def _base_stats(self, w) -> List[Dict]:
         k = w["k"]
@@ -967,7 +1025,7 @@ class FrameCodec:
                 chunks, digests, prev, nxt, frame_type, idx_rate, sl)
         x_hat = self.model.codecnet_synth(_part(q_c, sl), mu_c, pred, skip,
                                           idx_rate, frame_type)
-        out = self._cast_planes(x_hat)
+        out, _ = self._cast_planes(x_hat)
         if self.dc_offset:
             dcs = []
             for c in chunks:
@@ -996,6 +1054,8 @@ class FrameCodec:
 
     def _motion(self, q_m, mu_m, prev, nxt, frame_type: int,
                 idx_rate: float):
+        """pred and skip of this rank's slice (and band) from its whole
+        q_m, mu_m and references."""
         maps = self.model.mofnet_synth_maps(q_m, mu_m, prev, nxt, idx_rate,
                                             frame_type)
         mof = self.model.motion_comp_stage(prev, nxt, maps, frame_type,
@@ -1003,7 +1063,8 @@ class FrameCodec:
         return mof["pred"], mof["skip"]
 
     def _zero_pred(self, k: int):
-        pred = torch.zeros((k, 3, self.hp, self.wp), dtype=torch.float32,
+        rows = self.hp // (1 if self.band is None else self.band.size)
+        pred = torch.zeros((k, 3, rows, self.wp), dtype=torch.float32,
                            device=self.device)
         return pred, torch.zeros_like(pred)
 

@@ -5,13 +5,17 @@ taken from the codec's own decoded output, and a self-describing muxed
 bitstream.  All-Intra with wave_batch > 1 batches consecutive frames
 across GOP boundaries; ``stream_dir`` makes an encode resumable
 (``GopStreamStore``); either entropy backend's stream decodes, from the
-video header's flag."""
+video header's flag.  ``AIVC_PIPELINE_LOOKAHEAD`` keeps that many waves
+of a GOP launched on the device ahead of the one being entropy-coded
+(``encode_gop``); the bytes do not depend on it."""
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import time
+from collections import deque
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
@@ -89,25 +93,54 @@ def _frame_result(idx: int, frame_type: int, st: Dict,
         analytic_bits=st.get("analytic_bits", 0.0))
 
 
+def lookahead() -> int:
+    """AIVC_PIPELINE_LOOKAHEAD (default 0): how many waves ``encode_gop``
+    keeps launched ahead of the one it finishes, read on each call."""
+    n = int(os.environ.get("AIVC_PIPELINE_LOOKAHEAD", "0"))
+    if n < 0:
+        raise ValueError(f"AIVC_PIPELINE_LOOKAHEAD must be >= 0, got {n}")
+    return n
+
+
 def encode_gop(codec: FrameCodec, gop: GopStruct,
                frames_u8: Sequence[Dict[str, np.ndarray]], idx_rate: float,
                first_idx: int, results: List[FrameResult],
                wave_batch: int = 1):
     """Encode one GOP (frames in display order).  Returns (packed GOP
-    bytes, decoded frames by absolute index)."""
+    bytes, decoded frames by absolute index).
+
+    A software pipeline (aivc_tpu/pipeline/video.py:94-133): each wave's
+    device half is launched (FrameCodec.encode_frames_launch) with its
+    references taken from earlier waves on the device, and up to
+    ``lookahead()`` launched waves wait while the oldest is finished
+    (encode_frames_finish: entropy coding and packing), in coding order,
+    so every lookahead writes the bytes of lookahead 0."""
     decoded: Dict[int, DecodedFrame] = {}
     by_order: Dict[int, bytes] = {}
     n_pix = codec.h * codec.w
-    for ftype, specs in wave_groups(gop, max(1, wave_batch)):
-        fbs, decs, stats = codec.encode_frames_batch(
-            [frames_u8[s.idx] for s in specs],
-            [_ref(decoded, s.prev_ref) for s in specs],
-            [_ref(decoded, s.next_ref) for s in specs], ftype, idx_rate)
-        for spec, fb, dec, st in zip(specs, fbs, decs, stats):
-            decoded[spec.idx] = dec
+    depth = lookahead()
+    inflight = deque()
+
+    def finish_one():
+        specs, handles = inflight.popleft()
+        fbs, _, stats = codec.encode_frames_finish(handles)
+        for spec, fb, st in zip(specs, fbs, stats):
             by_order[spec.coding_order] = fb
             results.append(_frame_result(first_idx + spec.idx,
                                          spec.frame_type, st, n_pix))
+
+    for ftype, specs in wave_groups(gop, max(1, wave_batch)):
+        handles = codec.encode_frames_launch(
+            [frames_u8[s.idx] for s in specs],
+            [_ref(decoded, s.prev_ref) for s in specs],
+            [_ref(decoded, s.next_ref) for s in specs], ftype, idx_rate)
+        for spec, dec in zip(specs, handles["decoded"]):
+            decoded[spec.idx] = dec
+        inflight.append((specs, handles))
+        while len(inflight) > depth:
+            finish_one()
+    while inflight:
+        finish_one()
     header = bs.GopHeader(gop_struct_name=gop.name, idx_rate=idx_rate)
     frames = [by_order[o] for o in sorted(by_order)]
     return bs.pack_gop(header, frames), {first_idx + k: v

@@ -41,6 +41,16 @@ take their plain versions).  On the card:
            (AIVC_GDN_LOWP=0 AIVC_DC_OFFSET=0), each bit-exact, and a
            stream refused by a codec of another schedule
            (``formats_runs``)
+  multidevice
+           two ranks, one process each, on the card over gloo: the GOP
+           round-robin, the mesh codec over 'data', train-small over
+           'data' and over 'spatial', and the mesh codec over 'spatial'
+           (each rank on its band of rows, halos exchanged; one K3 band
+           launch checked and timed here) (``multidevice_runs``)
+  lookahead
+           the clip encoded warm at AIVC_PIPELINE_LOOKAHEAD 0 and 4 in
+           turns: the same bytes, the encode fps of each
+           (``lookahead_runs``)
 """
 
 from __future__ import annotations
@@ -134,6 +144,10 @@ KERNEL_SOURCES = {
                     "aivc_tpu/coding/vrans.py:630"),
     "warp_packed": ("aivc_tpu_torch/csrc/kernels.cu",
                     "aivc_tpu/ops/warp_pallas.py:303"),
+    # K3 launched on a row window (a band of a frame split over a mesh's
+    # 'spatial' axis)
+    "warp_packed_band": ("aivc_tpu_torch/csrc/kernels.cu",
+                         "aivc_tpu/ops/warp_pallas.py:303"),
     "gdn_fused": ("aivc_tpu_torch/csrc/kernels.cu",
                   "aivc_tpu/ops/gdn.py:133"),
     "warp_vclamped": ("aivc_tpu_torch/csrc/kernels.cu",
@@ -420,19 +434,24 @@ def check_warp(device: torch.device, batch: int, h: int, w: int, fb: int,
 
 class WarpWatch:
     """Wraps ops/warp.py:warp_packed_cuda, which mc_warp calls through
-    its module, and keeps a copy of the (packed, u, v) of the first
+    its module, and keeps a copy of the (packed, u, v, row0) of the first
     launch with the largest batch while open: in an RA clip's encode, a
-    B-frame wave's."""
+    B-frame wave's.  With ``band`` only launches on a band of rows below
+    the first (row0 > 0: a mesh's 'spatial' rank past the first) count."""
 
-    def __init__(self):
+    def __init__(self, band: bool = False):
         self.inputs = None
+        self.band = band
         self._kernel = warp_ops.warp_packed_cuda
         warp_ops.warp_packed_cuda = self._call
 
-    def _call(self, packed, u, v):
-        if self.inputs is None or packed.shape[0] > self.inputs[0].shape[0]:
-            self.inputs = tuple(t.detach().clone() for t in (packed, u, v))
-        return self._kernel(packed, u, v)
+    def _call(self, packed, u, v, row0=0):
+        if (not self.band or row0 > 0) and (
+                self.inputs is None
+                or packed.shape[0] > self.inputs[0].shape[0]):
+            self.inputs = tuple(t.detach().clone()
+                                for t in (packed, u, v)) + (row0,)
+        return self._kernel(packed, u, v, row0)
 
     def close(self) -> None:
         if warp_ops.warp_packed_cuda == self._call:
@@ -440,23 +459,45 @@ class WarpWatch:
 
 
 def check_warp_on(inputs, reps: int = 20) -> Dict:
-    """K3 on captured (packed, u, v) against the plain warp, bit for bit,
-    and timed (the plain version itself on the host)."""
-    packed, u, v = inputs
+    """K3 on captured (packed, u, v, row0) against the plain warp, bit for
+    bit, and timed (the plain version itself on the host), with the
+    plain version's time and a library call's (a border-clamped bilinear
+    grid_sample of a float frame at the same rows)."""
+    packed, u, v, row0 = inputs
     dev = packed.device
     kern = (warp_ops.warp_packed_cuda if dev.type == "cuda"
             else warp_ops.warp_packed)
-    out = kern(packed, u, v)
-    ref = warp_ops.warp_packed(packed, u, v)
+    out = kern(packed, u, v, row0)
+    ref = warp_ops.warp_packed(packed, u, v, row0)
     mism = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
     if mism:
         raise AssertionError(f"K3 on captured flows: {mism} values differ "
                              "in bits from the plain warp")
-    ms = time_ms(lambda: kern(packed, u, v), dev, reps, hide_host=True)
-    px = packed.numel()
-    return {"shape": list(packed.shape), "ms": ms,
+    ms = time_ms(lambda: kern(packed, u, v, row0), dev, reps, hide_host=True)
+    plain = time_ms(lambda: warp_ops.warp_packed(packed, u, v, row0), dev, 3)
+    b, H, w = packed.shape
+    h = u.shape[1]
+    frame = torch.rand((b, 3, H, w), device=dev)
+    xs = torch.arange(w, device=dev).view(1, 1, w) + u
+    ys = torch.arange(row0, row0 + h, device=dev).view(1, h, 1) + v
+    grid = torch.stack([xs / (w - 1) * 2 - 1, ys / (H - 1) * 2 - 1], dim=-1)
+    lib_ms = time_ms(lambda: F.grid_sample(
+        frame, grid, mode="bilinear", padding_mode="border",
+        align_corners=True), dev, reps, hide_host=True)
+    px = u.numel()
+    return {"shape": list(packed.shape), "rows": [row0, row0 + h],
+            "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
             "max_flow": float(torch.maximum(u.abs().max(), v.abs().max())),
-            "bound_ms": 24 * px / HBM_BYTES_PER_S * 1e3}
+            "bound_ms": 24 * px / HBM_BYTES_PER_S * 1e3,
+            "bound_bytes": 24 * px, "bound_ops": 45 * px}
+
+
+def band_warp_record(rec: Dict) -> Dict:
+    """The kernels line's record of K3 on a captured band launch
+    (check_warp_on's result)."""
+    return _record("warp_packed_band", 0.0, rec["ms"], rec["plain_ms"],
+                   rec["bound_bytes"], rec["bound_ops"],
+                   library_ms=rec["library_ms"])
 
 
 def capture_encode_warp(codec: FrameCodec, frames, wave_batch: int = 8,
@@ -1623,13 +1664,19 @@ MULTI_WORLD = 2
 # The K of the round-robin's pinned encodes: the policy's own choice for
 # most 1080p waves (PERF.md §6), so the pin moves the bytes least.
 MULTI_PIN_K = 1024
-# The most the phase's ranks may take, all three parts.
+# The most the phase's ranks may take, all four parts.
 MULTI_TIMEOUT_S = 600.0
-# The train step's two layouts over 'data' = 2, as (batch, accum) of
-# train_small_inputs: a whole microbatch a rank (accum 2), and one
-# microbatch of 2 split a sample a rank (accum 1).
-MULTI_TRAIN_CASES = {"microbatch_per_rank": (2, 2),
-                     "split_microbatch": (2, 1)}
+# The train step's layouts over the ranks, as (batch, accum) of
+# train_small_inputs and the mesh's 'spatial' size: over 'data' = 2 a
+# whole microbatch a rank (accum 2), and one microbatch of 2 split a
+# sample a rank (accum 1); over 'spatial' = 2 each microbatch's rows
+# split into two bands.
+MULTI_TRAIN_CASES = {"microbatch_per_rank": (2, 2, 1),
+                     "split_microbatch": (2, 1, 1),
+                     "spatial": (2, 2, 2)}
+# The spatial part's mesh: every rank on 'spatial' (bands of 544 rows of
+# a 1088-row frame, 34 at the y level).
+MULTI_SPATIAL = 2
 
 
 def recon_md5(decoded, indices) -> Dict[int, str]:
@@ -1678,21 +1725,35 @@ def rank_round_robin(device, ckpt: str, frames, gop: int, wave_batch: int,
 
 
 def rank_mesh_codec(device, ckpt: str, frames, gop: int,
-                    wave_batch: int) -> Dict:
+                    wave_batch: int, spatial: int = 1) -> Dict:
     """On a rank: the clip encoded and decoded by a FrameCodec over the
-    'data' mesh of every rank; the decode must equal the encoder's
-    reconstructions bit for bit.  The stream, the md5 of the
-    reconstructions, PSNR, seconds and the collectives' seconds."""
+    ('data', 'spatial') mesh of every rank with ``spatial`` bands; the
+    decode must equal the encoder's reconstructions bit for bit.  The
+    stream, the md5 of the reconstructions, PSNR, seconds, the
+    collectives' seconds (all of them; under 'spatial' the halo
+    exchanges' and the row gathers' too), K1-K3's launches, the peak
+    device memory and, on a card's band past the first, the inputs of one
+    K3 band launch of the encode."""
     from aivc_tpu_torch.parallel.mesh import make_mesh
 
-    mesh = make_mesh()
+    mesh = make_mesh(spatial=spatial)
     cfg, model = load_checkpoint(ckpt, device=device)
     h, w = frames[0]["y"].shape
     codec = FrameCodec(cfg, model, h, w, device=device, mesh=mesh)
     comm0 = mesh.comm_seconds
     _barrier_sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    launches0 = dict(kernels.LAUNCHES)
+    watch = (WarpWatch(band=True)
+             if codec.band is not None and device.type == "cuda" else None)
     t0 = time.time()
-    enc = encode_video(codec, frames, ra_coding(gop), wave_batch=wave_batch)
+    try:
+        enc = encode_video(codec, frames, ra_coding(gop),
+                           wave_batch=wave_batch)
+    finally:
+        if watch is not None:
+            watch.close()
     sync(device)
     t1 = time.time()
     dec = decode_video(codec, enc.bitstream)
@@ -1703,9 +1764,21 @@ def rank_mesh_codec(device, ckpt: str, frames, gop: int,
         raise AssertionError("the mesh codec's decode differs from its "
                              "encoder's reconstructions")
     q = evaluate_frames(frames, dec, device=device)
+    band = codec.band
     return {"bitstream": enc.bitstream, "md5": md5, "psnr": q["psnr"],
             "encode_s": t1 - t0, "decode_s": t2 - t1,
-            "comm_s": mesh.comm_seconds - comm0}
+            "comm_s": mesh.comm_seconds - comm0,
+            "halo_s": band.halo_seconds if band else 0.0,
+            "gather_s": band.gather_seconds if band else 0.0,
+            "launches": {k: v - launches0[k]
+                         for k, v in kernels.LAUNCHES.items()},
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                         if device.type == "cuda" else None),
+            # One K3 launch on a band below the first (row0 > 0), its
+            # inputs on the host: the largest batch of the encode's.
+            "band_warp": (None if watch is None or watch.inputs is None
+                          else tuple(t.cpu() if torch.is_tensor(t) else t
+                                     for t in watch.inputs))}
 
 
 def train_step_on(ckpt: str, device: torch.device, frames: torch.Tensor,
@@ -1731,19 +1804,22 @@ def train_step_on(ckpt: str, device: torch.device, frames: torch.Tensor,
 
 
 def rank_train_step(device, ckpt: str, frames: torch.Tensor, accum: int,
-                    **kw) -> Dict:
-    """On a rank: train_step_on over the 'data' mesh of every rank."""
+                    spatial: int = 1, **kw) -> Dict:
+    """On a rank: train_step_on over the ('data', 'spatial') mesh of
+    every rank with ``spatial`` bands."""
     from aivc_tpu_torch.parallel.mesh import make_mesh
 
-    return train_step_on(ckpt, device, frames, accum, mesh=make_mesh(), **kw)
+    return train_step_on(ckpt, device, frames, accum,
+                         mesh=make_mesh(spatial=spatial), **kw)
 
 
 def rank_multidevice(device, ckpt: str, rr: Dict, mesh: Dict,
                      train: Dict[str, Dict]) -> Dict:
     """chip_smoke.py's multidevice phase on one rank: the round-robin
-    encode pinned (which warms the shapes) then free, the mesh codec, the
-    data-parallel train step of each case of ``train``; K1-K3's launches
-    over the two coding parts."""
+    encode pinned (which warms the shapes) then free, the mesh codec over
+    'data', the data-parallel train step of each case of ``train``;
+    K1-K3's launches over those coding parts; then the mesh codec over
+    'spatial' (its own launches, seconds and peak memory)."""
     kernels.reset_launches()
     out = {"rr_pinned": rank_round_robin(device, ckpt, **rr,
                                          pin_k=MULTI_PIN_K),
@@ -1752,6 +1828,8 @@ def rank_multidevice(device, ckpt: str, rr: Dict, mesh: Dict,
     out["launches"] = dict(kernels.LAUNCHES)
     out["train"] = {name: rank_train_step(device, ckpt, **kw)
                     for name, kw in train.items()}
+    out["spatial"] = rank_mesh_codec(device, ckpt, **mesh,
+                                     spatial=MULTI_SPATIAL)
     return out
 
 
@@ -1791,11 +1869,17 @@ def multidevice_runs(ckpt: str, device: torch.device, workdir,
         clip), and whether this process decodes it bit-exactly.
     (c) train-small in float32 over the ranks against one process, in
         each layout of MULTI_TRAIN_CASES (whole microbatches a rank; one
-        microbatch split over the ranks): TRAIN_SMALL_F32_TOL on the
-        logs, each gradient leaf within TRAIN_SMALL_F32_LEAF_MAX_REL_L2,
-        and the updated parameters equal on the ranks.
+        microbatch split over the ranks; the rows split over
+        'spatial'): TRAIN_SMALL_F32_TOL on the logs, each gradient leaf
+        within TRAIN_SMALL_F32_LEAF_MAX_REL_L2, and the updated
+        parameters equal on the ranks.
+    (d) the mesh codec over 'spatial' = MULTI_SPATIAL on ``mesh_frames``,
+        checked and reported as (b), with each rank's K1-K3 launches,
+        halo-exchange and row-gather seconds and peak memory; on the card
+        the K3 band launch a rank captured (row0 > 0) is held bit for bit
+        against the plain warp and timed here (``band_warp``).
     Raises on any failed check; the ranks' K1-K3 launches are returned
-    and, on the card, each must be nonzero."""
+    and, on the card, each must be nonzero, in (b) and in (d)."""
     cfg, model = load_checkpoint(ckpt, device=device)
     h, w = rr_frames[0]["y"].shape
     coding = ra_coding(rr_gop)
@@ -1808,13 +1892,15 @@ def multidevice_runs(ckpt: str, device: torch.device, workdir,
             enc = encode_video(codec, rr_frames, coding, wave_batch=rr_wave)
         sync(device)
         one[name] = {"bitstream": enc.bitstream, "seconds": time.time() - t0}
-    train_kw, train_one = {}, {}
+    train_kw, train_one, by_shape = {}, {}, {}
     t0 = time.time()
-    for name, (batch, accum) in MULTI_TRAIN_CASES.items():
-        train_kw[name] = {"frames": train_small_inputs(train_size, batch,
-                                                       accum),
-                          "accum": accum, "idx_rate": train_idx_rate}
-        train_one[name] = train_step_on(ckpt, device, **train_kw[name])
+    for name, (batch, accum, spatial) in MULTI_TRAIN_CASES.items():
+        kw = {"frames": train_small_inputs(train_size, batch, accum),
+              "accum": accum, "idx_rate": train_idx_rate}
+        if (batch, accum) not in by_shape:
+            by_shape[batch, accum] = train_step_on(ckpt, device, **kw)
+        train_one[name] = by_shape[batch, accum]
+        train_kw[name] = dict(kw, spatial=spatial)
     train_one_s = time.time() - t0
 
     t0 = time.time()
@@ -1859,23 +1945,9 @@ def multidevice_runs(ckpt: str, device: torch.device, workdir,
     out["rr"] = rr
 
     # (b)
-    res = [r["mesh"] for r in ranks]
-    stream = _same(res, "bitstream", "mesh codec")
-    md5 = _same(res, "md5", "mesh codec")
-    mh, mw = mesh_frames[0]["y"].shape
-    single = FrameCodec(cfg, model, mh, mw, device=device)
-    dec = decode_video(single, stream)
-    q_one = evaluate_frames(mesh_frames, decode_video(single, mesh_stream),
-                            device=device)
-    out["mesh"] = {
-        "bytes": len(stream), "one_bytes": len(mesh_stream),
-        "equal": stream == mesh_stream, "psnr": res[0]["psnr"],
-        "one_psnr": q_one["psnr"],
-        "one_decode_differs": sum(
-            v != md5[i] for i, v in recon_md5(dec, sorted(md5)).items()),
-        "encode_s": [r["encode_s"] for r in res],
-        "decode_s": [r["decode_s"] for r in res],
-        "comm_s": [r["comm_s"] for r in res]}
+    out["mesh"] = _mesh_codec_report([r["mesh"] for r in ranks],
+                                     "mesh codec", cfg, model, mesh_frames,
+                                     mesh_stream, device)
 
     # (c)
     out["train"] = {}
@@ -1897,10 +1969,81 @@ def multidevice_runs(ckpt: str, device: torch.device, workdir,
         out["train"][name] = {"diffs": diffs, "worst_leaf_rel_l2": worst,
                               "n_leaves": len(rows),
                               "ranks": res[0]["logs"], "one": one["logs"]}
+    # (d)
+    res = [r["spatial"] for r in ranks]
+    sp = _mesh_codec_report(res, "spatial mesh codec", cfg, model,
+                            mesh_frames, mesh_stream, device)
+    for key in ("halo_s", "gather_s", "launches", "peak_gib"):
+        sp[key] = [r[key] for r in res]
+    band = [r["band_warp"] for r in res if r["band_warp"] is not None]
+    sp["band_warp"] = None
     if device.type == "cuda":
-        for i, la in enumerate(out["launches"]):
-            missing = [k for k in ("rans_encode", "rans_decode",
-                                   "warp_packed") if la[k] == 0]
-            if missing:
-                raise AssertionError(f"rank {i} never launched {missing}")
+        if not band:
+            raise AssertionError("no K3 launch on a band past the first")
+        sp["band_warp"] = check_warp_on(tuple(
+            t.to(device) if torch.is_tensor(t) else t for t in band[0]))
+    out["spatial"] = sp
+    if device.type == "cuda":
+        for part, launches in (("round-robin and mesh codec",
+                                out["launches"]),
+                               ("spatial mesh codec", sp["launches"])):
+            for i, la in enumerate(launches):
+                missing = [k for k in ("rans_encode", "rans_decode",
+                                       "warp_packed") if la[k] == 0]
+                if missing:
+                    raise AssertionError(f"{part}: rank {i} never launched "
+                                         f"{missing}")
     return out
+
+
+def _mesh_codec_report(res: List[Dict], what: str, cfg, model, frames,
+                       one_stream: bytes, device: torch.device) -> Dict:
+    """The ranks' results of rank_mesh_codec: the same stream and
+    reconstructions on every rank; its bytes and PSNR against one
+    process's stream ``one_stream`` of ``frames``, and in how many frames
+    one process's decode of it differs from the ranks'."""
+    stream = _same(res, "bitstream", what)
+    md5 = _same(res, "md5", what)
+    h, w = frames[0]["y"].shape
+    single = FrameCodec(cfg, model, h, w, device=device)
+    dec = decode_video(single, stream)
+    q_one = evaluate_frames(frames, decode_video(single, one_stream),
+                            device=device)
+    return {
+        "bytes": len(stream), "one_bytes": len(one_stream),
+        "equal": stream == one_stream, "psnr": res[0]["psnr"],
+        "one_psnr": q_one["psnr"],
+        "one_decode_differs": sum(
+            v != md5[i] for i, v in recon_md5(dec, sorted(md5)).items()),
+        "encode_s": [r["encode_s"] for r in res],
+        "decode_s": [r["decode_s"] for r in res],
+        "comm_s": [r["comm_s"] for r in res]}
+
+
+def lookahead_runs(ckpt: str, frames, device: torch.device,
+                   depths=(0, 4), gop: int = 8, wave_batch: int = 8
+                   ) -> Dict:
+    """The clip encoded warm by a fresh codec at each
+    AIVC_PIPELINE_LOOKAHEAD of ``depths`` in turns (depths, then depths
+    reversed): the bytes must be equal; each depth's encode fps, both
+    turns.  One warm-up encode first, at lookahead 0."""
+    cfg, model = load_checkpoint(ckpt, device=device)
+    h, w = frames[0]["y"].shape
+    streams, fps = {}, {d: [] for d in depths}
+    order = [0] + list(depths) + list(reversed(depths))
+    for i, depth in enumerate(order):
+        codec = FrameCodec(cfg, model, h, w, device=device)
+        sync(device)
+        t0 = time.time()
+        with switched(AIVC_PIPELINE_LOOKAHEAD=str(depth)):
+            enc = encode_video(codec, frames, ra_coding(gop),
+                               wave_batch=wave_batch)
+        sync(device)
+        if i:
+            fps[depth].append(len(frames) / (time.time() - t0))
+        streams.setdefault(depth, enc.bitstream)
+        if enc.bitstream != streams[0]:
+            raise AssertionError(f"lookahead {depth}: {len(enc.bitstream)} "
+                                 f"B against lookahead 0's "
+                                 f"{len(streams[0])} B")
+    return {"bytes": len(streams[0]), "fps": fps}

@@ -10,6 +10,18 @@ clipped reconstructions, through which the gradient reaches MOFNet.  In
 training the latents carry uniform noise from a noise source
 (ops/quantizer.py), drawn frame by frame in coding order, as JAX splits
 one key per frame.
+
+Under a row band (``model.band``, set by make_train_step over a mesh's
+'spatial' axis; models/fullnet.py) every rank holds the whole frames,
+the nets run on its band, and each reconstruction is gathered into the
+whole frame (parallel/halo.py:gather_rows) for the references and the
+distortion.  The loss and logs are then this rank's *shares*, which sum
+over 'spatial' to the whole: the rate of y is the band's sum over the
+whole frame's pixels; the terms every rank computes whole (the rate of
+z, the distortion, MS-SSIM included) and the band means (the flow and
+alpha logs and penalties) are divided by the band count.  flow_max is
+the band's (the whole is the maximum over 'spatial'), psnr that of the
+share of mse (the caller takes it from the summed mse).
 """
 
 from __future__ import annotations
@@ -59,6 +71,10 @@ def gop_rd_loss(model, frames444: List[torch.Tensor], gop: GopStruct,
     nb_pixel = H * W
     dev = frames444[0].device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
+    band = getattr(model, "band", None)
+
+    def share(t: torch.Tensor) -> torch.Tensor:
+        return t if band is None else t / band.size
 
     recon: Dict[int, torch.Tensor] = {}
     zeros = torch.zeros_like(frames444[0])
@@ -77,33 +93,35 @@ def gop_rd_loss(model, frames444: List[torch.Tensor], gop: GopStruct,
                if spec.next_ref is not None else zeros)
         x_hat, aux = model.forward_frame(frame, prev, nxt, idx_rate,
                                          spec.frame_type, training, noise)
+        if band is not None:
+            x_hat = band.gather(x_hat)
         # References are pixel-range reconstructions, as at inference;
         # the distortion reads the unclipped x_hat (loss.py:73-82).
         recon[spec.idx] = ties.clip(x_hat, 0.0, 1.0)
 
         cod = aux["cod"]
-        codec_rate = (cod["rate_y"].sum() + cod["rate_z"].sum()) / (
+        codec_rate = (cod["rate_y"].sum() + share(cod["rate_z"].sum())) / (
             B * nb_pixel)
         if aux["mof"] is not None:
             mof = aux["mof"]
-            mode_rate = (mof["rate_y"].sum() + mof["rate_z"].sum()) / (
-                B * nb_pixel)
+            mode_rate = (mof["rate_y"].sum() + share(mof["rate_z"].sum())
+                         ) / (B * nb_pixel)
             if spec.frame_type == FRAME_B:
                 av = torch.abs(torch.cat([aux["v_prev"], aux["v_next"]],
                                          dim=1))
             else:
                 av = torch.abs(aux["v_prev"])
-            flow_sum = flow_sum + torch.mean(av)
+            flow_sum = flow_sum + share(torch.mean(av))
             flow_max = torch.maximum(flow_max, torch.max(av))
-            alpha_sum = alpha_sum + torch.mean(aux["alpha"])
+            alpha_sum = alpha_sum + share(torch.mean(aux["alpha"]))
             n_inter += 1
             raw = aux["flow_raw"].float()
             if alpha_penalty > 0.0:
-                total_loss = total_loss + alpha_penalty * torch.mean(
-                    F.softplus(4.0 * raw[:, 0:1]))
+                total_loss = total_loss + alpha_penalty * share(torch.mean(
+                    F.softplus(4.0 * raw[:, 0:1])))
             if flow_penalty > 0.0:
-                total_loss = total_loss + flow_penalty * torch.mean(
-                    ties.abs_(raw))
+                total_loss = total_loss + flow_penalty * share(torch.mean(
+                    ties.abs_(raw)))
         else:
             mode_rate = zero
 
@@ -121,6 +139,7 @@ def gop_rd_loss(model, frames444: List[torch.Tensor], gop: GopStruct,
                 dist = dist_pure + 0.25 * mse
             else:
                 dist = dist_pure = mse
+            mse, dist, dist_pure = share(mse), share(dist), share(dist_pure)
 
         cur = l_codec * codec_rate + l_mof * mode_rate + dist
         if spec.frame_type == FRAME_I:

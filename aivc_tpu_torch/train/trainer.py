@@ -23,10 +23,12 @@ import numpy as np
 import torch
 
 from aivc_tpu_torch.device import float32_precision
+from aivc_tpu_torch.parallel.halo import RowBand
 from aivc_tpu_torch.parallel.mesh import (
     all_reduce,
     batch_slice,
     check_mesh,
+    check_rows,
     mean_over_data,
     shard_params,
 )
@@ -213,10 +215,17 @@ def make_train_step(model, cfg, gop, optimizer: Optimizer,
     update.  Returns the logs of gop_rd_loss plus ``micro_skipped``,
     ``loss``, ``grad_norm`` and ``step_skipped`` as Python floats.
 
-    With ``mesh`` (parallel/mesh.py; 'data' only) every rank of the mesh
-    calls the step with the same frames and a noise source in the same
-    state, and the step is the one-process step over the ranks (the
-    parameters and Adam's state are broadcast from the first rank here):
+    With ``mesh`` (parallel/mesh.py) every rank of the mesh calls the
+    step with the same frames and a noise source in the same state, and
+    the step is the one-process step over the ranks (the parameters and
+    Adam's state are broadcast from the first rank here).  Over
+    'spatial' each rank runs the nets on its band of the frames' rows
+    (models/fullnet.py, the placement P(None, 'data', 'spatial', None,
+    None)): its loss and logs are its shares of the (micro)batch's
+    (train/loss.py), and the shares, the logs and the parameter
+    gradients are summed over 'spatial' (``flow_max`` its maximum,
+    ``psnr`` from the summed mse) before anything below sees them.  Over
+    'data':
     - where 'data' divides ``accum``, each rank takes a block of whole
       microbatches, guards each one, and the guarded sums, the valid
       count and each microbatch's loss and logs are all-reduced;
@@ -235,10 +244,14 @@ def make_train_step(model, cfg, gop, optimizer: Optimizer,
     lambdas = np.asarray(cfg.lambda_tradeoff, np.float32)
     params = list(optimizer.params)
     d = 1
+    band = None
     if mesh is not None:
         check_mesh(mesh, "make_train_step")
         d = mesh.data_size
         shard_params(params + optimizer.mu + optimizer.nu, mesh)
+        if mesh.spatial_size > 1:
+            band = RowBand(mesh)
+    halo = max(cfg.mofnet.k_size, cfg.codecnet.k_size) // 2
     whole = d > 1 and accum % d == 0
     split = d > 1 and not whole
     draw_shapes_of: Dict[tuple, List[tuple]] = {}
@@ -254,8 +267,32 @@ def make_train_step(model, cfg, gop, optimizer: Optimizer,
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
-        return (loss.detach(), {k: v.detach() for k, v in logs.items()},
-                grads)
+        loss, logs = loss.detach(), {k: v.detach() for k, v in logs.items()}
+        if band is not None:
+            return reduce_ranks(loss, logs, grads, "spatial", "sum")
+        return loss, logs, grads
+
+    def reduce_ranks(loss, logs, grads, axis: str, how: str):
+        """The ranks' loss, logs and gradients on ``axis``, summed
+        ("sum": shares of one whole) or averaged ("mean": slices of a
+        batch); ``flow_max`` their maximum and ``psnr`` from the reduced
+        mse."""
+        n = mesh.size(axis)
+        keys = [k for k in logs if k not in ("psnr", "flow_max")]
+        flat = all_reduce(mesh, torch.cat(
+            [loss.reshape(1)] + [logs[k].reshape(1) for k in keys]
+            + [g.float().reshape(-1) for g in grads]), "sum", axis)
+        if how == "mean":
+            flat = flat / n
+        fmax = all_reduce(mesh, logs["flow_max"].reshape(1), "max", axis)[0]
+        red = dict(zip(keys, flat[1:1 + len(keys)]))
+        red["psnr"] = psnr_of_mse(red["mse"])
+        red["flow_max"] = fmax
+        out, off = [], 1 + len(keys)
+        for p in params:
+            out.append(flat[off:off + p.numel()].view(p.shape).to(p.dtype))
+            off += p.numel()
+        return flat[0], {k: red[k] for k in logs}, out
 
     def split_value_and_grad(fr, idx_rate, lam, noise):
         """A (micro)batch split over the ranks: this rank's rows, then
@@ -267,19 +304,7 @@ def make_train_step(model, cfg, gop, optimizer: Optimizer,
         loss, logs, grads = value_and_grad(
             fr[:, sl], idx_rate, lam, _RowsOf(noise, sl, d),
             batch_mean=lambda t: mean_over_data(mesh, t))
-        keys = [k for k in logs if k not in ("psnr", "flow_max")]
-        flat = all_reduce(mesh, torch.cat(
-            [loss.reshape(1)] + [logs[k].reshape(1) for k in keys]
-            + [g.float().reshape(-1) for g in grads]), "sum") / d
-        fmax = all_reduce(mesh, logs["flow_max"].reshape(1), "max")[0]
-        mean = dict(zip(keys, flat[1:1 + len(keys)]))
-        mean["psnr"] = psnr_of_mse(mean["mse"])
-        mean["flow_max"] = fmax
-        out, off = [], 1 + len(keys)
-        for p in params:
-            out.append(flat[off:off + p.numel()].view(p.shape).to(p.dtype))
-            off += p.numel()
-        return flat[0], {k: mean[k] for k in logs}, out
+        return reduce_ranks(loss, logs, grads, "data", "mean")
 
     def draw_shapes(fr, idx_rate, lam) -> List[tuple]:
         """The shapes of the noise one microbatch ``fr`` draws, in order:
@@ -350,8 +375,15 @@ def make_train_step(model, cfg, gop, optimizer: Optimizer,
                        [dict(zip(keys, r)) for r in table[:, 2:]])
 
     def train_step(frames: torch.Tensor, idx_rate: int, noise):
-        with float32_precision(cfg):
-            return step(frames, idx_rate, noise)
+        if band is not None:
+            check_rows(mesh, frames.shape[3], halo, "make_train_step")
+            model.split_rows(band)
+        try:
+            with float32_precision(cfg):
+                return step(frames, idx_rate, noise)
+        finally:
+            if band is not None:
+                model.split_rows(None)
 
     def step(frames: torch.Tensor, idx_rate: int, noise):
         lam = float(lambdas[int(idx_rate)])

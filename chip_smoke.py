@@ -83,8 +83,19 @@ bit-exactly, and the seconds of the host-side gathers; (c) train-small
 in float32 over the two ranks against this process, in both layouts of
 the step over 'data' (accum 2: a whole microbatch a rank; accum 1: the
 microbatch of 2 split a sample a rank), within train-small's float32
-limits, with the parameters after the update equal on both ranks.  Each rank's K1-K3 launches are printed and
-must be nonzero.
+limits, with the parameters after the update equal on both ranks, and in the same ranks (d) the spatial
+part: the 9-frame clip through FrameCodec(mesh=make_mesh(2, spatial=2))
+(bands of 544 rows, 34 at the y level: each rank runs the nets on its
+band with hand-written halo exchanges, K3 on its row window), its own
+decode bit-exact, its bytes and PSNR against one process's, in how many
+frames one process's decode of it differs, and per rank its K1-K3
+launches, halo-exchange and row-gather seconds and peak memory; one K3
+launch on the second band (row0 544) captured there is held bit for bit
+against the plain warp and timed here; train-small's float32 step also
+runs over 'spatial' = 2.  Each rank's K1-K3 launches are printed and
+must be nonzero.  Last, one process encodes the clip warm at
+AIVC_PIPELINE_LOOKAHEAD 0 and 4 in turns (the encode launch/finish
+split): the bytes must be equal; the encode fps of each are printed.
 
 Every phase prints its elapsed seconds.  The last lines are the card's
 name and power limit, the kernels' JSON record and the result; any failed
@@ -108,6 +119,8 @@ FH, FW = 720, 1280
 IDX_RATE = 0.0
 # multidevice: the GOP round-robin's clip, at least four GOPs
 MULTI_RR_FRAMES, MULTI_RR_GOP, MULTI_RR_WAVE = 17, 4, 4
+# the encode's launch/finish split: AIVC_PIPELINE_LOOKAHEAD settings
+LOOKAHEADS = (0, 4)
 
 
 def main() -> int:
@@ -143,6 +156,7 @@ def main() -> int:
 
     cfg, model = load_checkpoint(ckpt, device=dev)
     codec = FrameCodec(cfg, model, H, W, device=dev)
+    codec_hp = codec.hp
     ph.say(f"load: {cfg.name} at {W}x{H}, flow_bound {cfg.flow_bound}, "
            f"warp engine {codec.warp_engine}, table "
            f"{codec.table.n_rows}x{codec.table.n_symbols}")
@@ -439,10 +453,11 @@ def main() -> int:
            f"mesh codec's in {mc['one_decode_differs']} of {N_FRAMES} frames")
     ph.say(f"multidevice mesh codec: encode {mc['encode_s']} s, decode "
            f"{mc['decode_s']} s, host-side gathers {mc['comm_s']} s per rank")
-    for name, (batch, accum) in smoke.MULTI_TRAIN_CASES.items():
+    for name, (batch, accum, spatial) in smoke.MULTI_TRAIN_CASES.items():
         tr = md["train"][name]
         ph.say(f"multidevice train step {name} (train-small in float32, "
-               f"batch {batch}, accum {accum} over data={smoke.MULTI_WORLD})"
+               f"batch {batch}, accum {accum} over data="
+               f"{smoke.MULTI_WORLD // spatial}, spatial={spatial})"
                f": differences from one process {tr['diffs']}; worst of "
                f"{tr['n_leaves']} gradient leaves relative L2 "
                f"{tr['worst_leaf_rel_l2'][1]:.3e} "
@@ -450,13 +465,53 @@ def main() -> int:
                f"{smoke.TRAIN_SMALL_F32_TOL}, leaf "
                f"{smoke.TRAIN_SMALL_F32_LEAF_MAX_REL_L2}; parameters after "
                f"the update bitwise equal across the ranks")
+    sp = md["spatial"]
+    ph.say(f"spatial mesh codec (data=1, spatial={smoke.MULTI_SPATIAL}, "
+           f"bands of {codec_hp // smoke.MULTI_SPATIAL} rows): {N_FRAMES} "
+           f"frames RA GOP{GOP}, wave batch {WAVE_BATCH}: its own decode "
+           f"bit-exact; {sp['bytes']} B against one process's "
+           f"{sp['one_bytes']} B ({'equal' if sp['equal'] else 'different'})"
+           f", PSNR {sp['psnr']:.4f} dB against {sp['one_psnr']:.4f} dB; one "
+           f"process's decode of the mesh stream differs from the mesh "
+           f"codec's in {sp['one_decode_differs']} of {N_FRAMES} frames")
+    for i in range(smoke.MULTI_WORLD):
+        ph.say(f"spatial mesh codec rank {i}: launches {sp['launches'][i]}, "
+               f"encode {sp['encode_s'][i]:.3f} s, decode "
+               f"{sp['decode_s'][i]:.3f} s, collectives "
+               f"{sp['comm_s'][i]:.3f} s of which halo exchanges "
+               f"{sp['halo_s'][i]:.3f} s and row gathers "
+               f"{sp['gather_s'][i]:.3f} s (forward, host copies "
+               f"included), peak memory {sp['peak_gib'][i]:.2f} GiB")
+    bw = sp["band_warp"]
+    ph.say(f"kernel warp_packed on one band launch of the spatial encode "
+           f"{bw['shape']} rows {bw['rows'][0]}..{bw['rows'][1] - 1} "
+           f"(|flow| <= {bw['max_flow']:.3f}): bit-identical to its plain "
+           f"version; {bw['ms']:.4f} ms (plain {bw['plain_ms']:.3f} ms, "
+           f"bound {bw['bound_ms']:.4f} ms, library {bw['library_ms']:.4f} "
+           f"ms)")
     ph.say(f"multidevice: ranks {md['ranks_s']:.1f} s wall; phase "
            f"{time.time() - t_phase:.1f} s")
+
+    # -- encode lookahead --------------------------------------------------
+    t_phase = time.time()
+    la = smoke.lookahead_runs(ckpt, frames, dev, depths=LOOKAHEADS,
+                              gop=GOP, wave_batch=WAVE_BATCH)
+    ph.say(f"lookahead: {N_FRAMES} frames {W}x{H} RA GOP{GOP}, warm, "
+           f"AIVC_PIPELINE_LOOKAHEAD {' and '.join(map(str, LOOKAHEADS))} "
+           f"in turns: {la['bytes']} B at every depth; encode fps on "
+           f"{info['smi']}: " + ", ".join(
+               f"lookahead {d} {' / '.join(f'{v:.3f}' for v in fps)}"
+               for d, fps in la["fps"].items())
+           + f"; {time.time() - t_phase:.1f} s")
 
     launches = {k: main_launches[k]
                 for k in ("rans_encode", "rans_decode", "warp_packed")}
     launches["warp_vclamped"] = fwd_launches["warp_vclamped"]
     launches["gdn_fused"] = rec4["launches"]
+    # K3 on a row window: the spatial mesh codec's launches, both ranks.
+    launches["warp_packed_band"] = sum(la["warp_packed"]
+                                       for la in sp["launches"])
+    records.append(smoke.band_warp_record(bw))
     print(info["smi"], flush=True)
     print(smoke.kernels_line(records, launches), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -420,6 +420,38 @@ def test_warp_kernel_bit_identical(card, shape):
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
 
 
+@pytest.mark.parametrize("b,H,W,h", [(4, 1088, 1920, 544), (2, 72, 200, 17),
+                                     (3, 40, 64, 40)])
+def test_warp_kernel_row_window(card, b, H, W, h):
+    """K3 on a row window (the band of a frame split over 'spatial': the
+    whole frame's source rows, the band's flows): bit-identical to
+    warp_packed on it at row0 0, 38 and H - h, and equal to the rows
+    row0 .. row0 + h - 1 of the whole-frame launch, which itself is
+    row0 = 0, h = H (flows of +-38 reach past every border)."""
+    g = torch.Generator().manual_seed(H + h)
+    packed = torch.randint(0, 1 << 24, (b, H, W), generator=g,
+                           dtype=torch.int32).to(card)
+    u = ((torch.rand((b, H, W), generator=g) * 2 - 1) * 38).to(card)
+    v = ((torch.rand((b, H, W), generator=g) * 2 - 1) * 38).to(card)
+    whole = tw.warp_packed_cuda(packed, u, v)
+    assert torch.equal(whole.view(torch.int32),
+                       tw.warp_packed_cuda(packed, u, v, 0).view(torch.int32))
+    for row0 in sorted({0, min(38, H - h), H - h}):
+        ub = u[:, row0:row0 + h].contiguous()
+        vb = v[:, row0:row0 + h].contiguous()
+        before = kernels.LAUNCHES["warp_packed"]
+        out = tw.warp_packed_cuda(packed, ub, vb, row0)
+        assert kernels.LAUNCHES["warp_packed"] == before + 1
+        ref = tw.warp_packed(packed, ub, vb, row0)
+        assert out.shape == (b, 3, h, W)
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+        assert torch.equal(out.view(torch.int32),
+                           whole[:, :, row0:row0 + h].view(torch.int32))
+    with pytest.raises(ValueError, match="not rows of a frame"):
+        tw.warp_packed_cuda(packed, u[:, :h].contiguous(),
+                            v[:, :h].contiguous(), H - h + 1)
+
+
 def test_wrappers_reject_bad_inputs(card):
     packed = torch.zeros((1, 8, 8), dtype=torch.int64, device=card)
     u = torch.zeros((1, 8, 8), device=card)
@@ -959,6 +991,38 @@ def test_stream_formats_closed_loop_on_card(card, switches, monkeypatch):
             assert np.array_equal(dec[i][c], enc.decoded_frames[i][c])
     assert kernels.LAUNCHES["rans_encode"] > 0
     assert kernels.LAUNCHES["rans_decode"] > 0
+
+
+def test_spatial_mesh_codec_on_one_card(card, tmp_path):
+    """Two ranks on the one card over gloo, the rows split over
+    'spatial' (bf16-r5, 128x192: bands of 64 rows, 4 at the y level;
+    RA GOP 4, wave batch 2): the same stream on both ranks, each rank's
+    decode bit-exact (rank_mesh_codec checks), K1-K3 launched on each
+    rank, the second rank's K3 launches on its row window (row0 64)."""
+    from aivc_tpu_torch.parallel.launch import run_ranks
+    from aivc_tpu_torch.pipeline import video
+
+    kernels.lib()   # built once here, not by both ranks at once
+    ckpt = str(ROOT / "models_ckpt" / "bf16-r5")
+    frames = video.synthetic_frames(5, 128, 192)
+    res = run_ranks("aivc_tpu_torch.smoke:rank_mesh_codec", 2, "gloo",
+                    tmp_path, kwargs=dict(ckpt=ckpt, frames=frames, gop=4,
+                                          wave_batch=2, spatial=2),
+                    timeout_s=300)
+    assert res[0]["bitstream"] == res[1]["bitstream"]
+    assert res[0]["md5"] == res[1]["md5"]
+    for r in res:
+        assert all(r["launches"][k] > 0 for k in ("rans_encode",
+                                                  "rans_decode",
+                                                  "warp_packed"))
+        assert r["halo_s"] > 0 and r["gather_s"] > 0
+    assert res[0]["band_warp"] is None
+    packed, u, v, row0 = res[1]["band_warp"]
+    assert row0 == 64 and u.shape[1:] == (64, 192)
+    packed, u, v = packed.to(card), u.to(card), v.to(card)
+    out = tw.warp_packed_cuda(packed, u, v, row0)
+    ref = tw.warp_packed(packed, u, v, row0)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
 
 
 def test_two_ranks_on_one_card(card, tmp_path):

@@ -13,8 +13,9 @@ run), against one process and against aivc_tpu.
   checks).  bf16-r5: within 2% bytes / 0.05 dB of JAX, as
   test_torch_dense_v1_jax.py holds it (measured: equal to the
   one-process stream; 595 B, as JAX's, and 1.0e-3 dB).
-* spatial = 2 raises in FrameCodec and make_train_step, naming ROADMAP
-  A.4.
+* A row split that cannot hold raises ValueError naming the sizes
+  (parallel/mesh.py:check_rows; FrameCodec and the train step on ranks:
+  test_torch_spatial.py).
 * make_train_step(mesh=...) on tiny-toy (float32, ms_ssim) against one
   process with the same frames and noise:
   - accum 2 and 4 over data 2 (a block of microbatches a rank, the
@@ -71,13 +72,12 @@ from aivc_tpu.config import CodingConfig as JCodingConfig
 from aivc_tpu.parallel.mesh import make_mesh as j_make_mesh
 from aivc_tpu.pipeline import video as jvideo
 from aivc_tpu_torch import smoke
-from aivc_tpu_torch.gop import generate_gop_struct
 from aivc_tpu_torch.ops.metrics import msssim
 from aivc_tpu_torch.parallel import make_mesh
 from aivc_tpu_torch.parallel.launch import run_ranks
+from aivc_tpu_torch.parallel.mesh import check_rows
 from aivc_tpu_torch.pipeline import video as tvideo
 from aivc_tpu_torch.pipeline.codec import FrameCodec
-from aivc_tpu_torch.train.trainer import make_optimizer, make_train_step
 from aivc_tpu_torch.utils.checkpoint import load_checkpoint, params_from_jax
 from test_torch_dense_v1 import _jax_codec
 from test_torch_train_step import compare_with_jax
@@ -184,15 +184,26 @@ def test_mesh_codec_matches_one_process_and_jax(tmp_path, ckpt):
     assert abs(res[0]["psnr"] - ref) <= PSNR_ATOL
 
 
-def test_spatial_mesh_refused():
+def test_spatial_rows_that_cannot_split_refused():
+    """check_rows (FrameCodec and make_train_step call it) refuses a row
+    split that cannot hold, naming the sizes: padded rows not a multiple
+    of 16 bands, or fewer rows a band at the y level than the halo;
+    spatial 1 and splits that hold pass."""
+    with pytest.raises(ValueError, match=r"FrameCodec: 64 padded rows do "
+                       r"not split over spatial=3: .*\(64 % 48 = 16\)"):
+        check_rows(make_mesh(3, spatial=3), 64, 2, "FrameCodec")
+    with pytest.raises(ValueError, match=r"64 padded rows over spatial=4 "
+                       r"leave 1 rows a rank at the y level, fewer than the "
+                       r"2-row halo"):
+        check_rows(make_mesh(4, spatial=4), 64, 2, "make_train_step")
+    check_rows(make_mesh(2, spatial=2), 64, 2, "FrameCodec")
+    check_rows(make_mesh(4, spatial=4), 64, 1, "FrameCodec")
+    check_rows(make_mesh(2), 80, 2, "FrameCodec")
+    check_rows(None, 80, 2, "FrameCodec")
     cfg, model = load_checkpoint(TINY, device="cpu")
-    mesh = make_mesh(2, spatial=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        FrameCodec(cfg, model, H, W, device="cpu", mesh=mesh)
-    params = list(model.parameters())
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        make_train_step(model, cfg, generate_gop_struct("1_GOP_2"),
-                        make_optimizer(params), mesh=mesh)
+    with pytest.raises(ValueError, match="no process group"):
+        FrameCodec(cfg, model, H, W, device="cpu",
+                   mesh=make_mesh(2, spatial=2))
 
 
 def test_mesh_without_process_group_refused():

@@ -93,7 +93,7 @@ def test_resume_reencodes_only_missing(model, frames, tmp_path):
     cfg, m = model
     codec = FrameCodec(cfg, m, H, W, device="cpu")
     coded, decoded = [], []
-    enc_orig, dec_orig = codec.encode_frames_batch, codec.decode_frames_batch
+    enc_orig, dec_orig = codec.encode_frames_launch, codec.decode_frames_batch
 
     def enc_spy(frames_u8, *a, **k):
         coded.append(len(frames_u8))
@@ -103,7 +103,8 @@ def test_resume_reencodes_only_missing(model, frames, tmp_path):
         decoded.append(len(fbs))
         return dec_orig(fbs, *a, **k)
 
-    codec.encode_frames_batch, codec.decode_frames_batch = enc_spy, dec_spy
+    # encode_gop launches each wave's encode (then finishes it)
+    codec.encode_frames_launch, codec.decode_frames_batch = enc_spy, dec_spy
     tvideo.encode_video(codec, frames, _coding("RA"), wave_batch=2,
                         stream_dir=sd)
     assert sum(decoded) == 5        # GOP 0, from disk

@@ -74,16 +74,17 @@ def test_warp_watch_captures_an_encode_launch(codec, monkeypatch):
     K3's check on those inputs passes."""
     seen = []
 
-    def stand_in(packed, u, v):
-        seen.append((packed.clone(), u.clone(), v.clone()))
-        return warp_ops.warp_packed(packed, u, v)
+    def stand_in(packed, u, v, row0=0):
+        seen.append((packed.clone(), u.clone(), v.clone(), row0))
+        return warp_ops.warp_packed(packed, u, v, row0)
 
     monkeypatch.setattr(warp_ops, "warp_packed_cuda", stand_in)
     real_mc = warp_ops.mc_warp
 
-    def mc_to_stand_in(packed, u, v, engine):
+    def mc_to_stand_in(packed, u, v, engine, row0=0):
         return warp_ops.warp_packed_cuda(packed.contiguous(),
-                                         u.contiguous(), v.contiguous())
+                                         u.contiguous(), v.contiguous(),
+                                         row0)
 
     monkeypatch.setattr("aivc_tpu_torch.models.fullnet.mc_warp",
                         mc_to_stand_in)
@@ -93,8 +94,9 @@ def test_warp_watch_captures_an_encode_launch(codec, monkeypatch):
     batches = [c[0].shape[0] for c in seen]
     first = seen[batches.index(4)]
     assert max(batches) == 4 and batches.count(4) == 2
-    assert all(torch.equal(a, b) for a, b in zip(inputs, first))
-    packed, u, v = inputs
+    assert all(torch.equal(a, b) for a, b in zip(inputs[:3], first[:3]))
+    packed, u, v, row0 = inputs
+    assert row0 == first[3] == 0
     assert packed.dtype == torch.int32 and u.shape == packed.shape
     rec = smoke.check_warp_on(inputs, reps=1)
     assert rec["shape"] == list(packed.shape) and rec["ms"] > 0
@@ -110,6 +112,35 @@ def test_capture_encode_warp_fails_without_a_launch(codec):
     with pytest.raises(AssertionError, match="no warp_packed launch"):
         smoke.capture_encode_warp(codec, synthetic_frames(9, 128, 128))
     assert warp_ops.warp_packed_cuda is kernel
+
+
+def test_band_warp_checked_and_recorded():
+    """check_warp_on on a band launch (row0 > 0, the band's flows and
+    the whole frame) holds it against the plain warp and gives the
+    kernels line's record of warp_packed_band, its bound from the band's
+    pixels."""
+    g = torch.Generator().manual_seed(5)
+    packed = torch.randint(0, 1 << 24, (2, 64, 96), generator=g,
+                           dtype=torch.int32)
+    u = (torch.rand((2, 32, 96), generator=g) * 2 - 1) * 30
+    v = (torch.rand((2, 32, 96), generator=g) * 2 - 1) * 30
+    rec = smoke.check_warp_on((packed, u, v, 32), reps=1)
+    assert rec["rows"] == [32, 64] and rec["shape"] == [2, 64, 96]
+    assert rec["bound_bytes"] == 24 * 2 * 32 * 96
+    line = json.loads(smoke.kernels_line([smoke.band_warp_record(rec)],
+                                         {"warp_packed_band": 3}))
+    (r,) = line["kernels"]
+    assert set(r) == KEYS and r["launches"] == 3
+    assert r["replaces"] == "aivc_tpu/ops/warp_pallas.py:303"
+    assert r["bound_by"] == "bytes" and r["library_ms"] > 0
+
+
+def test_lookahead_runs_rehearsed_on_host():
+    out = smoke.lookahead_runs(str(CKPT), synthetic_frames(5, 64, 64),
+                               torch.device("cpu"), depths=(0, 2), gop=4,
+                               wave_batch=2)
+    assert out["bytes"] > 0
+    assert {d: len(v) for d, v in out["fps"].items()} == {0: 2, 2: 2}
 
 
 def test_encode_equal_sees_one_word(codec):
@@ -223,7 +254,8 @@ def test_vclamp_watch_captures_a_forward_launch(bf16_forward, monkeypatch):
         seen.append((x.clone(), flow.clone()))
         return warp_ops.warp_vclamped(x, flow)
 
-    def warp_to_stand_in(x, flow):
+    def warp_to_stand_in(x, flow, row0=0):
+        assert row0 == 0
         return warp_ops.warp_vclamped_cuda(x.contiguous(), flow.contiguous())
 
     monkeypatch.setattr(warp_ops, "warp_vclamped_cuda", stand_in)

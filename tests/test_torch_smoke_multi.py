@@ -4,10 +4,12 @@ ranks against this process, through smoke.multidevice_runs's own checks
 (the pinned round-robin stream equal to one process's, every stream
 decoded bit-exactly against the ranks' reconstructions, the train step
 with a whole microbatch a rank and with one microbatch split over the
-ranks within train-small's float32 limits, the ranks' parameters
-equal).
+ranks and with the rows split over 'spatial' within train-small's
+float32 limits, the ranks' parameters equal, the mesh codec over
+'spatial' decoded bit-exactly).
 On the host every coding net is float32, so the unpinned round-robin
-and the mesh codec also equal one process's streams here."""
+and the mesh codec (over 'data' and over 'spatial') also equal one
+process's streams here."""
 
 from pathlib import Path
 
@@ -59,5 +61,16 @@ def test_multidevice_rehearsed(tmp_path):
     split = md["train"]["split_microbatch"]
     assert split["worst_leaf_rel_l2"][1] <= 1e-3
     assert split["diffs"]["loss"] <= 1e-5
+    # Rows over 'spatial': the halo exchanges and the row gathers ran,
+    # and the stream is one process's; the train step's shares sum to
+    # the one-process step (measured: logs equal, worst leaf 2.7e-5).
+    sp = md["spatial"]
+    assert sp["equal"] and sp["one_decode_differs"] == 0
+    assert all(s > 0 for s in sp["halo_s"] + sp["gather_s"])
+    assert sp["band_warp"] is None
+    rows = md["train"]["spatial"]
+    assert rows["worst_leaf_rel_l2"][1] <= 1e-4
+    assert rows["diffs"]["loss"] <= 1e-6
     # the plain versions run on the host: no kernel launches
-    assert all(v == 0 for la in md["launches"] for v in la.values())
+    assert all(v == 0 for la in md["launches"] + sp["launches"]
+               for v in la.values())
