@@ -51,6 +51,13 @@ take their plain versions).  On the card:
            the clip encoded warm at AIVC_PIPELINE_LOOKAHEAD 0 and 4 in
            turns: the same bytes, the encode fps of each
            (``lookahead_runs``)
+  scripts  the operational tools (aivc_tpu_torch/scripts/) at full width:
+           rd_sweep of the clip (K free and pinned, in this process and
+           over worker processes; the in-process streams decoded
+           bit-exactly), eval_ckpt of the checkpoint and of the low-rate
+           specialist make_lowrate derives from it, with bd_from_eval of
+           the two, latent_range, probe_motion, and scripts.aivc's three
+           processes on the clip's YUV (``scripts_runs``)
 """
 
 from __future__ import annotations
@@ -2047,3 +2054,204 @@ def lookahead_runs(ckpt: str, frames, device: torch.device,
                                  f"B against lookahead 0's "
                                  f"{len(streams[0])} B")
     return {"bytes": len(streams[0]), "fps": fps}
+
+
+# ---------------------------------------------------------------------------
+# scripts phase: the operational tools (aivc_tpu_torch/scripts/)
+# ---------------------------------------------------------------------------
+
+# rd_sweep's rates on the clip (a fractional one among them) and its
+# worker count; eval_ckpt's size, families and rates (four: BD metrics
+# need four points a curve).
+SWEEP_RATES = "0,2.5,6"
+SWEEP_PROCS = 3
+EVAL_H, EVAL_W, EVAL_CLIPS, EVAL_RATES = 240, 416, 3, "0,2,4,6"
+SCRIPTS_TIMEOUT_S = 900
+
+
+def _quiet_main(main, argv: List[str]) -> str:
+    """A script's main(argv) in this process: its standard output;
+    raises if it exits nonzero."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main([str(a) for a in argv])
+    if rc != 0:
+        raise AssertionError(f"{main.__module__} {argv} exited {rc}:\n"
+                             f"{buf.getvalue()}")
+    return buf.getvalue()
+
+
+def _no_fps(rows: List[Dict]) -> List[Dict]:
+    return [{k: v for k, v in r.items() if k != "enc_fps"} for r in rows]
+
+
+def scripts_runs(ckpt: str, frames, device: torch.device, tmp, root,
+                 cli_stream: bytes, gop: int = 8, wave_batch: int = 8,
+                 pin_k: int = MULTI_PIN_K,
+                 eval_size=(EVAL_H, EVAL_W)) -> Dict:
+    """The scripts phase, each tool through its own entry points:
+
+      sweep     rd_sweep of the clip (written to ``tmp`` as a YUV) at
+                SWEEP_RATES with --rate_audit, RA GOP ``gop``: K free in
+                this process (every stream decoded here bit-exactly
+                against its encoder's reconstruction; the K of each
+                frame) and over SWEEP_PROCS workers (each row's bytes
+                against the sequential row's); with AIVC_VRANS_K=
+                ``pin_k`` in this process (decoded the same way) and over
+                the workers, whose rows must equal the in-process rows
+      eval      eval_ckpt on EVAL_CLIPS held-out families at
+                ``eval_size`` (EVAL_H x EVAL_W), RA, of the checkpoint
+                and of the low-rate specialist make_lowrate writes from
+                it under ``tmp``
+                (each decode bit-exact, checked by eval_ckpt), and
+                bd_from_eval of the two
+      latents   latent_range at ``eval_size`` (report only)
+      motion    probe_motion at ``eval_size`` (report only)
+      aivc      scripts.aivc's three processes on the clip with the CLI
+                phase's RA flags: the stream must be ``cli_stream`` byte
+                for byte, and the decode stage's frames the ones this
+                process decodes from it
+
+    The kernels' launches of each part run in this process are counted
+    (set to 0 just before, read just after); the workers' come from
+    their wall lines; the aivc stages' happen in their own processes."""
+    from aivc_tpu_torch.scripts import (
+        bd_from_eval,
+        eval_ckpt,
+        latent_range,
+        make_lowrate,
+        probe_motion,
+        rd_sweep,
+    )
+
+    tmp = Path(tmp)
+    clip = write_clip(frames, tmp)
+    h, w = frames[0]["y"].shape
+    cpu = ["--cpu"] if device.type == "cpu" else []
+    cfg, model = load_checkpoint(ckpt, device=device)
+    dec_codec = FrameCodec(cfg, model, h, w, device=device)
+    out: Dict = {}
+
+    def sweep_args(*extra):
+        return rd_sweep.build_parser().parse_args([str(a) for a in [
+            *cpu, "--input", clip, "--ckpt", ckpt, "--frames", len(frames),
+            "--coding_config", "RA", "--gop_size", gop, "--intra_period",
+            gop, "--rates", SWEEP_RATES, "--rate_audit", *extra]])
+
+    def decode_all(results) -> Dict:
+        kernels.reset_launches()
+        t0 = time.time()
+        for res in results:
+            dec = decode_video(dec_codec, res.bitstream)
+            for i in range(len(frames)):
+                for c in ("y", "u", "v"):
+                    if not np.array_equal(dec[i][c],
+                                          res.decoded_frames[i][c]):
+                        raise AssertionError(
+                            f"sweep stream of {len(res.bitstream)} B: "
+                            f"decoded frame {i} plane {c} differs from "
+                            "the encoder's reconstruction")
+        sync(device)
+        return {"streams": len(results), "seconds": time.time() - t0,
+                "launches": dict(kernels.LAUNCHES)}
+
+    def in_process() -> Dict:
+        t0 = time.time()
+        rows, wall, results = rd_sweep.sweep(sweep_args(), device,
+                                             emit=lambda line: None,
+                                             keep=True)
+        return {"rows": rows, "wall": wall, "seconds": time.time() - t0,
+                "ks": [stream_ks(r.bitstream) for r in results],
+                "decode": decode_all(results)}
+
+    def workers() -> Dict:
+        t0 = time.time()
+        rows, wall = rd_sweep.fan_out(sweep_args("--procs", SWEEP_PROCS),
+                                      device, emit=lambda line: None)
+        return {"rows": rows, "wall": wall, "seconds": time.time() - t0}
+
+    sweeps = {"free": in_process(), "free_procs": workers()}
+    with switched(AIVC_VRANS_K=str(pin_k)):
+        sweeps["pinned"] = in_process()
+        sweeps["pinned_procs"] = workers()
+    if _no_fps(sweeps["pinned_procs"]["rows"]) != \
+            _no_fps(sweeps["pinned"]["rows"]):
+        raise AssertionError(
+            f"AIVC_VRANS_K={pin_k}: the {SWEEP_PROCS} workers' rows "
+            f"{sweeps['pinned_procs']['rows']} differ from the in-process "
+            f"rows {sweeps['pinned']['rows']}")
+    sweeps["free_procs"]["bytes_minus_sequential"] = [
+        a["bytes"] - b["bytes"] for a, b in zip(
+            sweeps["free_procs"]["rows"], sweeps["free"]["rows"])]
+    out["sweep"] = sweeps
+
+    eh, ew = eval_size
+    ev_args = eval_ckpt.build_parser().parse_args([str(a) for a in [
+        *cpu, "--h", eh, "--w", ew, "--clips", EVAL_CLIPS,
+        "--rates", EVAL_RATES]])
+    rates = [float(r) for r in EVAL_RATES.split(",")]
+    clips, names = eval_ckpt.heldout_clips(EVAL_CLIPS, ev_args.frames,
+                                           eh, ew)
+    lowrate = tmp / "lowrate"
+    surgery = _quiet_main(make_lowrate.main, ["--src", ckpt,
+                                              "--out", lowrate])
+    evals = {"families": names, "make_lowrate": surgery.strip()}
+    for name, path in (("flagship", ckpt), ("lowrate", str(lowrate))):
+        lines: List[str] = []
+        kernels.reset_launches()
+        t0 = time.time()
+        summary, mean = eval_ckpt.evaluate(path, clips, names, rates,
+                                           ev_args, device,
+                                           emit=lines.append)
+        sync(device)
+        evals[name] = {"summary": summary, "mean": mean,
+                       "seconds": time.time() - t0,
+                       "launches": dict(kernels.LAUNCHES)}
+        (tmp / f"{name}.jsonl").write_text("\n".join(lines) + "\n")
+    evals["bd"] = bd_from_eval.deltas(
+        bd_from_eval.load_rows(str(tmp / "flagship.jsonl")),
+        bd_from_eval.load_rows(str(tmp / "lowrate.jsonl")))
+    out["eval"] = evals
+
+    probe = [*cpu, "--ckpt", ckpt, "--h", eh, "--w", ew]
+    for name, main in (("latents", latent_range.main),
+                       ("motion", probe_motion.main)):
+        kernels.reset_launches()
+        t0 = time.time()
+        text = _quiet_main(main, probe)
+        sync(device)
+        out[name] = {"lines": text.strip().splitlines(),
+                     "seconds": time.time() - t0,
+                     "launches": dict(kernels.LAUNCHES)}
+
+    argv = [*cpu, "-i", str(clip), "-o", str(tmp / "aivc.yuv"),
+            "--bitstream_out", str(tmp / "aivc.bin"), "--coding_config",
+            "RA", "--gop_size", str(gop), "--intra_period", str(gop),
+            "--model", ckpt, "--wave_batch", str(wave_batch), "--rate_audit"]
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "aivc_tpu_torch.scripts.aivc", *argv],
+        capture_output=True, text=True, cwd=str(root),
+        timeout=SCRIPTS_TIMEOUT_S)
+    seconds = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"scripts.aivc exited {proc.returncode}:\n"
+                             f"{proc.stdout}\n{proc.stderr}")
+    stream = (tmp / "aivc.bin").read_bytes()
+    if stream != cli_stream:
+        raise AssertionError(f"scripts.aivc wrote {len(stream)} B, the "
+                             f"CLI's RA stream is {len(cli_stream)} B")
+    kernels.reset_launches()
+    dec = decode_video(dec_codec, stream)
+    reader = YuvReader(tmp / "aivc.yuv", w, h)
+    if reader.n_frames != len(frames) or any(
+            not np.array_equal(reader.read_frame(i)[c], dec[i][c])
+            for i in range(len(frames)) for c in ("y", "u", "v")):
+        raise AssertionError("scripts.aivc's decode stage wrote other "
+                             "frames than this process decodes")
+    out["aivc"] = {"results": parse_results(proc.stdout),
+                   "stages": [ln for ln in proc.stdout.splitlines()
+                              if ln.startswith("[aivc]")],
+                   "seconds": seconds, "bytes": len(stream),
+                   "decode_launches": dict(kernels.LAUNCHES)}
+    return out

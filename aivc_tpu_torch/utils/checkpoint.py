@@ -300,9 +300,15 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     return {"params": _nest(flat)}
 
 
-def write_params(path: str | Path, state_dict: Mapping[str, torch.Tensor]
-                 ) -> None:
-    Path(path).write_bytes(write_msgpack(params_to_jax(state_dict)))
+def save_tree(ckpt_dir: str | Path, cfg: ModelConfig, tree) -> None:
+    """Write ``config.json`` and ``params.msgpack`` of a parameter tree in
+    the JAX package's layout (nested dicts of numpy arrays under
+    ``params``): the files aivc_tpu/utils/checkpoint.py:save_checkpoint
+    writes for the same tree and config."""
+    ckpt_dir = Path(ckpt_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    (ckpt_dir / "config.json").write_text(cfg.to_json())
+    (ckpt_dir / "params.msgpack").write_bytes(write_msgpack(tree))
 
 
 def save_checkpoint(ckpt_dir: str | Path, cfg: ModelConfig, params) -> None:
@@ -312,10 +318,7 @@ def save_checkpoint(ckpt_dir: str | Path, cfg: ModelConfig, params) -> None:
     parameters."""
     if isinstance(params, torch.nn.Module):
         params = params.state_dict()
-    ckpt_dir = Path(ckpt_dir)
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
-    (ckpt_dir / "config.json").write_text(cfg.to_json())
-    write_params(ckpt_dir / "params.msgpack", params)
+    save_tree(ckpt_dir, cfg, params_to_jax(params))
 
 
 def _scalar(n: int) -> np.ndarray:
@@ -375,6 +378,14 @@ def read_params(ckpt_dir: str | Path):
     return read_msgpack((Path(ckpt_dir) / "params.msgpack").read_bytes())
 
 
+def read_tree(ckpt_dir: str | Path) -> Tuple[ModelConfig, dict]:
+    """-> (cfg, the parameter tree as ``read_params`` gives it): a
+    checkpoint on the host, for surgery that ``save_tree`` writes back."""
+    ckpt_dir = Path(ckpt_dir)
+    cfg = ModelConfig.from_json((ckpt_dir / "config.json").read_text())
+    return cfg, read_params(ckpt_dir)
+
+
 def model_from_params(cfg: ModelConfig, tree, device=None
                       ) -> "torch.nn.Module":
     """A FullNet of ``cfg`` holding the parameter tree ``tree`` (the JAX
@@ -395,6 +406,5 @@ def load_checkpoint(ckpt_dir: str | Path, device=None
     from aivc_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
-    ckpt_dir = Path(ckpt_dir)
-    cfg = ModelConfig.from_json((ckpt_dir / "config.json").read_text())
-    return cfg, model_from_params(cfg, read_params(ckpt_dir), dev)
+    cfg, tree = read_tree(ckpt_dir)
+    return cfg, model_from_params(cfg, tree, dev)

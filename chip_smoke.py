@@ -97,6 +97,21 @@ must be nonzero.  Last, one process encodes the clip warm at
 AIVC_PIPELINE_LOOKAHEAD 0 and 4 in turns (the encode launch/finish
 split): the bytes must be equal; the encode fps of each are printed.
 
+The scripts phase (``smoke.scripts_runs``) drives the operational
+tools of aivc_tpu_torch/scripts/ at full width: rd_sweep of the 9 frames
+(RA GOP 8, rates 0, 2.5 and 6, --rate_audit) with K free and with
+AIVC_VRANS_K pinned, each in this process (every stream decoded here
+bit-exactly) and over three worker processes on the one card (pinned:
+rows equal to the in-process rows; free: the bytes' difference
+printed); eval_ckpt at 240x416 (3 held-out families, rates 0, 2, 4 and
+6, RA) of bf16-r5 and of the low-rate specialist make_lowrate derives
+from it, and bd_from_eval of the two; latent_range and probe_motion at
+240x416 (reported); and scripts.aivc's encode, decode and evaluate
+processes on the clip's YUV, whose stream must equal the CLI's RA
+stream.  The supervisor (scripts.train_supervised) drives only host
+processes; its path on the card is the trainer's, which train-recipe
+runs.
+
 Every phase prints its elapsed seconds.  The last lines are the card's
 name and power limit, the kernels' JSON record and the result; any failed
 check raises (nonzero exit).  Exits nonzero, printing no result, when
@@ -503,6 +518,66 @@ def main() -> int:
                f"lookahead {d} {' / '.join(f'{v:.3f}' for v in fps)}"
                for d, fps in la["fps"].items())
            + f"; {time.time() - t_phase:.1f} s")
+
+    # -- scripts (aivc_tpu_torch/scripts/) -------------------------------
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory(dir=root / "tmp") as tmp:
+        sc = smoke.scripts_runs(ckpt, frames, dev, tmp, root,
+                                res["bitstream"], gop=GOP,
+                                wave_batch=WAVE_BATCH)
+    for name, sw in sc["sweep"].items():
+        where = (f"{sw['wall']['procs']} worker processes on the card"
+                 if sw["wall"]["procs"] > 1 else "in this process")
+        pin = (f"AIVC_VRANS_K={smoke.MULTI_PIN_K}" if "pinned" in name
+               else "K free")
+        ph.say(f"scripts rd_sweep {name}: {N_FRAMES} frames {W}x{H} RA "
+               f"GOP{GOP}, {pin}, {where}: sweep {sw['wall']['sweep_wall_s']}"
+               f" s ({sw['seconds']:.1f} s with set-up), launches "
+               f"{sw['wall']['kernel_launches']}")
+        for r in sw["rows"]:
+            ph.say(f"scripts rd_sweep {name} idx_rate {r['idx_rate']}: "
+                   f"{r['bytes']} B, {r['bpp']} bpp, PSNR {r['psnr']} dB, "
+                   f"MS-SSIM {r['ms_ssim']}, encode {r['enc_fps']} fps, "
+                   f"analytic {r['analytic_bits']} bits, container "
+                   f"overhead {r['container_overhead_pct']}%")
+        if "decode" in sw:
+            d = sw["decode"]
+            ph.say(f"scripts rd_sweep {name}: all {d['streams']} streams "
+                   f"decoded here bit-exactly in {d['seconds']:.2f} s, "
+                   f"launches {d['launches']}; K per frame {sw['ks']}")
+    diff = sc["sweep"]["free_procs"]["bytes_minus_sequential"]
+    ph.say(f"scripts rd_sweep: pinned, {smoke.SWEEP_PROCS} workers' rows = "
+           f"the in-process rows; K free, workers' bytes minus the "
+           f"sequential rows' {diff}")
+    ev = sc["eval"]
+    ph.say(f"scripts make_lowrate: {ev['make_lowrate']}")
+    for name in ("flagship", "lowrate"):
+        e = ev[name]
+        for r in e["summary"]:
+            ph.say(f"scripts eval_ckpt {name} idx_rate {r['idx_rate']}: "
+                   f"{r['bpp']} bpp, PSNR {r['psnr']} dB, MS-SSIM "
+                   f"{r['ms_ssim']} (mean of {ev['families']} at "
+                   f"{smoke.EVAL_W}x{smoke.EVAL_H}, RA, decodes bit-exact)")
+        ph.say(f"scripts eval_ckpt {name}: {json.dumps(e['mean'])}, "
+               f"{e['seconds']:.1f} s, launches {e['launches']}")
+    ph.say(f"scripts bd_from_eval (ref {CKPT}, test its low-rate "
+           f"specialist): {json.dumps(ev['bd'])}")
+    for name in ("latents", "motion"):
+        for line in sc[name]["lines"]:
+            ph.say(f"scripts {name}: {line}")
+        ph.say(f"scripts {name}: {sc[name]['seconds']:.1f} s, launches "
+               f"{sc[name]['launches']}")
+    a = sc["aivc"]
+    q = a["results"]
+    ph.say(f"scripts aivc: encode, decode, evaluate as three processes in "
+           f"{a['seconds']:.1f} s: {a['bytes']} B = the CLI's RA stream, "
+           f"{q.get('rate bpp')} bpp, PSNR {q.get('psnr')}, MS-SSIM "
+           f"{q.get('ms-ssim')}, encode {q.get('encoding fps')} fps, decode "
+           f"{q.get('decoding fps')} fps; the decode stage's frames = this "
+           f"process's decode of the stream (launches here "
+           f"{a['decode_launches']}; the stages' own launches happen in "
+           f"their processes)")
+    ph.say(f"scripts: {time.time() - t_phase:.1f} s")
 
     launches = {k: main_launches[k]
                 for k in ("rans_encode", "rans_decode", "warp_packed")}
