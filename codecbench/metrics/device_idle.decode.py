@@ -1,0 +1,7 @@
+"""The share of the traced decode in which no kernel runs on the card."""
+
+from harness.readers import idle_share
+
+
+def read(ctx):
+    return idle_share(ctx, "decode")

@@ -1,0 +1,7 @@
+"""K2's (rANS decode) share of its roofline in the traced decode."""
+
+from harness.readers import roofline_share
+
+
+def read(ctx):
+    return roofline_share(ctx, "k2", "decode")

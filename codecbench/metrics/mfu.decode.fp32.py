@@ -1,0 +1,8 @@
+"""mfu.decode in the cells whose convolutions run in FP32, where it moves
+decode_fps.fp32."""
+
+from harness.readers import flops_share
+
+
+def read(ctx):
+    return flops_share(ctx, "decode")
