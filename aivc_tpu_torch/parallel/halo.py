@@ -18,17 +18,17 @@ rank's loss must be its share (the whole divided by S), so that the
 shares sum to the whole loss.
 
 Each call is one all-gather over the rank's 'spatial' group (under gloo
-through host copies, timed into ``Mesh.comm_seconds``), so every rank of
-a line must make the same calls in the same order.
+through host copies), so every rank of a line must make the same calls
+in the same order.  An exchange is a ``halo.exchange`` span, a gather a
+``halo.gather`` span (tracing.py), forward and backward.
 """
 
 from __future__ import annotations
 
-import time
-
 import torch
 import torch.nn.functional as F
 
+from aivc_tpu_torch import tracing
 from aivc_tpu_torch.parallel.mesh import (
     Mesh,
     all_gather_cat,
@@ -38,17 +38,12 @@ from aivc_tpu_torch.parallel.mesh import (
 
 
 class RowBand:
-    """This rank's band of rows of a mesh's 'spatial' axis.
-    ``halo_seconds`` and ``gather_seconds`` add up the wall time of the
-    exchanges and the gathers (forward and backward), collectives and
-    copies included."""
+    """This rank's band of rows of a mesh's 'spatial' axis."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
         self.index = mesh.spatial_index
         self.size = mesh.spatial_size
-        self.halo_seconds = 0.0
-        self.gather_seconds = 0.0
 
     def rows(self, x: torch.Tensor, dim: int = 2) -> torch.Tensor:
         """This band's rows of a whole tensor every rank holds, in a
@@ -84,43 +79,40 @@ class _ExchangeRows(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, pad: int, band: RowBand):
-        t0 = time.perf_counter()
         h = x.shape[2]
         if pad > h:
             raise ValueError(f"a halo of {pad} rows needs at least {pad} "
                              f"rows a band, got {h}")
         ctx.pad, ctx.band, ctx.h = pad, band, h
-        parts = _gather_parts(band, torch.cat(
-            [x[:, :, :pad], x[:, :, h - pad:]], dim=2))
-        i, s = band.index, band.size
-        top = (parts[i - 1][:, :, pad:] if i > 0
-               else x[:, :, :1].expand(-1, -1, pad, -1))
-        bot = (parts[i + 1][:, :, :pad] if i < s - 1
-               else x[:, :, h - 1:].expand(-1, -1, pad, -1))
-        out = torch.cat([top, x, bot], dim=2)
-        band.halo_seconds += time.perf_counter() - t0
-        return out
+        with tracing.span("halo.exchange"):
+            parts = _gather_parts(band, torch.cat(
+                [x[:, :, :pad], x[:, :, h - pad:]], dim=2))
+            i, s = band.index, band.size
+            top = (parts[i - 1][:, :, pad:] if i > 0
+                   else x[:, :, :1].expand(-1, -1, pad, -1))
+            bot = (parts[i + 1][:, :, :pad] if i < s - 1
+                   else x[:, :, h - 1:].expand(-1, -1, pad, -1))
+            return torch.cat([top, x, bot], dim=2)
 
     @staticmethod
     def backward(ctx, g):
-        t0 = time.perf_counter()
         pad, band, h = ctx.pad, ctx.band, ctx.h
-        g_top, g_bot = g[:, :, :pad], g[:, :, pad + h:]
-        parts = _gather_parts(band, torch.cat([g_top, g_bot], dim=2))
-        i, s = band.index, band.size
-        gx = g[:, :, pad:pad + h].clone()
-        # This band's first rows were the halo below the band above, its
-        # last rows the halo above the band below.
-        if i > 0:
-            gx[:, :, :pad] += parts[i - 1][:, :, pad:]
-        else:
-            gx[:, :, :1] += g_top.sum(dim=2, keepdim=True)
-        if i < s - 1:
-            gx[:, :, h - pad:] += parts[i + 1][:, :, :pad]
-        else:
-            gx[:, :, h - 1:] += g_bot.sum(dim=2, keepdim=True)
-        band.halo_seconds += time.perf_counter() - t0
-        return gx, None, None
+        with tracing.span("halo.exchange"):
+            g_top, g_bot = g[:, :, :pad], g[:, :, pad + h:]
+            parts = _gather_parts(band, torch.cat([g_top, g_bot], dim=2))
+            i, s = band.index, band.size
+            gx = g[:, :, pad:pad + h].clone()
+            # This band's first rows were the halo below the band above,
+            # its last rows the halo above the band below.
+            if i > 0:
+                gx[:, :, :pad] += parts[i - 1][:, :, pad:]
+            else:
+                gx[:, :, :1] += g_top.sum(dim=2, keepdim=True)
+            if i < s - 1:
+                gx[:, :, h - pad:] += parts[i + 1][:, :, :pad]
+            else:
+                gx[:, :, h - 1:] += g_bot.sum(dim=2, keepdim=True)
+            return gx, None, None
 
 
 def exchange_rows(x: torch.Tensor, pad: int, band: RowBand) -> torch.Tensor:
@@ -134,19 +126,16 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, band: RowBand, dim: int):
-        t0 = time.perf_counter()
         ctx.band, ctx.dim, ctx.h = band, dim, x.shape[dim]
-        out = all_gather_cat(band.mesh, [x], dim, axis="spatial")[0]
-        band.gather_seconds += time.perf_counter() - t0
-        return out
+        with tracing.span("halo.gather"):
+            return all_gather_cat(band.mesh, [x], dim, axis="spatial")[0]
 
     @staticmethod
     def backward(ctx, g):
-        t0 = time.perf_counter()
         band = ctx.band
-        g = all_reduce(band.mesh, g.contiguous(), "sum", axis="spatial")
-        gx = g.narrow(ctx.dim, band.index * ctx.h, ctx.h).contiguous()
-        band.gather_seconds += time.perf_counter() - t0
+        with tracing.span("halo.gather"):
+            g = all_reduce(band.mesh, g.contiguous(), "sum", axis="spatial")
+            gx = g.narrow(ctx.dim, band.index * ctx.h, ctx.h).contiguous()
         return gx, None, None
 
 

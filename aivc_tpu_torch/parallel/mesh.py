@@ -20,21 +20,21 @@ every rank holds the same weights.
 The collectives run on the backend the caller started the process group
 with (``init_distributed`` takes it as an argument).  gloo's all_gather
 takes host tensors only, so under gloo a CUDA tensor goes through a host
-copy and back; the seconds of every collective of a mesh, copies
-included, add up in ``Mesh.comm_seconds``.  Nothing switches backends by
-itself.
+copy and back; every collective, copies included, is a ``mesh.gather``
+span (tracing.py).  Nothing switches backends by itself.
 """
 
 from __future__ import annotations
 
 import datetime
-import time
 from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+
+from aivc_tpu_torch import tracing
 
 AXES = ("data", "spatial")
 # The longest a rank waits in one collective before its process group
@@ -54,7 +54,6 @@ class Mesh:
     def __init__(self, grid: np.ndarray, device_mesh=None):
         self.grid = grid
         self.device_mesh = device_mesh
-        self.comm_seconds = 0.0
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -199,13 +198,6 @@ def comm_device(group=None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _timed(mesh: Mesh, fn):
-    t0 = time.perf_counter()
-    out = fn()
-    mesh.comm_seconds += time.perf_counter() - t0
-    return out
-
-
 def batch_slice(mesh: Optional[Mesh], n: int) -> slice:
     """This rank's share of a batch of ``n``: a slice of n / data items
     where 'data' divides n, else all of it (every rank computes the whole
@@ -264,14 +256,11 @@ def all_gather_cat(mesh: Mesh, tensors: List[Optional[torch.Tensor]],
                       for t, n in zip(present, sizes)])
     group = mesh.group(axis)
     cdev = comm_device(group)
-
-    def gather():
-        src = flat.to(cdev)
-        parts = [torch.empty_like(src) for _ in range(mesh.size(axis))]
-        dist.all_gather(parts, src, group=group)
-        return [p.to(flat.device) for p in parts]
-
-    parts = _timed(mesh, gather)
+    with tracing.span("mesh.gather"):
+        sent = flat.to(cdev)
+        parts = [torch.empty_like(sent) for _ in range(mesh.size(axis))]
+        dist.all_gather(parts, sent, group=group)
+        parts = [p.to(flat.device) for p in parts]
     out, it, off = [], iter(zip(present, sizes)), 0
     for t in tensors:
         if t is None:
@@ -304,13 +293,10 @@ def all_reduce(mesh: Mesh, x: torch.Tensor, op: str = "sum",
     group = mesh.group(axis)
     cdev = comm_device(group)
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-
-    def reduce():
+    with tracing.span("mesh.gather"):
         y = x.detach().to(cdev, copy=True)
         dist.all_reduce(y, op=red, group=group)
         return y.to(x.device)
-
-    return _timed(mesh, reduce)
 
 
 class _SumOverData(torch.autograd.Function):
@@ -346,12 +332,9 @@ def shard_params(params, mesh: Mesh):
         return params
     cdev = comm_device()
     src = int(mesh.grid[0, 0])
-
-    def bcast():
+    with tracing.span("mesh.gather"):
         for t in tensors:
             buf = t.detach().to(cdev, copy=True)
             dist.broadcast(buf, src=src)
             t.copy_(buf)
-
-    _timed(mesh, bcast)
     return params

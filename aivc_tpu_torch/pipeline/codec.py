@@ -45,6 +45,11 @@ AIVC_PIPELINE_LOOKAHEAD waves launched ahead of the one it finishes;
 the K policy runs in ``encode_frames_finish``, which sees the waves in
 coding order, so every lookahead writes the same bytes.
 
+Spans (tracing.py) mark each wave's parts while something records:
+``launch`` (upload, nets, warp, planes) and ``finish`` (K1, each pull to
+the host, packing) of an encode, sharing the wave's id; ``batch``
+(parse, upload, K2, nets) of a decode; ``planes.pull``; ``pool``.
+
 Format: v2 fused streams with all-zero y channels elided
 (codec.py:665-990,1221-1300), or under AIVC_VRANS_ELIDE=0 the dense v1
 fused stream (codec.py:243-248, 357-367, 1184-1200); host-backend chunks
@@ -69,6 +74,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from aivc_tpu_torch import tracing
 from aivc_tpu_torch.coding import bitstream as bs
 from aivc_tpu_torch.coding import vrans
 from aivc_tpu_torch.coding.cdf import (
@@ -165,10 +171,11 @@ def _nhwc(t: torch.Tensor) -> np.ndarray:
 def _par_map(fn, items):
     """Map over a wave's chunks in threads (the host range coder releases
     the GIL); sequential for a single item."""
-    if len(items) <= 1:
-        return [fn(it) for it in items]
-    with ThreadPoolExecutor(max_workers=min(4, len(items))) as ex:
-        return list(ex.map(fn, items))
+    with tracing.span("pool"):
+        if len(items) <= 1:
+            return [fn(it) for it in items]
+        with ThreadPoolExecutor(max_workers=min(4, len(items))) as ex:
+            return list(ex.map(fn, items))
 
 
 def canonical(x: torch.Tensor) -> torch.Tensor:
@@ -217,7 +224,9 @@ class _BatchPlanes:
 
     def host(self) -> Dict[str, np.ndarray]:
         if self._host is None:
-            self._host = {k: v.cpu().numpy() for k, v in self._dev.items()}
+            with tracing.span("planes.pull"):
+                self._host = {k: v.cpu().numpy()
+                              for k, v in self._dev.items()}
             self._dev = None
         return self._host
 
@@ -569,42 +578,51 @@ class FrameCodec:
         where a frame type or the schedule has none)."""
         m = self.model
         acv = self.ac_max
-        orig_dev = self._to_device_planes(frames_u8)
+        with tracing.span("launch.upload"):
+            orig_dev = self._to_device_planes(frames_u8)
         orig = dict(zip(("y", "u", "v"), orig_dev))
-        frame = planes_to_444(*orig_dev)
-        prev = self._stack_refs(prev_refs)
-        nxt = self._stack_refs(next_refs)
+        with tracing.span("launch.planes"):
+            frame = planes_to_444(*orig_dev)
+        with tracing.span("launch.upload"):
+            prev = self._stack_refs(prev_refs)
+            nxt = self._stack_refs(next_refs)
 
         t = dict.fromkeys(self.WAVE_KEYS)
         maps = ()
         if frame_type == FRAME_I:
             pred = skip = torch.zeros_like(m._rows(frame))
         else:
-            y_m, z_qm = m.mof_analyze(frame, prev, nxt, idx_rate, frame_type)
-            z_qm = canonical(torch.clamp(z_qm, -acv, acv - 1))
-            mu_m, bins_m = self._hyper("mofnet", z_qm)
-            q_m = canonical(self._quantize_y(y_m, mu_m))
-            maps6 = m.mofnet_synth_maps(q_m, mu_m, prev, nxt, idx_rate,
-                                        frame_type)
-            mof = m.motion_comp_stage(prev, nxt, maps6, frame_type,
-                                      self.warp_engine)
+            with tracing.span("launch.mofnet"):
+                y_m, z_qm = m.mof_analyze(frame, prev, nxt, idx_rate,
+                                          frame_type)
+                z_qm = canonical(torch.clamp(z_qm, -acv, acv - 1))
+                mu_m, bins_m = self._hyper("mofnet", z_qm)
+                q_m = canonical(self._quantize_y(y_m, mu_m))
+                maps6 = m.mofnet_synth_maps(q_m, mu_m, prev, nxt, idx_rate,
+                                            frame_type)
+            with tracing.span("launch.warp"):
+                mof = m.motion_comp_stage(prev, nxt, maps6, frame_type,
+                                          self.warp_engine)
             pred, skip = mof["pred"], mof["skip"]
             maps = (mof["alpha"], mof["beta"])
             t.update(z_m=z_qm, q_m=q_m, bins_m=bins_m)
 
-        y_c, z_qc = m.cod_analyze(frame, pred, idx_rate, frame_type)
-        z_qc = canonical(torch.clamp(z_qc, -acv, acv - 1))
-        mu_c, bins_c = self._hyper("codecnet", z_qc)
-        q_c = canonical(self._quantize_y(y_c, mu_c))
-        x_hat = m.codecnet_synth(q_c, mu_c, pred, skip, idx_rate, frame_type)
-        out, maps = self._cast_planes(x_hat, maps)
-        if maps:
-            # On contiguous whole-frame masks, gathered or not, so a mesh
-            # takes the means one process takes.
-            t["alpha_mean"], t["beta_mean"] = (
-                a.contiguous().mean(dim=(1, 2, 3)) for a in maps)
-        if self.dc_offset:
-            out, t["dc"] = self._dc_correct_enc(out, orig)
+        with tracing.span("launch.codecnet"):
+            y_c, z_qc = m.cod_analyze(frame, pred, idx_rate, frame_type)
+            z_qc = canonical(torch.clamp(z_qc, -acv, acv - 1))
+            mu_c, bins_c = self._hyper("codecnet", z_qc)
+            q_c = canonical(self._quantize_y(y_c, mu_c))
+            x_hat = m.codecnet_synth(q_c, mu_c, pred, skip, idx_rate,
+                                     frame_type)
+        with tracing.span("launch.planes"):
+            out, maps = self._cast_planes(x_hat, maps)
+            if maps:
+                # On contiguous whole-frame masks, gathered or not, so a
+                # mesh takes the means one process takes.
+                t["alpha_mean"], t["beta_mean"] = (
+                    a.contiguous().mean(dim=(1, 2, 3)) for a in maps)
+            if self.dc_offset:
+                out, t["dc"] = self._dc_correct_enc(out, orig)
         t.update(z_c=z_qc, q_c=q_c, bins_c=bins_c, **out)
         return t
 
@@ -622,7 +640,8 @@ class FrameCodec:
             t = dict(zip(self.WAVE_KEYS, all_gather_cat(
                 self.mesh, [t[key] for key in self.WAVE_KEYS])))
         out = {c: t[c] for c in ("y", "u", "v")}
-        ref444 = planes_to_444(out["y"], out["u"], out["v"])
+        with tracing.span("launch.planes"):
+            ref444 = planes_to_444(out["y"], out["u"], out["v"])
         mof = (None if t["alpha_mean"] is None else
                {"alpha_mean": t["alpha_mean"], "beta_mean": t["beta_mean"]})
         return {"k": k, "frame_type": frame_type, "z_m": t["z_m"],
@@ -638,9 +657,17 @@ class FrameCodec:
         waits for the frames' upload and, under a mesh, the gathers, not
         for the nets).  Returns the wave's handles;
         their ``decoded`` (DecodedFrame list) are device references that
-        later waves may take before ``encode_frames_finish``."""
-        return self._encode_transforms(frames_u8, prev_refs, next_refs,
-                                       frame_type, idx_rate)
+        later waves may take before ``encode_frames_finish``, their
+        ``wave`` the wave's id in the recorded spans (tracing.py; None
+        where nothing records)."""
+        wave = tracing.new_wave()
+        with tracing.span("launch", wave=wave, k=len(frames_u8),
+                          frame_type=frame_type):
+            handles = self._encode_transforms(frames_u8, prev_refs,
+                                              next_refs, frame_type,
+                                              idx_rate)
+        handles["wave"] = wave
+        return handles
 
     @torch.no_grad()
     def encode_frames_finish(self, handles: Dict):
@@ -648,13 +675,16 @@ class FrameCodec:
         and packing (and the rate audit).  Waves must be finished in the
         order they were launched.  Returns (frame bytes list,
         DecodedFrame list, per-frame stats)."""
-        if self.backend == "device":
-            frame_bytes, stats = self._entropy_device(handles)
-        else:
-            frame_bytes, stats = self._entropy_host(handles)
-        if self.audit:
-            for s, bits in zip(stats, self._analytic_bits(handles).tolist()):
-                s["analytic_bits"] = bits
+        with tracing.span("finish", wave=handles.get("wave"),
+                          k=handles["k"], frame_type=handles["frame_type"]):
+            if self.backend == "device":
+                frame_bytes, stats = self._entropy_device(handles)
+            else:
+                frame_bytes, stats = self._entropy_host(handles)
+            if self.audit:
+                for s, bits in zip(stats,
+                                   self._analytic_bits(handles).tolist()):
+                    s["analytic_bits"] = bits
         return frame_bytes, handles["decoded"], stats
 
     def encode_frames_batch(self, frames_u8, prev_refs, next_refs,
@@ -669,8 +699,10 @@ class FrameCodec:
         k = w["k"]
         if w["mof"] is None:
             return [{"alpha_mean": 1.0, "beta_mean": 1.0} for _ in range(k)]
-        a = w["mof"]["alpha_mean"].cpu().numpy()
-        b = w["mof"]["beta_mean"].cpu().numpy()
+        with tracing.span("finish.pull"):
+            a = w["mof"]["alpha_mean"].cpu().numpy()
+        with tracing.span("finish.pull"):
+            b = w["mof"]["beta_mean"].cpu().numpy()
         return [{"alpha_mean": float(a[i]), "beta_mean": float(b[i])}
                 for i in range(k)]
 
@@ -680,9 +712,12 @@ class FrameCodec:
         k, frame_type = w["k"], w["frame_type"]
         q_m, q_c = w["q_m"], w["q_c"]
         cm, cc = self.cfg.mofnet.nb_ft_y, self.cfg.codecnet.nb_ft_y
-        mask_c = (q_c != 0).any(dim=3).any(dim=2).cpu().numpy()
-        mask_m = (None if frame_type == FRAME_I else
-                  (q_m != 0).any(dim=3).any(dim=2).cpu().numpy())
+        with tracing.span("finish.pull"):
+            mask_c = (q_c != 0).any(dim=3).any(dim=2).cpu().numpy()
+        mask_m = None
+        if frame_type != FRAME_I:
+            with tracing.span("finish.pull"):
+                mask_m = (q_m != 0).any(dim=3).any(dim=2).cpu().numpy()
         bc = vrans.elide_bucket(int(mask_c.sum(axis=1).max()), cc)
         bm = (0 if mask_m is None else
               vrans.elide_bucket(int(mask_m.sum(axis=1).max()), cm))
@@ -733,57 +768,66 @@ class FrameCodec:
         """Each frame's DC trailer, or None without the correction."""
         if w["dc"] is None:
             return [None] * w["k"]
-        return [tuple(int(v) for v in row) for row in w["dc"].cpu().numpy()]
+        with tracing.span("finish.pull"):
+            dc = w["dc"].cpu().numpy()
+        return [tuple(int(v) for v in row) for row in dc]
 
     def _entropy_device(self, w):
         """Fused entropy coding of a wave, one K1 launch: the v2 stream
         (channel masks to the host, wave-shared buckets) or, without
         elision, the dense v1 stream of every y symbol."""
         k, frame_type = w["k"], w["frame_type"]
-        if self.elide:
-            kk, parts, cols, bitmaps = self._fused_parts_v2(w)
-        else:
-            kk, parts, cols, bitmaps = self._fused_parts_v1(w)
-        sym = torch.cat([p[0] for p in parts], dim=1).contiguous()
-        rows = torch.cat([p[1] for p in parts], dim=1).contiguous()
-        segs = tuple(p[0].shape[1] // kk for p in parts)
-        buf, states, seg_g = vrans.encode_batch(sym, rows, self.table, kk,
-                                                segs)
-        n_pad = sym.shape[1]
-        seg_np = seg_g.cpu().numpy().astype(np.int64)
-        states_np = states.cpu().numpy()
+        with tracing.span("finish.k1") as sp:
+            if self.elide:
+                kk, parts, cols, bitmaps = self._fused_parts_v2(w)
+            else:
+                kk, parts, cols, bitmaps = self._fused_parts_v1(w)
+            sym = torch.cat([p[0] for p in parts], dim=1).contiguous()
+            rows = torch.cat([p[1] for p in parts], dim=1).contiguous()
+            segs = tuple(p[0].shape[1] // kk for p in parts)
+            buf, states, seg_g = vrans.encode_batch(sym, rows, self.table,
+                                                    kk, segs)
+            n_pad = sym.shape[1]
+            sp.note(K=kk, steps=n_pad // kk)
+        with tracing.span("finish.pull"):
+            seg_np = seg_g.cpu().numpy().astype(np.int64)
+        with tracing.span("finish.pull"):
+            states_np = states.cpu().numpy()
         totals = n_pad - seg_np[:, 0]
         mmax = int(totals.max())
-        tail = buf[:, n_pad - mmax:].cpu().numpy() if mmax else None
-        bounds = np.concatenate([seg_np, np.full((k, 1), n_pad)], axis=1)
-        segw = np.zeros((k, 4), np.int64)
-        segw[:, cols] = np.diff(bounds, axis=1)
-        chunks = []
-        for i in range(k):
-            t = int(totals[i])
-            words = (tail[i, mmax - t:] if t else np.empty(0, np.uint16))
-            chunks.append(
-                vrans.serialize_chunk(kk, states_np[i], words)
-                if bitmaps is None else
-                vrans.serialize_chunk_v2(kk, states_np[i], words, bitmaps[i]))
-        digs = None
-        if self.debug:
-            digs = self._wave_digests(w)
+        with tracing.span("finish.pull"):
+            tail = buf[:, n_pad - mmax:].cpu().numpy() if mmax else None
+        with tracing.span("finish.pack"):
+            bounds = np.concatenate([seg_np, np.full((k, 1), n_pad)], axis=1)
+            segw = np.zeros((k, 4), np.int64)
+            segw[:, cols] = np.diff(bounds, axis=1)
+            chunks = []
             for i in range(k):
-                self._debug_vr_frame(chunks[i], sym[i], rows[i], i)
-        dcs = self._dc_trailers(w)
-        frame_bytes, stats = [], self._base_stats(w)
-        for i in range(k):
-            fb = bs.pack_frame({"codecnet_z": chunks[i]},
-                               digs[i] if digs else None, dc=dcs[i])
-            frame_bytes.append(fb)
-            stats[i].update({
-                "bytes": len(fb),
-                "mode_bytes": 2 * int(segw[i, :2].sum()),
-                "codec_bytes": 2 * int(segw[i, 2:].sum()),
-                "k": kk,
-            })
-        self.note_coded_wave(frame_type, frame_bytes)
+                t = int(totals[i])
+                words = (tail[i, mmax - t:] if t else np.empty(0, np.uint16))
+                chunks.append(
+                    vrans.serialize_chunk(kk, states_np[i], words)
+                    if bitmaps is None else
+                    vrans.serialize_chunk_v2(kk, states_np[i], words,
+                                             bitmaps[i]))
+            digs = None
+            if self.debug:
+                digs = self._wave_digests(w)
+                for i in range(k):
+                    self._debug_vr_frame(chunks[i], sym[i], rows[i], i)
+            dcs = self._dc_trailers(w)
+            frame_bytes, stats = [], self._base_stats(w)
+            for i in range(k):
+                fb = bs.pack_frame({"codecnet_z": chunks[i]},
+                                   digs[i] if digs else None, dc=dcs[i])
+                frame_bytes.append(fb)
+                stats[i].update({
+                    "bytes": len(fb),
+                    "mode_bytes": 2 * int(segw[i, :2].sum()),
+                    "codec_bytes": 2 * int(segw[i, 2:].sum()),
+                    "k": kk,
+                })
+            self.note_coded_wave(frame_type, frame_bytes)
         return frame_bytes, stats
 
     def _entropy_host(self, w):
@@ -797,9 +841,12 @@ class FrameCodec:
             z = w["z_m" if fam == "mofnet" else "z_c"]
             if z is None:
                 continue
-            z_np = _nhwc(z)
-            y_np = _nhwc(w["q_m" if fam == "mofnet" else "q_c"])
-            b_np = _nhwc(w["bins_m" if fam == "mofnet" else "bins_c"])
+            with tracing.span("finish.pull"):
+                z_np = _nhwc(z)
+            with tracing.span("finish.pull"):
+                y_np = _nhwc(w["q_m" if fam == "mofnet" else "q_c"])
+            with tracing.span("finish.pull"):
+                b_np = _nhwc(w["bins_m" if fam == "mofnet" else "bins_c"])
             for i in range(k):
                 jobs.append((i, f"{fam}_z", functools.partial(
                     self._encode_z, fam, z_np[i], f"{fam}_z[{i}]")))
@@ -810,19 +857,21 @@ class FrameCodec:
         chunks = [dict() for _ in range(k)]
         for (i, name, _), out in zip(jobs, outs):
             chunks[i][name] = out
-        digs = self._wave_digests(w) if self.debug else None
-        dcs = self._dc_trailers(w)
-        frame_bytes, stats = [], self._base_stats(w)
-        for i in range(k):
-            c = chunks[i]
-            fb = bs.pack_frame(c, digs[i] if digs else None, dc=dcs[i])
-            frame_bytes.append(fb)
-            stats[i].update({
-                "bytes": len(fb),
-                "mode_bytes": (len(c.get("mofnet_z", b""))
-                               + len(c.get("mofnet_y", b""))),
-                "codec_bytes": len(c["codecnet_z"]) + len(c["codecnet_y"]),
-            })
+        with tracing.span("finish.pack"):
+            digs = self._wave_digests(w) if self.debug else None
+            dcs = self._dc_trailers(w)
+            frame_bytes, stats = [], self._base_stats(w)
+            for i in range(k):
+                c = chunks[i]
+                fb = bs.pack_frame(c, digs[i] if digs else None, dc=dcs[i])
+                frame_bytes.append(fb)
+                stats[i].update({
+                    "bytes": len(fb),
+                    "mode_bytes": (len(c.get("mofnet_z", b""))
+                                   + len(c.get("mofnet_y", b""))),
+                    "codec_bytes": (len(c["codecnet_z"])
+                                    + len(c["codecnet_y"])),
+                })
         return frame_bytes, stats
 
     # ------------------------------------------------------------------
@@ -950,56 +999,64 @@ class FrameCodec:
         if w["z_m"] is not None:
             bits = bits + z_bits(w["z_m"], "z_m") + y_bits(w["q_m"],
                                                            w["bins_m"])
-        return bits.float().cpu()
+        bits = bits.float()
+        with tracing.span("finish.pull"):
+            return bits.cpu()
 
     # ------------------------------------------------------------------
     # Decode
     # ------------------------------------------------------------------
     def _dec_z(self, words, st, g, n: int, k: int, C: int, fam: str):
         """Decode one z segment -> float32 [B, C, Hz, Wz] and the carry."""
-        B = words.shape[0]
-        off = self._row_off[fam]
-        nraw = self.hz * self.wz * C
-        rows = F.pad(self._z_rows(B, C, off), (0, n - nraw), value=off)
-        syms, st, g = vrans.decode_batch(words, st, rows.contiguous(),
-                                         self.table, k, g)
-        z = (syms[:, :nraw] - self.ac_max).to(torch.float32)
-        z = z.reshape(B, self.hz, self.wz, C).permute(0, 3, 1, 2)
-        return canonical(z), st, g
+        with tracing.span("batch.k2", K=k, steps=n // k):
+            B = words.shape[0]
+            off = self._row_off[fam]
+            nraw = self.hz * self.wz * C
+            rows = F.pad(self._z_rows(B, C, off), (0, n - nraw), value=off)
+            syms, st, g = vrans.decode_batch(words, st, rows.contiguous(),
+                                             self.table, k, g)
+            z = (syms[:, :nraw] - self.ac_max).to(torch.float32)
+            z = z.reshape(B, self.hz, self.wz, C).permute(0, 3, 1, 2)
+            return canonical(z), st, g
 
     def _dec_y(self, words, st, g, bins, n: int, k: int, C: int):
         """Decode one dense (v1) y segment -> float32 [B, C, Hy, Wy]."""
-        B = words.shape[0]
-        nraw = self.hy * self.wy * C
-        rows = (bins.permute(0, 2, 3, 1).reshape(B, -1).to(torch.int32)
-                + self._row_off["y"])
-        rows = F.pad(rows, (0, n - nraw), value=self._row_off["y"])
-        syms, st, g = vrans.decode_batch(words, st, rows.contiguous(),
-                                         self.table, k, g)
-        y = (syms[:, :nraw] - self.ac_max).to(torch.float32)
-        y = y.reshape(B, self.hy, self.wy, C).permute(0, 3, 1, 2)
-        return canonical(y), st, g
+        with tracing.span("batch.k2", K=k, steps=n // k):
+            B = words.shape[0]
+            nraw = self.hy * self.wy * C
+            rows = (bins.permute(0, 2, 3, 1).reshape(B, -1).to(torch.int32)
+                    + self._row_off["y"])
+            rows = F.pad(rows, (0, n - nraw), value=self._row_off["y"])
+            syms, st, g = vrans.decode_batch(words, st, rows.contiguous(),
+                                             self.table, k, g)
+            y = (syms[:, :nraw] - self.ac_max).to(torch.float32)
+            y = y.reshape(B, self.hy, self.wy, C).permute(0, 3, 1, 2)
+            return canonical(y), st, g
 
     def _dec_y_el(self, words, st, g, bins, idx, nkeep, n: int, k: int,
                   C: int):
         """Decode one elided y segment and scatter it back to a dense
         float32 [B, C, Hy, Wy]."""
-        B = words.shape[0]
-        hw = self.hy * self.wy
-        bucket = idx.shape[1]
-        valid = self._y_slots(idx, nkeep, hw)
-        rows = self._gather_ch(bins, idx).to(torch.int32) + self._row_off["y"]
-        rows = torch.where(valid, rows, self._row_off["y"])
-        rows = F.pad(rows, (0, n - bucket * hw), value=self._row_off["y"])
-        syms, st, g = vrans.decode_batch(words, st, rows.contiguous(),
-                                         self.table, k, g)
-        yk = (syms[:, :bucket * hw] - self.ac_max).to(torch.float32)
-        yk = torch.where(valid, yk, 0.0).reshape(B, bucket, hw)
-        dense = torch.zeros((B, C, hw), dtype=torch.float32,
-                            device=self.device)
-        # Padded slots hold 0 and a padded idx 0: adding zeros is a no-op.
-        dense.scatter_add_(1, idx.long()[:, :, None].expand(-1, -1, hw), yk)
-        return canonical(dense.reshape(B, C, self.hy, self.wy)), st, g
+        with tracing.span("batch.k2", K=k, steps=n // k):
+            B = words.shape[0]
+            hw = self.hy * self.wy
+            bucket = idx.shape[1]
+            valid = self._y_slots(idx, nkeep, hw)
+            rows = (self._gather_ch(bins, idx).to(torch.int32)
+                    + self._row_off["y"])
+            rows = torch.where(valid, rows, self._row_off["y"])
+            rows = F.pad(rows, (0, n - bucket * hw), value=self._row_off["y"])
+            syms, st, g = vrans.decode_batch(words, st, rows.contiguous(),
+                                             self.table, k, g)
+            yk = (syms[:, :bucket * hw] - self.ac_max).to(torch.float32)
+            yk = torch.where(valid, yk, 0.0).reshape(B, bucket, hw)
+            dense = torch.zeros((B, C, hw), dtype=torch.float32,
+                                device=self.device)
+            # Padded slots hold 0 and a padded idx 0: adding zeros is a
+            # no-op.
+            dense.scatter_add_(1, idx.long()[:, :, None].expand(-1, -1, hw),
+                               yk)
+            return canonical(dense.reshape(B, C, self.hy, self.wy)), st, g
 
     @torch.no_grad()
     def decode_frames_batch(self, frame_bytes_list, prev_refs, next_refs,
@@ -1010,37 +1067,48 @@ class FrameCodec:
         the bit-exactness contract).  ``backend`` names the chunk format
         the stream carries ("device" | "host"; decode_video passes the
         video header's flag) and defaults to this codec's own."""
-        chunks = [bs.unpack_frame(fb) for fb in frame_bytes_list]
-        digests = [c.get("__digests__") for c in chunks]
-        # Under a mesh the entropy decode runs on the whole wave on every
-        # rank and the nets on this rank's slice, the encoder's split.
-        sl = batch_slice(self.mesh, len(chunks))
-        prev = self._stack_refs(prev_refs[sl])
-        nxt = self._stack_refs(next_refs[sl])
-        if (backend or self.backend) == "device":
-            q_c, mu_c, pred, skip = self._decode_latents_device(
-                chunks, digests, prev, nxt, frame_type, idx_rate, sl)
-        else:
-            q_c, mu_c, pred, skip = self._decode_latents_host(
-                chunks, digests, prev, nxt, frame_type, idx_rate, sl)
-        x_hat = self.model.codecnet_synth(_part(q_c, sl), mu_c, pred, skip,
-                                          idx_rate, frame_type)
-        out, _ = self._cast_planes(x_hat)
-        if self.dc_offset:
-            dcs = []
-            for c in chunks:
-                if c.get("__dc__") is None:
-                    raise ValueError(
-                        "dc_offset enabled but a frame carries no DC trailer "
-                        "(stream from an AIVC_DC_OFFSET=0 encoder?)")
-                dcs.append(c["__dc__"])
-            out = self._apply_dc(out, torch.tensor(dcs[sl], dtype=torch.int32,
-                                                   device=self.device))
-        if sl != slice(None):
-            out = dict(zip(("y", "u", "v"), all_gather_cat(
-                self.mesh, [out[c] for c in ("y", "u", "v")])))
-        ref444 = planes_to_444(out["y"], out["u"], out["v"])
-        return self._split_decoded(out, ref444, len(chunks))
+        with tracing.span("batch", wave=tracing.new_wave(),
+                          k=len(frame_bytes_list), frame_type=frame_type):
+            with tracing.span("batch.parse"):
+                chunks = [bs.unpack_frame(fb) for fb in frame_bytes_list]
+            digests = [c.get("__digests__") for c in chunks]
+            # Under a mesh the entropy decode runs on the whole wave on
+            # every rank and the nets on this rank's slice, the encoder's
+            # split.
+            sl = batch_slice(self.mesh, len(chunks))
+            with tracing.span("batch.upload"):
+                prev = self._stack_refs(prev_refs[sl])
+                nxt = self._stack_refs(next_refs[sl])
+            if (backend or self.backend) == "device":
+                q_c, mu_c, pred, skip = self._decode_latents_device(
+                    chunks, digests, prev, nxt, frame_type, idx_rate, sl)
+            else:
+                q_c, mu_c, pred, skip = self._decode_latents_host(
+                    chunks, digests, prev, nxt, frame_type, idx_rate, sl)
+            with tracing.span("batch.nets"):
+                x_hat = self.model.codecnet_synth(_part(q_c, sl), mu_c, pred,
+                                                  skip, idx_rate, frame_type)
+                out, _ = self._cast_planes(x_hat)
+            if self.dc_offset:
+                dcs = []
+                for c in chunks:
+                    if c.get("__dc__") is None:
+                        raise ValueError(
+                            "dc_offset enabled but a frame carries no DC "
+                            "trailer (stream from an AIVC_DC_OFFSET=0 "
+                            "encoder?)")
+                    dcs.append(c["__dc__"])
+                with tracing.span("batch.upload"):
+                    dc = torch.tensor(dcs[sl], dtype=torch.int32,
+                                      device=self.device)
+                with tracing.span("batch.nets"):
+                    out = self._apply_dc(out, dc)
+            if sl != slice(None):
+                out = dict(zip(("y", "u", "v"), all_gather_cat(
+                    self.mesh, [out[c] for c in ("y", "u", "v")])))
+            with tracing.span("batch.nets"):
+                ref444 = planes_to_444(out["y"], out["u"], out["v"])
+            return self._split_decoded(out, ref444, len(chunks))
 
     def _hyper_wave(self, which: str, z_q, sl: slice):
         """The hyper stage of a decode on this rank's slice of the wave's
@@ -1074,63 +1142,71 @@ class FrameCodec:
         the hyper and synthesis stages -> (q_c of the whole wave; mu_c,
         pred, skip of this rank's slice ``sl``)."""
         k = len(chunks)
-        parsed = [vrans.parse_chunk_v2(c["codecnet_z"]) for c in chunks]
-        kk = parsed[0][2]
-        if any(p[2] != kk for p in parsed):
-            raise ValueError("inconsistent vrans stream counts in a wave")
-        v2 = parsed[0][3] is not None
-        if any((p[3] is not None) != v2 for p in parsed):
-            raise ValueError("mixed v1/v2 vrans chunks in a wave")
-        cm, cc = self.cfg.mofnet.nb_ft_y, self.cfg.codecnet.nb_ft_y
-        if v2:
-            ch_m, ch_c = [], []
-            for _, _, _, bms in parsed:
-                if frame_type != FRAME_I:
-                    ch_m.append(vrans.bitmap_channels(bms[0], cm))
-                    ch_c.append(vrans.bitmap_channels(bms[1], cc))
-                else:
-                    ch_c.append(vrans.bitmap_channels(bms[0], cc))
-            bc = vrans.elide_bucket(max(c.size for c in ch_c), cc)
-            bm = (vrans.elide_bucket(max(c.size for c in ch_m), cm)
-                  if ch_m else 0)
-            idxc, nkc = self._pack_idx(ch_c, bc)
-            _, segs = self._fused_n2(frame_type, kk, bm, bc)
-        else:
-            _, segs = self._fused_n(frame_type, kk)
-        seg_it = iter(segs)
+        with tracing.span("batch.parse"):
+            parsed = [vrans.parse_chunk_v2(c["codecnet_z"]) for c in chunks]
+            kk = parsed[0][2]
+            if any(p[2] != kk for p in parsed):
+                raise ValueError("inconsistent vrans stream counts in a wave")
+            v2 = parsed[0][3] is not None
+            if any((p[3] is not None) != v2 for p in parsed):
+                raise ValueError("mixed v1/v2 vrans chunks in a wave")
+            cm, cc = self.cfg.mofnet.nb_ft_y, self.cfg.codecnet.nb_ft_y
+            if v2:
+                ch_m, ch_c = [], []
+                for _, _, _, bms in parsed:
+                    if frame_type != FRAME_I:
+                        ch_m.append(vrans.bitmap_channels(bms[0], cm))
+                        ch_c.append(vrans.bitmap_channels(bms[1], cc))
+                    else:
+                        ch_c.append(vrans.bitmap_channels(bms[0], cc))
+                bc = vrans.elide_bucket(max(c.size for c in ch_c), cc)
+                bm = (vrans.elide_bucket(max(c.size for c in ch_m), cm)
+                      if ch_m else 0)
+                idxc, nkc = self._pack_idx(ch_c, bc)
+                _, segs = self._fused_n2(frame_type, kk, bm, bc)
+            else:
+                _, segs = self._fused_n(frame_type, kk)
+            seg_it = iter(segs)
 
-        mw = vrans.bucket(max(max(p[0].size for p in parsed), 1), 1 << 30)
-        wb = np.zeros((k, mw), np.uint16)
-        for i, p in enumerate(parsed):
-            wb[i, :p[0].size] = p[0]
-        words = torch.from_numpy(wb).to(self.device)
-        st = torch.from_numpy(np.stack([p[1] for p in parsed])).to(
-            self.device)
-        g = torch.zeros(k, dtype=torch.int32, device=self.device)
+            mw = vrans.bucket(max(max(p[0].size for p in parsed), 1),
+                              1 << 30)
+            wb = np.zeros((k, mw), np.uint16)
+            for i, p in enumerate(parsed):
+                wb[i, :p[0].size] = p[0]
+        with tracing.span("batch.upload"):
+            words = torch.from_numpy(wb).to(self.device)
+            st = torch.from_numpy(np.stack([p[1] for p in parsed])).to(
+                self.device)
+            g = torch.zeros(k, dtype=torch.int32, device=self.device)
 
         if frame_type == FRAME_I:
-            pred, skip = self._zero_pred(len(range(k)[sl]))
+            with tracing.span("batch.nets"):
+                pred, skip = self._zero_pred(len(range(k)[sl]))
         else:
             z_qm, st, g = self._dec_z(words, st, g, next(seg_it), kk,
                                       self.cfg.mofnet.nb_ft_z, "z_m")
-            mu_m, bins_m = self._hyper_wave("mofnet", z_qm, sl)
+            with tracing.span("batch.nets"):
+                mu_m, bins_m = self._hyper_wave("mofnet", z_qm, sl)
             if not v2:
                 q_m, st, g = self._dec_y(words, st, g, bins_m, next(seg_it),
                                          kk, cm)
             elif bm:
-                idxm, nkm = self._pack_idx(ch_m, bm)
+                with tracing.span("batch.parse"):
+                    idxm, nkm = self._pack_idx(ch_m, bm)
                 q_m, st, g = self._dec_y_el(words, st, g, bins_m, idxm, nkm,
                                             next(seg_it), kk, cm)
             else:
                 q_m = torch.zeros((k, cm, self.hy, self.wy),
                                   dtype=torch.float32, device=self.device)
             self._verify_latents(digests, "mofnet", z_qm, q_m)
-            pred, skip = self._motion(_part(q_m, sl), mu_m, prev, nxt,
-                                      frame_type, idx_rate)
+            with tracing.span("batch.nets"):
+                pred, skip = self._motion(_part(q_m, sl), mu_m, prev, nxt,
+                                          frame_type, idx_rate)
 
         z_qc, st, g = self._dec_z(words, st, g, next(seg_it), kk,
                                   self.cfg.codecnet.nb_ft_z, "z_c")
-        mu_c, bins_c = self._hyper_wave("codecnet", z_qc, sl)
+        with tracing.span("batch.nets"):
+            mu_c, bins_c = self._hyper_wave("codecnet", z_qc, sl)
         if not v2:
             q_c, st, g = self._dec_y(words, st, g, bins_c, next(seg_it), kk,
                                      cc)
@@ -1156,22 +1232,27 @@ class FrameCodec:
             z_np = np.stack(_par_map(lambda c: bs.decode_z_chunk(
                 c[f"{fam}_z"], (self.hz, self.wz, ncfg.nb_ft_z),
                 self.z_rows[fam]), chunks))
-            z_q = self._from_nhwc(z_np)
-            mu, bins = self._hyper_wave(fam, z_q, sl)
+            with tracing.span("batch.upload"):
+                z_q = self._from_nhwc(z_np)
+            with tracing.span("batch.nets"):
+                mu, bins = self._hyper_wave(fam, z_q, sl)
             bins_np = _nhwc(bins)
             y_np = np.stack(_par_map(lambda ic: bs.decode_y_chunk(
                 ic[1][f"{fam}_y"], (self.hy, self.wy, ncfg.nb_ft_y),
                 bins_np[ic[0]], self.laplace_rows), list(enumerate(chunks))))
-            q = self._from_nhwc(y_np)
+            with tracing.span("batch.upload"):
+                q = self._from_nhwc(y_np)
             self._verify_latents(digests, fam, z_q, q)
             return q, mu
 
         if frame_type == FRAME_I:
-            pred, skip = self._zero_pred(len(range(k)[sl]))
+            with tracing.span("batch.nets"):
+                pred, skip = self._zero_pred(len(range(k)[sl]))
         else:
             q_m, mu_m = latents("mofnet")
-            pred, skip = self._motion(_part(q_m, sl), mu_m, prev, nxt,
-                                      frame_type, idx_rate)
+            with tracing.span("batch.nets"):
+                pred, skip = self._motion(_part(q_m, sl), mu_m, prev, nxt,
+                                          frame_type, idx_rate)
         q_c, mu_c = latents("codecnet")
         return q_c, mu_c, pred, skip
 

@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from aivc_tpu_torch import tracing
 from aivc_tpu_torch.coding import bitstream as bs
 from aivc_tpu_torch.config import FRAME_I, CodingConfig
 from aivc_tpu_torch.device import resolve_device
@@ -143,8 +144,9 @@ def encode_gop(codec: FrameCodec, gop: GopStruct,
         finish_one()
     header = bs.GopHeader(gop_struct_name=gop.name, idx_rate=idx_rate)
     frames = [by_order[o] for o in sorted(by_order)]
-    return bs.pack_gop(header, frames), {first_idx + k: v
-                                         for k, v in decoded.items()}
+    with tracing.span("video.gop"):
+        packed = bs.pack_gop(header, frames)
+    return packed, {first_idx + k: v for k, v in decoded.items()}
 
 
 class GopStreamStore:
@@ -205,7 +207,8 @@ def _decode_gop_chunk(codec: FrameCodec, gop_bytes: bytes, wave_batch: int,
     """Decode one packed GOP chunk (indices local to the GOP).  For a
     ``resumed`` encode, each wave's bytes also replay the encoder's K
     policy (FrameCodec.note_coded_wave)."""
-    gop_header, frame_chunks = bs.unpack_gop(gop_bytes)
+    with tracing.span("video.gop"):
+        gop_header, frame_chunks = bs.unpack_gop(gop_bytes)
     gop = generate_gop_struct(gop_header.gop_struct_name)
     by_order = {spec.coding_order: fb
                 for spec, fb in zip(gop.coding_order, frame_chunks)}
@@ -259,7 +262,8 @@ def _encode_all_intra(codec: FrameCodec, frames, idx_rate: float,
             [frames[i] for i in group], [None] * len(group),
             [None] * len(group), FRAME_I, idx_rate)
         for i, fb, dec, st in zip(group, fbs, decs, stats):
-            chunk = bs.pack_gop(header0, [fb])
+            with tracing.span("video.gop"):
+                chunk = bs.pack_gop(header0, [fb])
             chunks_out.append(chunk)
             decoded_all[i] = dec
             fr = _frame_result(i, FRAME_I, st, n_pix)
@@ -277,61 +281,63 @@ def encode_video(codec: FrameCodec, frames: Sequence[Dict[str, np.ndarray]],
     every finished GOP is kept there, and a rerun with the same directory
     encodes only the missing ones (the finished ones are re-decoded to
     rebuild the references)."""
-    name = coding.gop_struct_name()
-    gop = generate_gop_struct(name)
-    gop_len = len(gop)
-    n_frames = len(frames)
-    if n_frames > 65536:
-        raise ValueError(f"{n_frames} frames exceed the 2-byte frame-index "
-                         "header range; encode in segments")
-    nb_gop = -(-n_frames // gop_len)
-    t0 = time.time()
-    results: List[FrameResult] = []
-    chunks: List[bytes] = []
-    decoded_all: Dict[int, DecodedFrame] = {}
-    store = None
-    if stream_dir is not None:
-        store = GopStreamStore(stream_dir, {
-            "n_frames": n_frames, "gop": name, "h": codec.h, "w": codec.w,
-            "idx_rate": coding.idx_rate, "wave_batch": wave_batch,
-            "backend": codec.backend, "model": codec.cfg.name,
-            # v2 (elided) or dense v1 fused stream
-            "elide": codec.elide,
-        })
+    with tracing.span("video.encode"):
+        name = coding.gop_struct_name()
+        gop = generate_gop_struct(name)
+        gop_len = len(gop)
+        n_frames = len(frames)
+        if n_frames > 65536:
+            raise ValueError(f"{n_frames} frames exceed the 2-byte "
+                             "frame-index header range; encode in segments")
+        nb_gop = -(-n_frames // gop_len)
+        t0 = time.time()
+        results: List[FrameResult] = []
+        chunks: List[bytes] = []
+        decoded_all: Dict[int, DecodedFrame] = {}
+        store = None
+        if stream_dir is not None:
+            store = GopStreamStore(stream_dir, {
+                "n_frames": n_frames, "gop": name, "h": codec.h, "w": codec.w,
+                "idx_rate": coding.idx_rate, "wave_batch": wave_batch,
+                "backend": codec.backend, "model": codec.cfg.name,
+                # v2 (elided) or dense v1 fused stream
+                "elide": codec.elide,
+            })
 
-    if gop_len == 1 and wave_batch > 1:
-        chunks = _encode_all_intra(codec, frames, coding.idx_rate, name,
-                                   wave_batch, store, results, decoded_all)
-    else:
-        for g in range(nb_gop):
-            start = g * gop_len
-            if store is not None and store.has(g):
-                gop_bytes = store.load(g)
-                results.extend(store.load_results(g))
-                decoded = {start + k: v for k, v in _decode_gop_chunk(
-                    codec, gop_bytes, wave_batch, codec.backend,
-                    resumed=True).items()}
-            else:
-                # The tail is padded by repeating the last frame.
-                gop_frames = [frames[min(start + i, n_frames - 1)]
-                              for i in range(gop_len)]
-                n_before = len(results)
-                gop_bytes, decoded = encode_gop(
-                    codec, gop, gop_frames, coding.idx_rate, start, results,
-                    wave_batch=wave_batch)
-                if store is not None:
-                    store.save(g, gop_bytes, results[n_before:])
-            chunks.append(gop_bytes)
-            decoded_all.update({k: v for k, v in decoded.items()
-                                if k < n_frames})
-    header = codec.video_header(nb_gop, 0, n_frames - 1,
-                                wave_batch=wave_batch)
-    video = bs.pack_video(header, chunks)
-    elapsed = max(time.time() - t0, 1e-9)
-    return EncodeResult(bitstream=video,
-                        frame_results=[r for r in results
-                                       if r.idx < n_frames],
-                        decoded_frames=decoded_all, fps=n_frames / elapsed)
+        if gop_len == 1 and wave_batch > 1:
+            chunks = _encode_all_intra(codec, frames, coding.idx_rate, name,
+                                       wave_batch, store, results, decoded_all)
+        else:
+            for g in range(nb_gop):
+                start = g * gop_len
+                if store is not None and store.has(g):
+                    gop_bytes = store.load(g)
+                    results.extend(store.load_results(g))
+                    decoded = {start + k: v for k, v in _decode_gop_chunk(
+                        codec, gop_bytes, wave_batch, codec.backend,
+                        resumed=True).items()}
+                else:
+                    # The tail is padded by repeating the last frame.
+                    gop_frames = [frames[min(start + i, n_frames - 1)]
+                                  for i in range(gop_len)]
+                    n_before = len(results)
+                    gop_bytes, decoded = encode_gop(
+                        codec, gop, gop_frames, coding.idx_rate, start,
+                        results, wave_batch=wave_batch)
+                    if store is not None:
+                        store.save(g, gop_bytes, results[n_before:])
+                chunks.append(gop_bytes)
+                decoded_all.update({k: v for k, v in decoded.items()
+                                    if k < n_frames})
+        header = codec.video_header(nb_gop, 0, n_frames - 1,
+                                    wave_batch=wave_batch)
+        with tracing.span("video.gop"):
+            video = bs.pack_video(header, chunks)
+        elapsed = max(time.time() - t0, 1e-9)
+        return EncodeResult(bitstream=video,
+                            frame_results=[r for r in results
+                                           if r.idx < n_frames],
+                            decoded_frames=decoded_all, fps=n_frames / elapsed)
 
 
 def decode_video(codec: FrameCodec, data: bytes,
@@ -341,45 +347,52 @@ def decode_video(codec: FrameCodec, data: bytes,
     alphabet, schedule and entropy backend come from the video header.
     Passing wave_batch is only a cross-check: a value other than the
     header's raises, since another grouping is not bit-exact."""
-    header, gop_chunks = bs.unpack_video(data)
-    if (1 << header.ac_log2) != codec.ac_max:
-        raise ValueError(
-            f"bitstream alphabet +-{1 << header.ac_log2} != the model's "
-            f"ac_max_val {codec.ac_max}")
-    codec.check_sched(header)
-    if wave_batch is None:
-        wave_batch = header.wave_batch
-    elif wave_batch != header.wave_batch:
-        raise ValueError(
-            f"wave_batch {wave_batch} does not match the bitstream header's "
-            f"{header.wave_batch}; decoding with a different wave grouping "
-            "is not bit-exact (omit the argument to use the header)")
-    backend = "device" if header.backend == bs.BACKEND_DEVICE else "host"
-    decoded_all: Dict[int, DecodedFrame] = {}
-    first_idx = header.idx_first_frame
+    with tracing.span("video.decode"):
+        with tracing.span("video.gop"):
+            header, gop_chunks = bs.unpack_video(data)
+        if (1 << header.ac_log2) != codec.ac_max:
+            raise ValueError(
+                f"bitstream alphabet +-{1 << header.ac_log2} != the model's "
+                f"ac_max_val {codec.ac_max}")
+        codec.check_sched(header)
+        if wave_batch is None:
+            wave_batch = header.wave_batch
+        elif wave_batch != header.wave_batch:
+            raise ValueError(
+                f"wave_batch {wave_batch} does not match the bitstream "
+                f"header's {header.wave_batch}; decoding with a different "
+                "wave grouping is not bit-exact (omit the argument to use "
+                "the header)")
+        backend = "device" if header.backend == bs.BACKEND_DEVICE else "host"
+        decoded_all: Dict[int, DecodedFrame] = {}
+        first_idx = header.idx_first_frame
 
-    if wave_batch > 1 and gop_chunks:
-        probe_header, probe_frames = bs.unpack_gop(gop_chunks[0])
-        if (probe_header.gop_struct_name == "1_GOP_0"
-                and len(probe_frames) == 1):
-            # All-Intra: regroup the single-frame GOPs as the encoder did.
-            frame_bytes = [bs.unpack_gop(g)[1][0] for g in gop_chunks]
-            for group in _ai_groups(len(frame_bytes), wave_batch):
-                decs = codec.decode_frames_batch(
-                    [frame_bytes[i] for i in group], [None] * len(group),
-                    [None] * len(group), FRAME_I, probe_header.idx_rate,
-                    backend=backend)
-                for i, dec in zip(group, decs):
-                    decoded_all[first_idx + i] = dec
-            return {k: v for k, v in decoded_all.items()
-                    if k <= header.idx_last_frame}
+        if wave_batch > 1 and gop_chunks:
+            with tracing.span("video.gop"):
+                probe_header, probe_frames = bs.unpack_gop(gop_chunks[0])
+            if (probe_header.gop_struct_name == "1_GOP_0"
+                    and len(probe_frames) == 1):
+                # All-Intra: regroup the single-frame GOPs as the encoder
+                # did.
+                with tracing.span("video.gop"):
+                    frame_bytes = [bs.unpack_gop(g)[1][0]
+                                   for g in gop_chunks]
+                for group in _ai_groups(len(frame_bytes), wave_batch):
+                    decs = codec.decode_frames_batch(
+                        [frame_bytes[i] for i in group], [None] * len(group),
+                        [None] * len(group), FRAME_I, probe_header.idx_rate,
+                        backend=backend)
+                    for i, dec in zip(group, decs):
+                        decoded_all[first_idx + i] = dec
+                return {k: v for k, v in decoded_all.items()
+                        if k <= header.idx_last_frame}
 
-    for gop_bytes in gop_chunks:
-        decoded = _decode_gop_chunk(codec, gop_bytes, wave_batch, backend)
-        decoded_all.update({first_idx + k: v for k, v in decoded.items()})
-        first_idx += len(decoded)
-    return {k: v for k, v in decoded_all.items()
-            if k <= header.idx_last_frame}
+        for gop_bytes in gop_chunks:
+            decoded = _decode_gop_chunk(codec, gop_bytes, wave_batch, backend)
+            decoded_all.update({first_idx + k: v for k, v in decoded.items()})
+            first_idx += len(decoded)
+        return {k: v for k, v in decoded_all.items()
+                if k <= header.idx_last_frame}
 
 
 def evaluate_frames(orig: Sequence[Dict[str, np.ndarray]],

@@ -30,19 +30,6 @@ ROOT = Path(__file__).resolve().parents[1]
 ROUNDS = 5
 
 
-def busy_us(spans: List[tuple]) -> float:
-    """Length of the union of [start, end) spans."""
-    spans = sorted(spans)
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for a, b in spans[1:]:
-        if a > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    return busy + cur_e - cur_s
-
-
 @contextlib.contextmanager
 def gdn_on_k4(model: torch.nn.Module):
     """Sends each GDN layer without clamp or low-precision parameters
@@ -70,6 +57,8 @@ def profile_call(fn, *args, top: int = 8) -> Dict:
     device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    from aivc_tpu_torch.tracing import union_length
+
     torch.cuda.synchronize()
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -86,7 +75,8 @@ def profile_call(fn, *args, top: int = 8) -> Dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    busy = busy_us([(e.time_range.start, e.time_range.end) for e in kern])
+    busy = union_length([(e.time_range.start, e.time_range.end)
+                         for e in kern])
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
             "kernel_ms": sum(by_name.values()) / 1e3,
             "kernels": len(kern),

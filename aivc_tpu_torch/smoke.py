@@ -80,7 +80,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from aivc_tpu_torch import kernels, profile_kernels
+from aivc_tpu_torch import kernels, profile_kernels, tracing
 from aivc_tpu_torch.coding import bitstream as bs
 from aivc_tpu_torch.coding import range_coder, vrans
 from aivc_tpu_torch.config import FRAME_B, FRAME_P, CodingConfig
@@ -1738,45 +1738,45 @@ def rank_mesh_codec(device, ckpt: str, frames, gop: int,
     decode must equal the encoder's reconstructions bit for bit.  The
     stream, the md5 of the reconstructions, PSNR, seconds, the
     collectives' seconds (all of them; under 'spatial' the halo
-    exchanges' and the row gathers' too), K1-K3's launches, the peak
-    device memory and, on a card's band past the first, the inputs of one
-    K3 band launch of the encode."""
+    exchanges' and the row gathers' too: the encode's and the decode's
+    ``mesh.gather``, ``halo.exchange`` and ``halo.gather`` spans),
+    K1-K3's launches, the peak device memory and, on a card's band past
+    the first, the inputs of one K3 band launch of the encode."""
     from aivc_tpu_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh(spatial=spatial)
     cfg, model = load_checkpoint(ckpt, device=device)
     h, w = frames[0]["y"].shape
     codec = FrameCodec(cfg, model, h, w, device=device, mesh=mesh)
-    comm0 = mesh.comm_seconds
     _barrier_sync(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     launches0 = dict(kernels.LAUNCHES)
     watch = (WarpWatch(band=True)
              if codec.band is not None and device.type == "cuda" else None)
-    t0 = time.time()
-    try:
-        enc = encode_video(codec, frames, ra_coding(gop),
-                           wave_batch=wave_batch)
-    finally:
-        if watch is not None:
-            watch.close()
-    sync(device)
-    t1 = time.time()
-    dec = decode_video(codec, enc.bitstream)
-    md5 = recon_md5(dec, range(len(frames)))
-    sync(device)
-    t2 = time.time()
+    with tracing.recording() as rec:
+        t0 = time.time()
+        try:
+            enc = encode_video(codec, frames, ra_coding(gop),
+                               wave_batch=wave_batch)
+        finally:
+            if watch is not None:
+                watch.close()
+        sync(device)
+        t1 = time.time()
+        dec = decode_video(codec, enc.bitstream)
+        md5 = recon_md5(dec, range(len(frames)))
+        sync(device)
+        t2 = time.time()
     if md5 != recon_md5(enc.decoded_frames, range(len(frames))):
         raise AssertionError("the mesh codec's decode differs from its "
                              "encoder's reconstructions")
     q = evaluate_frames(frames, dec, device=device)
-    band = codec.band
     return {"bitstream": enc.bitstream, "md5": md5, "psnr": q["psnr"],
             "encode_s": t1 - t0, "decode_s": t2 - t1,
-            "comm_s": mesh.comm_seconds - comm0,
-            "halo_s": band.halo_seconds if band else 0.0,
-            "gather_s": band.gather_seconds if band else 0.0,
+            "comm_s": rec.seconds("mesh.gather"),
+            "halo_s": rec.seconds("halo.exchange"),
+            "gather_s": rec.seconds("halo.gather"),
             "launches": {k: v - launches0[k]
                          for k, v in kernels.LAUNCHES.items()},
             "peak_gib": (torch.cuda.max_memory_allocated() / 2**30

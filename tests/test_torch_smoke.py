@@ -293,11 +293,12 @@ def test_capture_forward_warp_fails_without_a_launch(bf16_forward,
 
 
 def test_profile_busy_time_is_the_union_of_spans():
-    from aivc_tpu_torch.profile_forward import busy_us
+    from aivc_tpu_torch.tracing import union_length
 
-    assert busy_us([(0, 10)]) == 10
-    assert busy_us([(5, 8), (0, 10), (12, 15)]) == 13
-    assert busy_us([(0, 4), (4, 6), (7, 9)]) == 8
+    assert union_length([(0, 10)]) == 10
+    assert union_length([(5, 8), (0, 10), (12, 15)]) == 13
+    assert union_length([(0, 4), (4, 6), (7, 9)]) == 8
+    assert union_length([]) == 0
 
 
 def test_forward_small_rehearsed_on_host():

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from aivc_tpu_torch import tracing
 from aivc_tpu_torch.ops.metrics import msssim
 from aivc_tpu_torch.parallel import (
     frame_sharding,
@@ -128,7 +129,7 @@ def split_nets(device, ckpt: str, x: torch.Tensor, y: torch.Tensor,
     _, model = load_checkpoint(ckpt, device="cpu")
     band = RowBand(make_mesh(spatial=spatial))
     out = {}
-    with torch.no_grad():
+    with torch.no_grad(), tracing.recording() as rec:
         for name in ("mofnet", "codecnet"):
             net = getattr(model, name)
             xs = x[:, :net.cfg.in_c]
@@ -139,7 +140,7 @@ def split_nets(device, ckpt: str, x: torch.Tensor, y: torch.Tensor,
             split = (band.gather(net.g_a(band.rows(xs))),
                      band.gather(net.g_s(band.rows(ys))))
             out[name] = {"whole": whole, "split": split}
-    out["halo_s"] = band.halo_seconds
+    out["halo_s"] = rec.seconds("halo.exchange")
     return out
 
 
