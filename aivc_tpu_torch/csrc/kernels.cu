@@ -14,13 +14,14 @@
 //                 (through warp_bounded_pallas).
 // K4 gdn_fused    replaces aivc_tpu/ops/gdn.py:_gdn_kernel
 //                 (through gdn_pallas): bf16 on the tensor cores, f32 on
-//                 CUDA cores.
+//                 CUDA cores; and, at gdn_apply's rounding points, the bf16
+//                 GDN layers of the nets (gdn_layer_tc_kernel).
 // K5 warp_vclamped replaces aivc_tpu/ops/warp_pallas.py:_warp_plane_kernel
 //                 (through warp_pallas).
 //
 // Each kernel is bit-identical to its plain PyTorch version beside its
 // wrapper (coding/vrans.py, ops/warp.py, ops/gdn.py), except K4's bf16
-// path, whose tensor cores sum in their own order: within 2 bf16 ulps.
+// paths, whose tensor cores sum in their own order: within 2 bf16 ulps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -888,20 +889,20 @@ __device__ __forceinline__ unsigned square_bf16x2(unsigned v) {
   return v;
 }
 
-// Issues the copy of x's [128 channels from j0] x [64 pixels from p0]
+// Issues the copy of x's [Rows channels from j0] x [Pix pixels from p0]
 // tile into a stage: 16-byte cp.async where aligned and inside the
 // image, plain copies (0 past HW) elsewhere.
+template <int Rows = kTcCh, int Threads = kTcThreads, int Pix = kTcPix>
 __device__ __forceinline__ void gdn_stage_fill(unsigned char* stage,
                                                const __nv_bfloat16* xi,
                                                int j0, int p0, int HW,
                                                bool vec) {
-  for (int seg = threadIdx.x; seg < kTcCh * (kTcPix / 8);
-       seg += kTcThreads) {
-    const int row = seg >> 3;
-    const int col = (seg & 7) << 3;
+  for (int seg = threadIdx.x; seg < Rows * (Pix / 8); seg += Threads) {
+    const int row = seg / (Pix / 8);
+    const int col = (seg % (Pix / 8)) * 8;
     const int p = p0 + col;
     const __nv_bfloat16* src = xi + (size_t)(j0 + row) * HW + p;
-    unsigned char* dst = stage + swz(row, col, kTcPix);
+    unsigned char* dst = stage + swz(row, col, Pix);
     if (vec && p + 8 <= HW) {
       cp_async16(dst, src);
     } else {
@@ -1091,6 +1092,263 @@ __global__ void __launch_bounds__(kTcThreads, 2)
         for (int e = 0; e < 8 && p + e < HW; ++e) dst[e] = s[e];
       }
     }
+  }
+  cp_async_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
+// K4 in the GDN layers (ops/gdn.py:GDN through gdn_layer_cuda): the
+// product of gdn_fused_tc_kernel at the rounding points of
+// ops/gdn.py:gdn_apply instead of gdn_pallas's, for C = 96 (MOFNet) and
+// C = 128 (CodecNet).  JAX's layers run gdn_apply through XLA, which fuses
+// its elementwise passes; without this kernel PyTorch runs them as up to
+// seven passes over the tensor around a cuDNN 1x1 convolution.
+//
+//   s = to_bf16(sum_j x2[b, j, p] * gamma[o, j])  (f32, tensor cores)
+//   lowp:  n = to_bf16(sqrt(to_bf16(s + to_bf16(beta[o]))));
+//          out = to_bf16(x / n) (x * n for the inverse), bf16
+//   else:  n = sqrt(s + beta[o]); out = x / n (x * n), f32
+//
+// gamma enters as hi + lo (~16 bits) as in gdn_fused_tc_kernel, and with
+// lowp as hi alone, bf16(gamma), which is what gdn_apply casts it to.  So
+// only the sum's order departs from gdn_apply (and, without lowp, gamma's
+// ~16 bits against cuDNN's f32 or TF32); every rounding after the sum is
+// gdn_apply's.  What bounds it: bytes (x read once, the output written
+// once: 4 B an element with lowp, 6 without).  Design: gdn_fused_tc_kernel's
+// with all C channels in one block: C / 32 x 2 warps of 32 output channels
+// x kWarpPix pixels on [C x kPix pixel] tiles (GdnLayer); gamma resident
+// for the block's life in rows of 128 bf16 (the swizzle's span, so that
+// C = 96 stays inside its row); a cp.async ring of x tiles; the output
+// stored straight from the fragments (store_row), a warp store covering
+// whole 32-byte sectors of 8 rows.  A tile's arithmetic does
+// not depend on the block that runs it, so an image's output does not
+// depend on the batch or the grid.
+// ---------------------------------------------------------------------------
+constexpr int kLayerGammaW = 128;   // bf16 a gamma row in shared memory
+
+template <int C, bool kLowp>
+struct GdnLayer {
+  static_assert(C % 32 == 0 && C <= kLayerGammaW, "C: 32 to 128 by 32");
+  // Tiles of 128 pixels (64 a warp) in a 2-stage ring with lowp, of 64
+  // (32 a warp) in a 3-stage ring without: each the fastest of five such
+  // shapes at [8, C, 544, 960] (H100), both keeping two blocks an SM
+  // (one block an SM took 2-3x as long), 128-pixel tiles halving the
+  // fixed cost a tile where gamma's one term leaves the room.
+  static constexpr int kPix = kLowp ? 128 : 64;       // pixels a tile
+  static constexpr int kWarpPix = kLowp ? 64 : 32;    // pixels a warp
+  static constexpr int kNi = kWarpPix / 8;
+  static constexpr int kWarpsO = C / 32;
+  static constexpr int kThreads = kWarpsO * (kPix / kWarpPix) * 32;
+  static constexpr int kGammaBytes = C * kLayerGammaW * 2;   // one term
+  static constexpr int kStageBytes = C * kPix * 2;
+  static constexpr int kStages = kLowp ? 2 : 3;   // x tiles in the ring
+  static constexpr size_t kSmem = (kLowp ? 1 : 2) * (size_t)kGammaBytes +
+                                  kStages * (size_t)kStageBytes;
+  using Out = typename std::conditional<kLowp, __nv_bfloat16, float>::type;
+};
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Stores one row's 32 outputs of a quad of lanes (lane q = lane % 4 holds
+// pixels 8 ni + 2 q, + 1 for ni = 0..3, r[ni]) at row[pw ..]: as f32 one
+// 8-byte store a pair; as bf16 the quad first transposes its 4 x 4 words
+// of pixel pairs (two shuffle rounds), so that lane q stores pixels 8 q ..
+// 8 q + 7 in one 16-byte store and a warp store fills whole sectors.
+// Pixels at or past HW are not stored.
+__device__ __forceinline__ void store_row(float* row, int pw, int q,
+                                          const float (&r)[4][2], int HW,
+                                          bool vec) {
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+    const int p = pw + ni * 8 + 2 * q;
+    if (vec && p + 2 <= HW) {
+      *reinterpret_cast<float2*>(row + p) = make_float2(r[ni][0], r[ni][1]);
+    } else {
+      if (p < HW) row[p] = r[ni][0];
+      if (p + 1 < HW) row[p + 1] = r[ni][1];
+    }
+  }
+}
+
+__device__ __forceinline__ void store_row(__nv_bfloat16* row, int pw, int q,
+                                          const float (&r)[4][2], int HW,
+                                          bool vec) {
+  unsigned v[4];
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(r[ni][0], r[ni][1]);
+    memcpy(&v[ni], &h, 4);
+  }
+  // Swap the off-diagonal 2 x 2 blocks (lanes q, q ^ 2), then transpose
+  // each block (lanes q, q ^ 1): v[j] becomes lane j's v[q].
+  const bool hi2 = q & 2, hi1 = q & 1;
+  unsigned a = __shfl_xor_sync(0xffffffffu, hi2 ? v[0] : v[2], 2);
+  unsigned b = __shfl_xor_sync(0xffffffffu, hi2 ? v[1] : v[3], 2);
+  if (hi2) { v[0] = a; v[1] = b; } else { v[2] = a; v[3] = b; }
+  a = __shfl_xor_sync(0xffffffffu, hi1 ? v[0] : v[1], 1);
+  b = __shfl_xor_sync(0xffffffffu, hi1 ? v[2] : v[3], 1);
+  if (hi1) { v[0] = a; v[2] = b; } else { v[1] = a; v[3] = b; }
+  const int p = pw + 8 * q;
+  if (vec && p + 8 <= HW) {
+    *reinterpret_cast<uint4*>(row + p) = make_uint4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (p + i < HW) {
+        row[p + i] = __ushort_as_bfloat16(
+            (unsigned short)(v[i >> 1] >> ((i & 1) * 16)));
+      }
+    }
+  }
+}
+
+template <int C, bool kLowp>
+__global__ void __launch_bounds__(GdnLayer<C, kLowp>::kThreads)
+    gdn_layer_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ g_hi,
+                        const __nv_bfloat16* __restrict__ g_lo,
+                        const float* __restrict__ beta, int HW, int inverse,
+                        int vec,
+                        typename GdnLayer<C, kLowp>::Out* __restrict__ out) {
+  using L = GdnLayer<C, kLowp>;
+  extern __shared__ __align__(128) unsigned char layer_smem[];
+  unsigned char* a_hi = layer_smem;
+  unsigned char* a_lo = layer_smem + L::kGammaBytes;   // without lowp
+  unsigned char* stages = layer_smem + (kLowp ? 1 : 2) * L::kGammaBytes;
+  const unsigned a_hi_s = (unsigned)__cvta_generic_to_shared(a_hi);
+  const unsigned a_lo_s = (unsigned)__cvta_generic_to_shared(a_lo);
+  const unsigned stages_s = (unsigned)__cvta_generic_to_shared(stages);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wo = warp % L::kWarpsO;   // 32 output channels
+  const int wp = warp / L::kWarpsO;   // kWarpPix pixels
+  const size_t img = (size_t)blockIdx.y * C * HW;
+  const __nv_bfloat16* xi = x + img;
+  const int n_tiles = (HW + L::kPix - 1) / L::kPix;
+  const int my_tiles =
+      (int)blockIdx.x < n_tiles
+          ? (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x
+          : 0;
+
+  // This thread's accumulator rows: 2 m-tiles x 2 halves.
+  float bta[2][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      bta[mi][h] = beta[wo * 32 + mi * 16 + (lane >> 2) + h * 8];
+
+  // The ring: tile t in stage t % kStages, kStages - 1 tiles ahead; one
+  // commit group a tile (empty past the block's last).
+#pragma unroll
+  for (int t = 0; t < L::kStages - 1; ++t) {
+    if (t < my_tiles) {
+      gdn_stage_fill<C, L::kThreads, L::kPix>(
+          stages + t * L::kStageBytes, xi, 0,
+          ((int)blockIdx.x + t * (int)gridDim.x) * L::kPix, HW, vec != 0);
+    }
+    cp_async_commit();
+  }
+  for (int seg = threadIdx.x; seg < C * (C / 8); seg += L::kThreads) {
+    const int row = seg / (C / 8);
+    const int col = (seg % (C / 8)) * 8;
+    const size_t src = (size_t)row * C + col;
+    *reinterpret_cast<uint4*>(a_hi + swz(row, col, kLayerGammaW)) =
+        *reinterpret_cast<const uint4*>(g_hi + src);
+    if (!kLowp) {
+      *reinterpret_cast<uint4*>(a_lo + swz(row, col, kLayerGammaW)) =
+          *reinterpret_cast<const uint4*>(g_lo + src);
+    }
+  }
+
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int lcol = (lane >> 4) * 8;
+  for (int it = 0; it < my_tiles; ++it) {
+    const int p0 = ((int)blockIdx.x + it * (int)gridDim.x) * L::kPix;
+    unsigned char* stage = stages + (it % L::kStages) * L::kStageBytes;
+    const unsigned stage_s = stages_s + (it % L::kStages) * L::kStageBytes;
+
+    cp_async_wait<L::kStages - 2>();
+    __syncthreads();     // this tile (and gamma) is in; tile it - 1 is done
+    const int ahead = it + L::kStages - 1;
+    if (ahead < my_tiles) {
+      gdn_stage_fill<C, L::kThreads, L::kPix>(
+          stages + (ahead % L::kStages) * L::kStageBytes, xi, 0,
+          p0 + (L::kStages - 1) * (int)gridDim.x * L::kPix, HW, vec != 0);
+    }
+    cp_async_commit();
+
+    float acc[2][L::kNi][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < L::kNi; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
+#pragma unroll
+    for (int k0 = 0; k0 < C; k0 += 16) {
+      unsigned b[L::kNi / 2][4];
+#pragma unroll
+      for (int nb = 0; nb < L::kNi / 2; ++nb) {
+        ldsm_x4_t(stage_s + swz(k0 + lrow, wp * L::kWarpPix + nb * 16 + lcol,
+                                L::kPix),
+                  b[nb]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) b[nb][e] = square_bf16x2(b[nb][e]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int off =
+            swz(wo * 32 + mi * 16 + lrow, k0 + lcol, kLayerGammaW);
+        unsigned ah[4], al[4];
+        ldsm_x4(a_hi_s + off, ah);
+        if (!kLowp) ldsm_x4(a_lo_s + off, al);
+#pragma unroll
+        for (int ni = 0; ni < L::kNi; ++ni) {
+          const unsigned b0 = b[ni >> 1][(ni & 1) * 2];
+          const unsigned b1 = b[ni >> 1][(ni & 1) * 2 + 1];
+          mma_bf16(acc[mi][ni], ah, b0, b1);
+          if (!kLowp) mma_bf16(acc[mi][ni], al, b0, b1);
+        }
+      }
+    }
+
+    // Epilogue: rows o = wo*32 + mi*16 + lane/4 (+8), pixel pairs
+    // wp*kWarpPix + ni*8 + 2*(lane%4), stored straight from the fragments
+    // 32 pixels at a time.
+    typename L::Out* oi = out + img;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int o = wo * 32 + mi * 16 + (lane >> 2) + h * 8;
+#pragma unroll
+        for (int g4 = 0; g4 < L::kNi / 4; ++g4) {
+          float r[4][2];
+#pragma unroll
+          for (int n4 = 0; n4 < 4; ++n4) {
+            const int ni = g4 * 4 + n4;
+            const int p = wp * L::kWarpPix + ni * 8 + (lane & 3) * 2;
+            __nv_bfloat162 xv;
+            memcpy(&xv, stage + swz(o, p, L::kPix), 4);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float s = round_bf16(acc[mi][ni][h * 2 + e]);
+              const float n =
+                  kLowp ? round_bf16(__fsqrt_rn(
+                              round_bf16(__fadd_rn(s, bta[mi][h]))))
+                        : __fsqrt_rn(__fadd_rn(s, bta[mi][h]));
+              const float xe = __bfloat162float(e ? xv.y : xv.x);
+              r[n4][e] = inverse ? __fmul_rn(xe, n) : __fdiv_rn(xe, n);
+            }
+          }
+          store_row(oi + (size_t)o * HW, p0 + wp * L::kWarpPix + g4 * 32,
+                    lane & 3, r, HW, vec != 0);
+        }
+      }
   }
   cp_async_wait<0>();
 }
@@ -1347,6 +1605,48 @@ cudaError_t gdn_grid(Kern kern, int threads, size_t smem, int B, int C,
   return cudaSuccess;
 }
 
+// A persistent launch of gdn_layer_tc_kernel<C, kLowp>: enough blocks to
+// fill every SM slot once over the images, at most one per tile.  The
+// slots are found at the first launch on each device and kept, since the
+// layers launch it many times a frame.
+template <int C, bool kLowp>
+cudaError_t gdn_layer_launch(const void* x, const void* g_hi,
+                             const void* g_lo, const float* beta, int B,
+                             int HW, int inverse, void* out,
+                             cudaStream_t stream) {
+  using L = GdnLayer<C, kLowp>;
+  static long slots[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (slots[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = set_smem(gdn_layer_tc_kernel<C, kLowp>, L::kSmem);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, gdn_layer_tc_kernel<C, kLowp>, L::kThreads, L::kSmem);
+    }
+    if (err != cudaSuccess) return err;
+    slots[dev] = (long)sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const long n_tiles = (HW + L::kPix - 1) / L::kPix;
+  const long per_image = (slots[dev] + B - 1) / B;
+  const dim3 grid((unsigned)(per_image < n_tiles ? per_image : n_tiles),
+                  (unsigned)B);
+  const int vec = HW % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  gdn_layer_tc_kernel<C, kLowp><<<grid, L::kThreads, L::kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(g_hi),
+      static_cast<const __nv_bfloat16*>(g_lo), beta, HW, inverse, vec,
+      static_cast<typename L::Out*>(out));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1557,6 +1857,32 @@ int aivc_gdn_fused_bf16(const void* x, const void* g_hi, const void* g_lo,
       static_cast<const __nv_bfloat16*>(g_lo), beta, C, HW, inverse, vec,
       static_cast<__nv_bfloat16*>(out));
   return (int)cudaGetLastError();
+}
+
+// K4 in a GDN layer, on the tensor cores.  x bf16 [B, C, HW], C 96 or
+// 128; g_hi, g_lo bf16 [C, C] ([o, j]; g_lo is not read with lowp); beta
+// f32 [C] (bf16 values with lowp).  Out: bf16 [B, C, HW] with lowp, else
+// f32.
+int aivc_gdn_layer_bf16(const void* x, const void* g_hi, const void* g_lo,
+                        const float* beta, int B, int C, int HW,
+                        int inverse, int lowp, void* out,
+                        cudaStream_t stream) {
+  if (C != 96 && C != 128) return (int)cudaErrorInvalidValue;
+  if (B == 0 || HW == 0) return (int)cudaGetLastError();
+  if (B > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (C == 96) {
+    err = lowp ? gdn_layer_launch<96, true>(x, g_hi, g_lo, beta, B, HW,
+                                            inverse, out, stream)
+               : gdn_layer_launch<96, false>(x, g_hi, g_lo, beta, B, HW,
+                                             inverse, out, stream);
+  } else {
+    err = lowp ? gdn_layer_launch<128, true>(x, g_hi, g_lo, beta, B, HW,
+                                             inverse, out, stream)
+               : gdn_layer_launch<128, false>(x, g_hi, g_lo, beta, B, HW,
+                                              inverse, out, stream);
+  }
+  return (int)err;
 }
 
 // K5.  x f32 [B, C, H, W]; flow f32 [B, 2, H, W] (u, v planes); vmax the

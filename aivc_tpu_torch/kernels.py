@@ -9,7 +9,12 @@ itself.  Nothing here runs at import time.
 Each wrapper of a kernel (coding/vrans.py, ops/warp.py, ops/gdn.py) adds
 one to its entry of ``LAUNCHES`` where it launches the kernel, and nowhere
 else.  The rANS wrappers also add the dependent steps each launch walks
-(n_pad / K) to ``STEPS``, on the host, with no synchronisation.
+(n_pad / K) to ``STEPS``, on the host, with no synchronisation.  The GDN
+layers' kernel (ops/gdn.py:gdn_layer_cuda, K4 at gdn_apply's rounding
+points) counts in ``LAUNCHES["gdn_layer"]``, apart from the exported
+``gdn_fused``; a GDN layer whose input lies on the card but does not take
+it (ops/gdn.py:GDN) adds one to ``FALLBACKS["gdn_layer"]``, so that the
+layers' hit share is LAUNCHES / (LAUNCHES + FALLBACKS) of "gdn_layer".
 """
 
 from __future__ import annotations
@@ -38,8 +43,9 @@ NVCC_TIMEOUT_S = 600
 MAX_SMEM = 232448
 
 LAUNCHES = {"rans_encode": 0, "rans_decode": 0, "warp_packed": 0,
-            "gdn_fused": 0, "warp_vclamped": 0}
+            "gdn_fused": 0, "warp_vclamped": 0, "gdn_layer": 0}
 STEPS = {"rans_encode": 0, "rans_decode": 0}
+FALLBACKS = {"gdn_layer": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: dict = {}
@@ -53,6 +59,8 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
     for k in STEPS:
         STEPS[k] = 0
+    for k in FALLBACKS:
+        FALLBACKS[k] = 0
 
 
 def _nvcc() -> str:
@@ -125,6 +133,9 @@ def lib() -> ctypes.CDLL:
         handle.aivc_gdn_fused_bf16.argtypes = [_P, _P, _P, _P, _I, _I, _I,
                                                _I, _P, _P]
         handle.aivc_gdn_fused_bf16.restype = _I
+        handle.aivc_gdn_layer_bf16.argtypes = [_P, _P, _P, _P, _I, _I, _I,
+                                               _I, _I, _P, _P]
+        handle.aivc_gdn_layer_bf16.restype = _I
         handle.aivc_warp_vclamped.argtypes = [_P, _P, _I, _I, _I, _I, _I,
                                               _P, _P]
         handle.aivc_warp_vclamped.restype = _I

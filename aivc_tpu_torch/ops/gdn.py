@@ -12,8 +12,18 @@ aivc_tpu/ops/gdn.py:gdn_pallas (body _gdn_kernel, gdn.py:121-165):
 kernel K4 on the card (csrc/kernels.cu: gdn_fused_tc_kernel on the
 tensor cores for bf16, gdn_fused_f32_kernel for f32),
 ``gdn_fused_plain`` on the host, under JAX's shape rule.  Like
-gdn_pallas it is an exported function with no caller in the models: the
-GDN layers use ``gdn_apply``, as the JAX models do.
+gdn_pallas it is an exported function with no caller in the models.
+
+The GDN layers (``GDN``) compute ``gdn_apply``.  On the card, a bf16
+input of 96 or 128 channels that autograd needs no graph for, in a layer
+without a clamp, goes to K4 at gdn_apply's own rounding points
+(``gdn_layer_cuda``: csrc/kernels.cu:gdn_layer_tc_kernel; its plain
+version ``gdn_layer_plain``), with or without the low-precision rule:
+the same function, summed in the tensor cores' order.  Every other input
+(the host, training, float32 nets, clamped layers) takes gdn_apply, and
+on the card counts in ``kernels.FALLBACKS["gdn_layer"]``; the kernel's
+launches count in ``kernels.LAUNCHES["gdn_layer"]``, gdn_fused's in
+``LAUNCHES["gdn_fused"]``.
 """
 
 from __future__ import annotations
@@ -33,6 +43,8 @@ GAMMA_INIT = 0.1
 # gdn_pallas's shape rule: rows in tiles of 512, channels a multiple of 128.
 FUSED_ROWS = 512
 FUSED_CHANNELS = 128
+# Channel counts the GDN layers' kernel is built for (MOFNet, CodecNet).
+LAYER_CHANNELS = (96, 128)
 
 
 class LowerBound(torch.autograd.Function):
@@ -180,8 +192,78 @@ def gdn_fused(x: torch.Tensor, beta_r: torch.Tensor, gamma_r: torch.Tensor,
     return gdn_fused_plain(x, beta, gamma, inverse)
 
 
+def layer_params(beta: torch.Tensor, gamma: torch.Tensor, lowp: bool):
+    """The GDN layers' kernel's parameters from the reparameterised beta
+    and gamma: (beta f32 [C], hi, lo bf16 [C, C]); with ``lowp`` beta
+    holds bf16(beta) and gamma is hi alone (lo is hi, and not read), as
+    gdn_apply casts both to the activation's type."""
+    hi, lo = split_gamma(gamma)
+    beta = beta.float()
+    if lowp:
+        beta, lo = beta.to(torch.bfloat16).float(), hi
+    return beta.contiguous(), hi, lo
+
+
+def gdn_layer_plain(x: torch.Tensor, beta: torch.Tensor, hi: torch.Tensor,
+                    lo: torch.Tensor, inverse: bool,
+                    lowp: bool) -> torch.Tensor:
+    """Plain version of the GDN layers' kernel (``gdn_layer_cuda``'s
+    arguments) on bf16 x [B, C, H, W]: ``gdn_apply(x, ..., clamp=0,
+    lowp=lowp)`` with the channel sum of the tensor cores, x2 * (hi + lo)
+    (hi alone with ``lowp``), emulated exact in float64 and rounded once
+    to f32.  Every rounding after the sum is gdn_apply's: the sum to
+    bf16; then with ``lowp`` bf16(beta) added, the root and the quotient
+    each rounded to bf16; without it all in f32, an f32 output."""
+    g = hi.double() if lowp else hi.double() + lo.double()
+    x2 = torch.square(x).double()
+    norm = torch.einsum("bjhw,oj->bohw", x2, g).float().to(x.dtype)
+    if lowp:
+        beta = beta.to(x.dtype)
+    norm = torch.sqrt(norm + beta.view(1, -1, 1, 1))
+    return x * norm if inverse else x / norm
+
+
+def gdn_layer_cuda(x: torch.Tensor, beta: torch.Tensor, hi: torch.Tensor,
+                   lo: torch.Tensor, inverse: bool,
+                   lowp: bool) -> torch.Tensor:
+    """Kernel K4 at gdn_apply's rounding points, the contract of
+    ``gdn_layer_plain``, on a contiguous bf16 x of C in LAYER_CHANNELS
+    and ``layer_params``.  Out: bf16 with ``lowp``, else f32, gdn_apply's
+    types.  Forward only, as gdn_fused_cuda: an x that requires grad is
+    refused (the layer hands it a detached x, under no graph)."""
+    B, C, H, W = x.shape
+    if x.requires_grad:
+        raise ValueError("gdn_layer_cuda is forward-only; x must not "
+                         "require grad")
+    kernels.require(x, "x", torch.bfloat16, (B, C, H, W))
+    if C not in LAYER_CHANNELS:
+        raise ValueError(f"C={C} must be one of {LAYER_CHANNELS}")
+    kernels.require(beta, "beta", torch.float32, (C,))
+    kernels.require(hi, "gamma", torch.bfloat16, (C, C))
+    kernels.require(lo, "gamma", torch.bfloat16, (C, C))
+    out = torch.empty(x.shape, device=x.device,
+                      dtype=torch.bfloat16 if lowp else torch.float32)
+    rc = kernels.lib().aivc_gdn_layer_bf16(
+        x.data_ptr(), hi.data_ptr(), lo.data_ptr(), beta.data_ptr(), B, C,
+        H * W, int(inverse), int(lowp), out.data_ptr(), kernels.stream_ptr())
+    kernels.check("gdn_layer", rc)
+    kernels.LAUNCHES["gdn_layer"] += 1
+    return out
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    return x.device.type == "cuda"
+
+
 class GDN(nn.Module):
-    """Holds the reparameterised beta/gamma (checkpoint names kept)."""
+    """Holds the reparameterised beta/gamma (checkpoint names kept).
+
+    The forward is ``gdn_apply``; on the card it takes K4
+    (``gdn_layer_cuda``) where ``takes_kernel`` holds.  The kernel's
+    parameters are made once per version of beta and gamma: the cache is
+    keyed on their version counters and storage, which ``load_state_dict``,
+    optimiser steps, ``copy_`` and moves between devices all change (an
+    update through ``.data`` would not; the port makes none)."""
 
     def __init__(self, ch: int, inverse: bool = False, clamp: float = 0.0,
                  lowp: bool = False):
@@ -189,7 +271,40 @@ class GDN(nn.Module):
         self.beta = nn.Parameter(torch.ones(ch))
         self.gamma = nn.Parameter(torch.eye(ch))
         self.inverse, self.clamp, self.lowp = inverse, clamp, lowp
+        self._kernel_params = None
+
+    def takes_kernel(self, x: torch.Tensor) -> bool:
+        """K4 for x: on the card, bf16, 96 or 128 channels, no clamp, and
+        no autograd graph wanted (grad mode off, or neither x nor the
+        parameters require grad)."""
+        needs_graph = torch.is_grad_enabled() and (
+            x.requires_grad or self.beta.requires_grad
+            or self.gamma.requires_grad)
+        return (_on_card(x) and x.dtype == torch.bfloat16
+                and x.shape[1] in LAYER_CHANNELS and self.clamp == 0.0
+                and not needs_graph)
+
+    def kernel_params(self):
+        """``layer_params`` of this layer's parameters, made again only
+        after they change (every call where they are inference tensors,
+        which have no version counter)."""
+        p = (self.beta, self.gamma)
+        key = None if any(t.is_inference() for t in p) else tuple(
+            v for t in p for v in (t._version, t.data_ptr()))
+        if key is None or self._kernel_params is None \
+                or self._kernel_params[0] != key:
+            with torch.no_grad():
+                beta, gamma = reparam(self.beta, self.gamma)
+                self._kernel_params = (key, layer_params(beta, gamma,
+                                                         self.lowp))
+        return self._kernel_params[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.takes_kernel(x):
+            return gdn_layer_cuda(x.detach().contiguous(),
+                                  *self.kernel_params(),
+                                  self.inverse, self.lowp)
+        if _on_card(x):
+            kernels.FALLBACKS["gdn_layer"] += 1
         return gdn_apply(x, self.beta, self.gamma, self.inverse, self.clamp,
                          self.lowp)

@@ -5,9 +5,11 @@
 Runs gop_rd_loss in eval mode (the forward phase of chip_smoke.py:
 bf16-r5, a 9-frame 1_GOP_8 of synthetic frames, AIVC_WARP=pallas) once to
 warm up, then times the forward in turns with the GDN layers on their own
-gdn_apply and on the fused GDN (kernel K4; an experiment of this script
-only, the models always take gdn_apply), ROUNDS rounds of (gdn_apply, K4,
-K4, gdn_apply), and one forward under torch.profiler.  Prints one JSON
+route (the turns named gdn_apply: ops/gdn.py:GDN, which on the card sends
+bf16 inputs to K4 at gdn_apply's rounding points) and on the exported
+fused GDN (gdn_fused, the turns named K4; an experiment of this script
+only), ROUNDS rounds of (gdn_apply, K4, K4, gdn_apply), and one forward
+under torch.profiler.  Prints one JSON
 object: the card's name and power limit, the seconds of each turn, the
 profiled wall time, the device's busy time (the union of its kernels'
 spans), the number of kernels launched and those that took the most

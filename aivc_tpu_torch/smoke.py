@@ -29,7 +29,9 @@ take their plain versions).  On the card:
            no model calls) on the six captured GDN inputs, against their
            plain versions on the same inputs (K4's bf16 path within
            GDN_PLAIN_ULPS), each timed beside its bound (K5 also with L2
-           cold)
+           cold); then the GDN layers' kernel (K4 at gdn_apply's
+           rounding points) at the codec's largest shapes, a wave of 8,
+           every image against its plain version (``check_gdn_layer``)
   (the CLI and training phases: ``cli_runs``, ``train_small``,
   ``train_recipe``)
   golden   the golden suite's pins (eval/golden.py) within the card's
@@ -120,15 +122,19 @@ SMALL_PSNR_ATOL_DB = 0.5
 # after the root) and keeps the rest in f32: 2.5 * 2^-8 at most.
 GDN_APPLY_RTOL = 2.0 ** -6
 GDN_APPLY_ATOL = 1e-3
-# K4's bf16 path against gdn_fused_plain, in bf16 ulps of the plain value
-# (ulp(b) = 2^(floor(log2 |b|) - 7)).  The tensor cores sum in their own
-# order and gamma enters as hi + lo (~16 bits), so the normaliser is
+# K4's bf16 path against gdn_fused_plain, in bf16 ulps of the larger
+# binade of the two values (``bf16_ulps``: ulp(b) = 2^(floor(log2 |b|) -
+# 7), b the larger of |out| and |plain|).  The tensor cores sum in their
+# own order and gamma enters as hi + lo (~16 bits), so the normaliser is
 # within ~2^-16 relative of the plain ordered f32 sum; where the two
 # round to neighbouring bf16 values (one normaliser ulp, up to 2^-7
 # relative) the quotients differ by up to one such step and each is
 # rounded again: 2 ulps of the output at most, which is 2^-7 of the
 # binade's upper power of two (up to 2^-6 of |b| just above a power of
-# two).  K4's f32 path stays bit-identical.
+# two).  Where the two outputs straddle a power of two, that step reads
+# up to 3 ulps of the lower binade (measured on the H100 on the 720p
+# forward's captured g_s input), hence the larger binade.  K4's f32 path
+# stays bit-identical.
 GDN_PLAIN_ULPS = 2.0
 # ... and the share of K4's bf16 outputs that may differ from the plain
 # version at all: a sum of ~16-bit products lands on the other side of a
@@ -137,6 +143,24 @@ GDN_PLAIN_ULPS = 2.0
 # fewer bits of gamma or of the sum would differ far more often, still
 # within 2 ulps.
 GDN_DIFFERING_SHARE = 1e-3
+# The GDN layers' route to K4 (ops/gdn.py:gdn_layer_cuda, its plain
+# version gdn_layer_plain) against gdn_apply, elementwise |a - b| <=
+# RTOL * |b| by output type.  The two round at the same points; only the
+# channel sum differs (its order, and without lowp gamma's ~16 bits), so
+# where the sum lands on the other side of a bf16 rounding boundary the
+# normaliser moves one bf16 step (up to 2^-7 relative).  f32 output
+# (without lowp): the root halves that, 2^-8 at most (measured 3.8e-3 on
+# the host, 3.9e-3 on the H100 on the codec's 1080p GDN inputs).  bf16
+# output (lowp): beta's sum, the root and the quotient are each rounded
+# to bf16 again, so two bf16 steps of the output, 2^-6 at most (measured
+# 1.5e-2 on the H100).  Each limit is twice its bound.
+GDN_LAYER_RTOL = {torch.float32: 2.0 ** -7, torch.bfloat16: 2.0 ** -5}
+# ... and the share of outputs that may differ at all: gamma's hi + lo is
+# within 2^-16 relative, so a normaliser moves where its sum lies that
+# close to a bf16 boundary, under 2^-8 of them with the error at its
+# bound (measured at most 6.6e-4 on the host and 5.6e-4 on the H100
+# against gdn_apply, 1.1e-4 on the H100 against gdn_layer_plain).
+GDN_LAYER_DIFFERING_SHARE = 2e-3
 # forward-small: bf16-r5 at 128x128 on the card and on the host, whose
 # bf16 convolutions round differently: (kind, limit) per log, about ten
 # times the difference measured on the H100 (chip_smoke.py: rate_bpp
@@ -157,6 +181,9 @@ KERNEL_SOURCES = {
                          "aivc_tpu/ops/warp_pallas.py:303"),
     "gdn_fused": ("aivc_tpu_torch/csrc/kernels.cu",
                   "aivc_tpu/ops/gdn.py:133"),
+    # K4 in the GDN layers, at gdn_apply's rounding points
+    "gdn_layer": ("aivc_tpu_torch/csrc/kernels.cu",
+                  "aivc_tpu/ops/gdn.py:57"),
     "warp_vclamped": ("aivc_tpu_torch/csrc/kernels.cu",
                       "aivc_tpu/ops/warp_pallas.py:113"),
 }
@@ -327,13 +354,30 @@ def _record(name: str, err, ms, plain_ms, bound_bytes, bound_ops,
             "library_ms": library_ms}
 
 
+def gdn_layer_errors(out: torch.Tensor, ref: torch.Tensor):
+    """(largest |out - ref| / |ref|, share of outputs that differ) of the
+    GDN layers' route against a reference of the same type; a NaN makes
+    both NaN, so that no limit passes it."""
+    if out.dtype != ref.dtype or out.shape != ref.shape:
+        raise AssertionError(f"{out.dtype} {tuple(out.shape)} against "
+                             f"{ref.dtype} {tuple(ref.shape)}")
+    d = (out.float() - ref.float()).abs()
+    if bool(torch.isnan(d).any()):
+        return math.nan, math.nan
+    rel = float((d / ref.float().abs().clamp_min(1e-30)).max())
+    return rel, float((d != 0).double().mean())
+
+
 def bf16_ulps(a: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
-    """|a - ref| in bf16 ulps of ref: ulp(b) = 2^(floor(log2 |b|) - 7)
-    (the spacing of bf16 values in b's binade)."""
-    b = ref.float()
-    _, e = torch.frexp(b)
+    """|a - ref| in bf16 ulps of the larger binade of a and ref: ulp(b) =
+    2^(floor(log2 |b|) - 7) for b = max(|a|, |ref|) (the spacing of bf16
+    values in b's binade), so that one step of a value across a power of
+    two counts once at the coarser spacing, not as two or three of the
+    finer."""
+    a, b = a.float(), ref.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
     ulp = torch.ldexp(torch.ones_like(b), e - 8).clamp_min(2.0 ** -133)
-    return (a.float() - b).abs() / ulp
+    return (a - b).abs() / ulp
 
 
 def encode_equal(out, ref) -> bool:
@@ -811,6 +855,86 @@ def check_warp_vclamped_on(inputs, reps: int = 20) -> Dict:
             "max_u": float(flow[:, 0].abs().max()),
             "max_v": float(flow[:, 1].abs().max()),
             "clamped_share": _past_clamp(flow)}
+
+
+# The codec's largest GDN inputs at 1080p (a wave of 8, the rows padded to
+# 1088), each with the checkpoint's layer whose parameters it takes: g_s's
+# last IGDN in MOFNet and in CodecNet.
+GDN_LAYER_CASES = (("mofnet.g_s.UpBlock_2.GDN_0", (8, 96, 544, 960)),
+                   ("codecnet.g_s.UpBlock_2.GDN_0", (8, 128, 544, 960)))
+
+
+@torch.no_grad()
+def check_gdn_layer(layers: Dict[str, torch.nn.Module], device: torch.device,
+                    reps: int = 10, cases=GDN_LAYER_CASES) -> Dict:
+    """The GDN layers' kernel (a GDN layer on a bf16 input: K4 through
+    gdn_layer_cuda) at each case's shape, with the parameters of the named
+    layer of ``layers`` (``dict(model.named_modules())``), with and
+    without lowp: the whole batch's output against gdn_layer_plain's,
+    image by image (within GDN_LAYER_RTOL and GDN_LAYER_DIFFERING_SHARE),
+    timed against the larger of its bytes (x read once, the output
+    written once) and its tensor-core operations at the card's rates, and
+    against gdn_apply on the same input.  Returns the kernels line's
+    record of the codec's own route (the last case, lowp), every case's
+    record under "cases", and the launches of the checks.  Under no_grad
+    and not inference mode, so that the layer's parameters keep their
+    version counters and the kernel's parameters are made once."""
+    g = torch.Generator(device=device).manual_seed(19)
+    recs, launches = [], 0
+    for name, shape in cases:
+        src = layers[name]
+        B, C, H, W = shape
+        x = (torch.randn(shape, generator=g, device=device) * 1.5).to(
+            torch.bfloat16)
+        for lowp in (True, False):
+            layer = gdn_ops.GDN(C, inverse=src.inverse, lowp=lowp)
+            layer.load_state_dict(src.state_dict())
+            layer = layer.to(device)
+            kernels.reset_launches()
+            got = layer(x)
+            launched = kernels.LAUNCHES["gdn_layer"]
+            if launched != (device.type == "cuda"):
+                raise AssertionError(f"the layer launched {launched} times")
+            launches += launched
+            params = gdn_ops.layer_params(
+                *gdn_ops.reparam(layer.beta, layer.gamma), lowp)
+            worst, rel, n_diff = 0.0, 0.0, 0.0
+            for i in range(B):
+                ref = gdn_ops.gdn_layer_plain(x[i:i + 1], *params,
+                                              layer.inverse, lowp)
+                r, share = gdn_layer_errors(got[i:i + 1], ref)
+                # Written as not (x <= limit), so that a NaN fails.
+                if not r <= GDN_LAYER_RTOL[got.dtype]:
+                    raise AssertionError(f"GDN layer {name} {shape} lowp "
+                                         f"{lowp}, image {i}: {r} relative "
+                                         "from its plain version")
+                worst = max(worst, float((got[i:i + 1].float()
+                                          - ref.float()).abs().max()))
+                rel, n_diff = max(rel, r), n_diff + share
+            share = n_diff / B
+            if not share <= GDN_LAYER_DIFFERING_SHARE:
+                raise AssertionError(f"GDN layer {name} {shape} lowp {lowp}:"
+                                     f" {share} of the outputs differ")
+            ms = time_ms(lambda: layer(x), device, reps)
+            plain_ms = B * time_ms(lambda: gdn_ops.gdn_layer_plain(
+                x[:1], *params, layer.inverse, lowp), device, 1, warmup=0)
+            lib_ms = time_ms(lambda: gdn_ops.gdn_apply(
+                x, layer.beta, layer.gamma, layer.inverse, 0.0, lowp),
+                device, reps)
+            n = x.numel()
+            # lowp multiplies by gamma's hi alone, else by hi and lo.
+            rec = _record("gdn_layer", worst, ms, plain_ms,
+                          n * (x.element_size() + got.element_size())
+                          + 4 * C + 4 * C * C,
+                          2 * B * H * W * C * C * (1 if lowp else 2)
+                          + 6 * n, library_ms=lib_ms,
+                          ops_per_s=BF16_TC_OPS_PER_S)
+            rec.update(layer=name, shape=shape, lowp=lowp,
+                       max_rel_err=rel, differing_share=share)
+            recs.append(rec)
+    rec = dict(next(r for r in reversed(recs) if r["lowp"]), cases=recs,
+               launches=launches)
+    return rec
 
 
 @torch.inference_mode()

@@ -7,8 +7,9 @@ port's entry points with models_ckpt/bf16-r5:
 
 * the coding path: K1-K3 checked against their plain PyTorch versions at
   the 1080p shapes, then a 9-frame 1080p RA clip (GOP 8) encoded and
-  decoded, the decode checked bit for bit, and a 64x64 clip on the card
-  against the host;
+  decoded, the decode checked bit for bit, with the share of the GDN
+  layers' calls that took K4, and a 64x64 clip on the card against the
+  host;
 * the RD forward path: gop_rd_loss in eval mode on a 9-frame 720p GOP
   (edge-padded to 1280x768) with AIVC_WARP=pallas, whose float warps
   launch K5; a 128x128 GOP on the card against the host; then K5 checked
@@ -17,7 +18,11 @@ port's entry points with models_ckpt/bf16-r5:
   (timed warm and with L2 cold), and K4 (the exported gdn_fused, which no
   model calls, as gdn_pallas in JAX) run on the inputs of six CodecNet GDN
   layers captured during the forward and checked against its plain
-  version (bf16: on the tensor cores, within 2 bf16 ulps).
+  version (bf16: on the tensor cores, within 2 bf16 ulps); then the GDN
+  layers' kernel (gdn_layer_cuda, K4 at gdn_apply's rounding points) with
+  the checkpoint's parameters at the codec's largest 1080p shapes, a wave
+  of 8, with and without lowp, every image against its plain version,
+  timed against its bound and gdn_apply.
 
 The main phase also prints the steps K1 walked in the clip's encode and
 K2 in its decode, with their estimated shares of the encode and decode
@@ -195,6 +200,7 @@ def main() -> int:
     kernels.reset_launches()
     res = smoke.code_clip(codec, frames, wave_batch=WAVE_BATCH, gop=GOP)
     main_launches = dict(kernels.LAUNCHES)
+    main_fallbacks = kernels.FALLBACKS["gdn_layer"]
     ph.say(f"main: {N_FRAMES} frames {W}x{H} RA GOP{GOP}: {res['bytes']} B, "
            f"{res['bpp']:.5f} bpp, PSNR {res['psnr']:.4f} dB, MS-SSIM "
            f"{res['ms_ssim']:.6f}, encode {res['encode_fps']:.3f} fps, "
@@ -202,6 +208,10 @@ def main() -> int:
            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
            f"launches {main_launches}")
     ph.say(f"main: frame bytes {res['frame_bytes']}")
+    gdn_calls = main_launches["gdn_layer"] + main_fallbacks
+    ph.say(f"main: the GDN layers took their kernel in "
+           f"{main_launches['gdn_layer']} of {gdn_calls} calls (hit share "
+           f"{main_launches['gdn_layer'] / max(gdn_calls, 1):.4f})")
     k1_us = records[0]["us_per_step"]
     ph.say(f"main: rans_encode walked {res['encode_steps']} steps in the "
            f"encode; at {k1_us:.4f} us per step that is "
@@ -214,8 +224,8 @@ def main() -> int:
            f"{res['decode_steps'] * k2_us / 1e3:.3f} ms, an estimated "
            f"{res['decode_steps'] * k2_us / 1e6 / res['decode_s']:.4f} of "
            f"the {res['decode_s'] * 1e3:.1f} ms decode")
-    missing = [k for k in ("rans_encode", "rans_decode", "warp_packed")
-               if main_launches[k] == 0]
+    missing = [k for k in ("rans_encode", "rans_decode", "warp_packed",
+                           "gdn_layer") if main_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -340,7 +350,21 @@ def main() -> int:
     if rec4["launches"] != len(smoke.GDN_LAYERS):
         raise AssertionError(f"gdn_fused launched {rec4['launches']} times "
                              f"on {len(smoke.GDN_LAYERS)} GDN inputs")
-    records += [rec4, rec5]
+    rec_layer = smoke.check_gdn_layer(dict(fmodel.named_modules()), dev)
+    for r in rec_layer["cases"]:
+        ph.say(f"kernel gdn_layer with {r['layer']}'s parameters "
+               f"{list(r['shape'])} bf16, lowp {r['lowp']}: every image "
+               f"within {r['max_rel_err']:.3e} relative of its plain "
+               f"version, {r['differing_share']:.3e} of the outputs differ;"
+               f" {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound "
+               f"{r['bound_ms']:.4f} ms by {r['bound_by']}, "
+               f"{100 * r['bound_ms'] / r['ms']:.1f}%; gdn_apply "
+               f"{r['library_ms']:.4f} ms)")
+    if rec_layer["launches"] != 2 * len(smoke.GDN_LAYER_CASES):
+        raise AssertionError(f"gdn_layer launched {rec_layer['launches']} "
+                             f"times in {2 * len(smoke.GDN_LAYER_CASES)} "
+                             f"checks")
+    records += [rec4, rec5, rec_layer]
 
     # -- training path ----------------------------------------------------
     # No kernel lies on it: the training forward takes the plain float
@@ -583,6 +607,7 @@ def main() -> int:
                 for k in ("rans_encode", "rans_decode", "warp_packed")}
     launches["warp_vclamped"] = fwd_launches["warp_vclamped"]
     launches["gdn_fused"] = rec4["launches"]
+    launches["gdn_layer"] = main_launches["gdn_layer"]
     # K3 on a row window: the spatial mesh codec's launches, both ranks.
     launches["warp_packed_band"] = sum(la["warp_packed"]
                                        for la in sp["launches"])

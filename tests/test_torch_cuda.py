@@ -1,6 +1,6 @@
-"""Kernels K1-K5 on the card against their plain versions, the codec's
-closed loop and the RD forward's launches on the card.  Imports no JAX, so it runs on the card's
-machine:
+"""Kernels K1-K5 on the card against their plain versions, the GDN
+layers' route to K4, the codec's closed loop and the RD forward's launches
+on the card.  Imports no JAX, so it runs on the card's machine:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
@@ -643,6 +643,175 @@ def test_gdn_fused_routes_on_card(card):
     assert kernels.LAUNCHES["gdn_fused"] == before + 1
 
 
+def _gdn_copy(layer, lowp, card):
+    """A GDN layer with ``layer``'s parameters and the given lowp."""
+    out = tg.GDN(layer.gamma.shape[0], inverse=layer.inverse, lowp=lowp)
+    out.load_state_dict(layer.state_dict())
+    return out.to(card)
+
+
+def _codec_gdn_inputs(card, b):
+    """{name: (x, layer)}: the input of every GDN layer of bf16-r5's g_a,
+    g_a_ref and g_s, both nets, on a wave of ``b`` 1080p frames of a
+    held-out clip (rows padded to 1088): MOFNet's C = 96 and CodecNet's
+    128 at 544x960, 272x480 and 136x240."""
+    from aivc_tpu_torch.eval.clips import heldout_clips
+    from aivc_tpu_torch.pipeline import video
+    from aivc_tpu_torch.utils.checkpoint import load_checkpoint
+
+    _, model = load_checkpoint(ROOT / "models_ckpt" / "bf16-r5", device=card)
+    f = video.frames_444(heldout_clips(b + 2, 1080, 1920,
+                                       names=["photowarp"])[0], card)
+    prev, cur, nxt = (torch.cat(f[i:i + b]) for i in range(3))
+    inputs = {}
+
+    def keep(name):
+        def hook(m, args):
+            inputs.setdefault(name, (args[0].clone(), m))
+        return hook
+    hooks = [m.register_forward_pre_hook(keep(name))
+             for name, m in model.named_modules() if isinstance(m, tg.GDN)]
+    with torch.no_grad():
+        for net, x, ref in ((model.mofnet, torch.cat([cur, prev, nxt], 1),
+                             torch.cat([prev, nxt], 1)),
+                            (model.codecnet, torch.cat([cur, prev], 1),
+                             prev)):
+            net.g_s(torch.cat([net.g_a(x), net.g_a_ref(ref)], 1))
+    for h in hooks:
+        h.remove()
+    return inputs
+
+
+@pytest.fixture(scope="module")
+def codec_gdn_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    dev = torch.device("cuda")
+    return {b: _codec_gdn_inputs(dev, b) for b in (1, 8)}
+
+
+@pytest.mark.parametrize("lowp", [False, True])
+@pytest.mark.parametrize("b", [1, 8])
+def test_gdn_layers_on_codec_inputs(card, codec_gdn_inputs, b, lowp):
+    """Each of the 18 GDN layers on its own 1080p input takes K4 (one
+    launch, no fallback) and is within smoke.GDN_LAYER_RTOL of its plain
+    version and of gdn_apply with TF32 off (which keeps gamma whole; TF32
+    would keep 10 bits of it), at most GDN_LAYER_DIFFERING_SHARE of the
+    outputs differing; in a wave of 8, each image equals its own launch
+    bit for bit (printed: the measured errors)."""
+    from aivc_tpu_torch import smoke
+
+    inputs = codec_gdn_inputs[b]
+    assert len(inputs) == 18
+    assert {x.shape[1] for x, _ in inputs.values()} == {96, 128}
+    tf32 = torch.backends.cudnn.allow_tf32
+    for name, (x, src) in inputs.items():
+        layer = _gdn_copy(src, lowp, card)
+        kernels.reset_launches()
+        with torch.no_grad():
+            out = layer(x)
+            assert kernels.LAUNCHES["gdn_layer"] == 1
+            assert kernels.FALLBACKS["gdn_layer"] == 0
+            assert kernels.LAUNCHES["gdn_fused"] == 0
+            beta, gamma = tg.reparam(layer.beta, layer.gamma)
+            plain = tg.gdn_layer_plain(x, *tg.layer_params(beta, gamma, lowp),
+                                       layer.inverse, lowp)
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                apply = tg.gdn_apply(x, layer.beta, layer.gamma,
+                                     layer.inverse, 0.0, lowp)
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+            for ref_name, ref in (("plain", plain), ("gdn_apply", apply)):
+                rel, share = smoke.gdn_layer_errors(out, ref)
+                print(f"GDN layer {name} {list(x.shape)} lowp={lowp} vs "
+                      f"{ref_name}: {rel:.3e} relative, {share:.3e} differ")
+                assert rel <= smoke.GDN_LAYER_RTOL[out.dtype], (name, rel)
+                assert share <= smoke.GDN_LAYER_DIFFERING_SHARE, (name, share)
+            if b > 1:
+                alone = torch.cat([layer(x[i:i + 1]) for i in range(b)])
+                assert torch.equal(alone, out), name
+
+
+def test_gdn_layer_route_on_card(card):
+    """A layer on the card takes K4 for a bf16 input under no graph, with
+    and without lowp; under grad, with a clamp, for f32 and for C = 64 it
+    is gdn_apply bit for bit and counts a fallback."""
+    g = torch.Generator().manual_seed(4)
+
+    def layer(c, **kw):
+        m = tg.GDN(c, **kw)
+        with torch.no_grad():
+            m.beta.copy_(torch.sqrt(torch.rand(c, generator=g) + 0.5))
+            m.gamma.copy_(torch.sqrt(torch.rand(c, c, generator=g) * 0.05))
+        return m.to(card)
+
+    def x(c, dtype=torch.bfloat16):
+        return (torch.randn((2, c, 20, 36), generator=g) * 1.5).to(
+            dtype).to(card)
+
+    for c, kw in ((128, {}), (96, {"lowp": True}), (96, {"inverse": True})):
+        m, xi = layer(c, **kw), x(c)
+        kernels.reset_launches()
+        with torch.no_grad():
+            out = m(xi)
+        assert kernels.LAUNCHES["gdn_layer"] == 1
+        assert kernels.FALLBACKS["gdn_layer"] == 0
+        assert out.dtype == (torch.bfloat16 if m.lowp else torch.float32)
+    for c, kw, dtype, grad in ((128, {}, torch.bfloat16, True),
+                               (128, {"clamp": 16.0}, torch.bfloat16, False),
+                               (96, {"lowp": True}, torch.float32, False),
+                               (64, {}, torch.bfloat16, False)):
+        m, xi = layer(c, **kw), x(c, dtype)
+        kernels.reset_launches()
+        with torch.set_grad_enabled(grad):
+            out = m(xi)
+            want = tg.gdn_apply(xi, m.beta, m.gamma, m.inverse, m.clamp,
+                                m.lowp)
+        assert torch.equal(out, want)
+        assert kernels.LAUNCHES["gdn_layer"] == 0
+        assert kernels.FALLBACKS["gdn_layer"] == 1
+    with pytest.raises(ValueError):     # forward only
+        tg.gdn_layer_cuda(x(128).requires_grad_(),
+                          *tg.layer_params(torch.ones(128, device=card),
+                                           torch.eye(128, device=card),
+                                           False), False, False)
+    with pytest.raises(ValueError):     # C the kernel is not built for
+        tg.gdn_layer_cuda(x(64), *tg.layer_params(
+            torch.ones(64, device=card), torch.eye(64, device=card), False),
+            False, False)
+
+
+@pytest.mark.parametrize("gdn_lowp", ["1", "0"])
+def test_codec_gdn_layers_take_the_kernel(card, monkeypatch, gdn_lowp):
+    """A small RA clip through FrameCodec on the card: every GDN call of
+    the encode and the decode takes K4 (with the schedule's lowp on, the
+    default, and off), and the decode equals the encoder's reconstruction
+    bit for bit."""
+    from aivc_tpu_torch.config import CodingConfig
+    from aivc_tpu_torch.pipeline.codec import FrameCodec
+    from aivc_tpu_torch.pipeline import video
+    from aivc_tpu_torch.utils.checkpoint import load_checkpoint
+
+    monkeypatch.setenv("AIVC_GDN_LOWP", gdn_lowp)
+    cfg, model = load_checkpoint(ROOT / "models_ckpt" / "bf16-r5",
+                                 device=card)
+    codec = FrameCodec(cfg, model, 136, 200, device=card)
+    assert all(m.lowp == (gdn_lowp == "1") for m in codec.model.modules()
+               if isinstance(m, tg.GDN))
+    frames = video.synthetic_frames(9, 136, 200, seed=5)
+    kernels.reset_launches()
+    enc = video.encode_video(codec, frames, CodingConfig(
+        coding_config="RA", gop_size=8, intra_period=8), wave_batch=4)
+    dec = video.decode_video(codec, enc.bitstream)
+    for i in range(9):
+        for c in ("y", "u", "v"):
+            assert np.array_equal(dec[i][c], enc.decoded_frames[i][c])
+    assert kernels.LAUNCHES["gdn_layer"] > 0
+    assert kernels.FALLBACKS["gdn_layer"] == 0
+    assert kernels.LAUNCHES["gdn_fused"] == 0
+
+
 def test_new_wrappers_reject_bad_inputs(card):
     x = torch.zeros((1, 3, 64, 128), device=card, requires_grad=True)
     flow = torch.zeros((1, 2, 64, 128), device=card)
@@ -668,8 +837,10 @@ def test_new_wrappers_reject_bad_inputs(card):
 
 
 def test_rd_forward_launches_on_card(card, monkeypatch):
-    """The forward launches K5 once per float warp and K4 never (no model
-    calls gdn_fused); K4 launches once per captured GDN input in its
+    """The forward launches K5 once per float warp and the exported K4
+    never (no model calls gdn_fused), the GDN layers' kernel once per GDN
+    layer call (bf16, no graph under inference mode) with no fallback;
+    the exported K4 launches once per captured GDN input in its
     check, each (bf16) output within 2 bf16 ulps of its plain version."""
     from aivc_tpu_torch import smoke
     from aivc_tpu_torch.pipeline import video
@@ -681,11 +852,19 @@ def test_rd_forward_launches_on_card(card, monkeypatch):
     # 128x256: every captured GDN input has rows % 512 == 0.
     f444 = video.frames_444(video.synthetic_frames(3, 128, 256), card)
     watch = smoke.GdnWatch(model, capture=smoke.GDN_LAYERS)
+    calls = []
+    hooks = [m.register_forward_hook(lambda *a: calls.append(1))
+             for m in model.modules() if isinstance(m, tg.GDN)]
     kernels.reset_launches()
     smoke.rd_forward(model, cfg, f444, 1.0, "1_GOP_2")
     watch.close()
+    for h in hooks:
+        h.remove()
     assert kernels.LAUNCHES["warp_vclamped"] == smoke.warp_calls("1_GOP_2")
+    assert len(calls) > 0
     assert kernels.LAUNCHES["gdn_fused"] == 0
+    assert kernels.LAUNCHES["gdn_layer"] == len(calls)
+    assert kernels.FALLBACKS["gdn_layer"] == 0
     rec = smoke.check_gdn(watch.inputs, reps=1)
     assert rec["launches"] == len(smoke.GDN_LAYERS)
     assert rec["max_ulps"] <= smoke.GDN_PLAIN_ULPS

@@ -9,7 +9,8 @@ gamma split by ``ops/gdn.py:split_gamma`` into two bf16 terms.  Here:
     normaliser may round to its bf16 neighbour, and the quotient again),
     and so is JAX's own gdn_pallas (an MXU product, in interpret mode):
     both sum in another order than the plain version, the same property;
-  * ``smoke.bf16_ulps`` counts ulps in the reference's binade.
+  * ``smoke.bf16_ulps`` counts ulps in the larger binade of the value
+    and the reference, so that a step across a power of two counts once.
 """
 
 from pathlib import Path
@@ -136,6 +137,12 @@ def test_jax_mxu_product_within_two_ulps_of_plain(inverse):
 
 
 def test_bf16_ulps_counts_in_the_reference_binade():
-    ref = torch.tensor([1.0, 1.0, 1.9921875, -2.0, 0.0])
-    a = torch.tensor([1.0078125, 1.015625, 2.0, -2.03125, 0.0])
-    assert smoke.bf16_ulps(a, ref).tolist() == [1.0, 2.0, 1.0, 2.0, 0.0]
+    """In the reference's binade where the value stays in it; across a
+    power of two, in the larger of the two binades, whichever side the
+    reference lies (the last pair: 1.5 steps of 2^-6's binade, which read
+    three of the binade below it)."""
+    ref = torch.tensor([1.0, 1.0, 1.9921875, -2.0, 0.0, 2.0, 0.01556396484375])
+    a = torch.tensor([1.0078125, 1.015625, 2.0, -2.03125, 0.0, 1.9921875,
+                      0.0157470703125])
+    assert smoke.bf16_ulps(a, ref).tolist() == [1.0, 2.0, 0.5, 2.0, 0.0,
+                                                0.5, 1.5]

@@ -161,12 +161,14 @@ def test_encode_equal_sees_one_word(codec):
     assert not smoke.encode_equal(out, ref)
 
 
-@pytest.mark.parametrize("fault", ["nan", "one_ulp_often"])
+@pytest.mark.parametrize("fault", ["nan", "one_ulp_often",
+                                   "three_ulps_rarely"])
 def test_gdn_check_rejects_a_faulty_kernel(monkeypatch, fault):
-    """check_gdn fails a K4 whose bf16 output holds a NaN, and one that
+    """check_gdn fails a K4 whose bf16 output holds a NaN, one that
     stays within GDN_PLAIN_ULPS but differs from the plain version in far
     more outputs than GDN_DIFFERING_SHARE (what fewer bits of gamma or
-    of the sum would give)."""
+    of the sum would give), and one three ulps off in a few outputs,
+    fewer than GDN_DIFFERING_SHARE."""
     from aivc_tpu_torch.ops import gdn as gdn_ops
 
     g = torch.Generator().manual_seed(11)
@@ -182,16 +184,68 @@ def test_gdn_check_rejects_a_faulty_kernel(monkeypatch, fault):
         out = plain(x, beta_r, gamma_r, inverse).float()
         if fault == "nan":
             out.view(-1)[7] = float("nan")
-        else:   # one ulp up on every 50th output
+        else:   # one ulp up on every 50th output, three on every 5000th
             _, e = torch.frexp(out)
             step = torch.ldexp(torch.ones_like(out), e - 8)
-            out.view(-1)[::50] += step.view(-1)[::50]
+            every, n = (50, 1) if fault == "one_ulp_often" else (5000, 3)
+            out.view(-1)[::every] += n * step.view(-1)[::every]
         return out.to(x.dtype)
 
     monkeypatch.setattr(gdn_ops, "gdn_fused", faulty)
-    with pytest.raises(AssertionError, match="bf16 ulps" if fault == "nan"
-                       else "outputs differ"):
+    with pytest.raises(AssertionError, match="outputs differ"
+                       if fault == "one_ulp_often" else "bf16 ulps"):
         smoke.check_gdn(inputs, reps=1)
+
+
+def test_gdn_layer_check_rehearsed_on_host():
+    """check_gdn_layer at small shapes on the host, with bf16-r5's own
+    layers: the layers take gdn_apply there (no launch), every image
+    within the route's limits of the plain version, for both channel
+    counts with and without lowp; one record for the kernels line, of the
+    last case with lowp."""
+    _, model = load_checkpoint(ROOT / "models_ckpt" / "bf16-r5",
+                               device="cpu")
+    cases = (("mofnet.g_s.UpBlock_2.GDN_0", (2, 96, 8, 16)),
+             ("codecnet.g_a.ConvBlock_0.GDN_0", (3, 128, 4, 24)))
+    rec = smoke.check_gdn_layer(dict(model.named_modules()),
+                                torch.device("cpu"), reps=1, cases=cases)
+    assert [(r["layer"], r["shape"][1], r["lowp"]) for r in rec["cases"]] \
+        == [(cases[0][0], 96, True), (cases[0][0], 96, False),
+            (cases[1][0], 128, True), (cases[1][0], 128, False)]
+    assert rec["launches"] == 0
+    assert (rec["name"], rec["layer"], rec["lowp"]) == (
+        "gdn_layer", cases[1][0], True)
+    for r in rec["cases"]:
+        assert r["max_rel_err"] <= smoke.GDN_LAYER_RTOL[
+            torch.bfloat16 if r["lowp"] else torch.float32]
+        assert r["differing_share"] <= smoke.GDN_LAYER_DIFFERING_SHARE
+        assert r["bound_ms"] > 0 and r["ms"] > 0 and r["library_ms"] > 0
+    line = json.loads(smoke.kernels_line([rec], {"gdn_layer": 237}))
+    assert line["kernels"][0]["launches"] == 237
+
+
+@pytest.mark.parametrize("fault", ["nan", "every_image"])
+def test_gdn_layer_check_rejects_a_faulty_route(monkeypatch, fault):
+    """check_gdn_layer compares every image of the batch: a NaN, or an
+    output off by 2^-4 relative in the last image alone, fails it."""
+    from aivc_tpu_torch.ops import gdn as gdn_ops
+
+    layers = {"igdn": gdn_ops.GDN(96, inverse=True)}
+    plain = gdn_ops.gdn_apply
+
+    def faulty(x, *args):
+        out = plain(x, *args).clone()
+        if fault == "nan":
+            out.view(-1)[5] = float("nan")
+        else:
+            out[-1, 3, 2, 1] *= 1.0625
+        return out
+
+    monkeypatch.setattr(gdn_ops, "gdn_apply", faulty)
+    with pytest.raises(AssertionError, match="image 2"
+                       if fault == "every_image" else "relative"):
+        smoke.check_gdn_layer(layers, torch.device("cpu"), reps=1,
+                              cases=(("igdn", (3, 96, 4, 8)),))
 
 
 def test_small_agreement_rehearsed_on_host():
