@@ -5,15 +5,17 @@ planted faults, at the cell's own size.
     python3 codecbench/control.py --workload r5.ra1080 --seeds 11 12 13 \
         [--fault token|unchanged|half_batch] [--seconds 2]
 
-Without ``--fault``: the control.  The reference stands in for the
-program in the precision below the one the configuration states (TF32
-for float32, float8 e4m3 convolutions for bfloat16), codes the clips
-that a run of the seed judges, closed loop on its own reconstructions,
-and the float32 reference judges it as it judges the program.  With ``--fault``: a run
-of the cell with the fault planted in the program (harness/faults.py)
-and a short window.  Either way each seed is judged by the cell's own
-limits (``limits/<cell>.json``) as a run is: the numbers beside their
-limits on standard error, then one JSON line with ``correct``.
+Without ``--fault``: the control, the ``control`` of the configuration's
+architecture (``architectures/<name>.py``).  The reference stands in for
+the program in the precision below the one the configuration states
+(for AIVC: TF32 for float32, float8 e4m3 convolutions for bfloat16),
+codes the clips that a run of the seed judges, closed loop on its own
+reconstructions, and the float32 reference judges it as it judges the
+program.  With ``--fault``: a run of the cell with the fault planted in
+the program (harness/faults.py) and a short window.  Either way each
+seed is judged by the cell's own limits (``limits/<cell>.json``) as a
+run is: the numbers beside their limits on standard error, then one JSON
+line with ``correct``.
 """
 
 from __future__ import annotations
@@ -31,15 +33,11 @@ ROOT = HERE.parent
 sys.path.insert(0, str(HERE))
 sys.path.append(str(ROOT))
 
+from harness import weights  # noqa: E402
 from harness.bench import make_clips, print_checks, run, verdict  # noqa: E402
 from harness.faults import FAULTS, plant  # noqa: E402
 from harness.manifest import Manifest  # noqa: E402
 from harness.system import clip_specs  # noqa: E402
-from reference.judge import Tally, control_frame, judge_frame  # noqa: E402
-from reference.msgpack import read_params  # noqa: E402
-from reference.net import RefNet, arithmetic  # noqa: E402
-
-LOWER = {"float32": "tf32", "bfloat16": "fp8"}
 
 
 def gop_name(traffic) -> str:
@@ -58,31 +56,14 @@ def control(workload: str, seed: int, device, root: Path = ROOT,
     man = Manifest(root)
     cell = man.workload(workload)
     config, traffic = man.config(cell["config"]), man.traffic(cell["traffic"])
-    precision = precision or LOWER[config["peak_dtype"]]
+    arch = man.architecture(config)
     clips, _ = make_clips(traffic, seed, device)
     judged = clips[:traffic["check_within"]]
     specs, waves = clip_specs(gop_name(traffic), traffic["wave_batch"],
                               traffic["frames"])
-    tree = read_params(root / config["checkpoint"])
-    ref = RefNet(tree, config["model"], device, "f32")
-    low = RefNet(tree, config["model"], device, precision)
-    idx_rate = float(traffic["idx_rate"])
-    tally = Tally()
-    for clip in judged:
-        own = {}
-        for wave in waves:
-            for j in wave:
-                s = specs[j]
-                orig = {k: torch.from_numpy(clip.planes[k][j:j + 1])
-                        .to(device) for k in ("y", "u", "v")}
-                prev, nxt = own.get(s["prev"]), own.get(s["next"])
-                with arithmetic(precision):
-                    cand = control_frame(low, orig, prev, nxt, s["type"],
-                                         idx_rate)
-                own[j] = cand["planes"]
-                with arithmetic("f32"):
-                    judge_frame(ref, tally, orig, prev, nxt, s["type"],
-                                idx_rate, cand)
+    with weights.prepared(root, config, arch, device) as weights_dir:
+        precision, tally = arch.control(weights_dir, config, traffic, judged,
+                                        waves, specs, device, precision)
     # The control decodes by construction what it encoded.
     numbers = {"decode_vs_encoder_px": 0.0, **tally.numbers()}
     checks, correct = verdict(numbers, man.limits(workload))

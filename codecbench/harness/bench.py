@@ -1,7 +1,10 @@
 """One run of one cell: set-up, the measured window, the traced
 sub-window (``--trace 1``), the module guard, the correctness check and
 the result line.  ``run.py`` is the command; tests call ``run`` with a
-small configuration on the host."""
+small configuration on the host.  What depends on the model (the system,
+the capture of a decode's symbols, the reference's judgement, the FLOP
+count) comes from the configuration's architecture
+(``architectures/<name>.py``)."""
 
 from __future__ import annotations
 
@@ -18,12 +21,9 @@ import torch
 
 from . import clips as clipgen
 from . import trace as tr
-from .flops import frame_flops
+from . import weights
 from .manifest import Manifest, load_file
-from .system import Spans, System, capture_decode
-from reference.judge import Tally, judge_frame
-from reference.msgpack import read_params
-from reference.net import RefNet, arithmetic
+from .system import Spans, System
 
 # Modules that may not be loaded in the process that prints the result,
 # compared by whole top-level name.
@@ -100,43 +100,6 @@ def differing(a: Dict[int, Dict], b: Dict[int, Dict]) -> Dict[int, int]:
     return out
 
 
-def judge(root: Path, config: Dict, traffic: Dict, kept: Dict[int, Dict],
-          waves: List[List[int]], specs: Dict, device) -> Tally:
-    """The reference's judgement of the judged clips: each frame as the
-    program decoded it, its references the program's decoded frames."""
-    def planes_t(p):
-        return {k: torch.from_numpy(np.ascontiguousarray(p[k]))[None]
-                .to(device) for k in ("y", "u", "v")}
-
-    tally = Tally()
-    with arithmetic("f32"):
-        net = RefNet(read_params(root / config["checkpoint"]),
-                     config["model"], device, "f32")
-        for k in kept.values():
-            clip, dec = k["clip"], k["decoded"]
-            for wave, b in zip(waves, k["batches"]):
-                for r, j in enumerate(wave):
-                    s = specs[j]
-                    nets = ["codecnet"] + (["mofnet"] if s["type"] else [])
-                    cand = {"z": {n: b[("z", n)][r:r + 1].to(device).float()
-                                  for n in nets},
-                            "y": {n: b[("y", n)][r:r + 1].to(device).float()
-                                  for n in nets},
-                            "dc": (b["dc"][r:r + 1].to(device) if "dc" in b
-                                   else torch.zeros((1, 3), dtype=torch.int32,
-                                                    device=device)),
-                            "planes": planes_t(dec[j])}
-                    orig = {c: torch.from_numpy(clip.planes[c][j:j + 1])
-                            .to(device) for c in ("y", "u", "v")}
-                    prev = (None if s["prev"] is None
-                            else planes_t(dec[s["prev"]]))
-                    nxt = (None if s["next"] is None
-                           else planes_t(dec[s["next"]]))
-                    judge_frame(net, tally, orig, prev, nxt, s["type"],
-                                float(traffic["idx_rate"]), cand)
-    return tally
-
-
 def verdict(numbers: Dict[str, float], limits: Dict[str, float]) -> tuple:
     """Each limited number beside its limit, and whether all hold: the one
     rule that decides ``correct`` for a run and for the control."""
@@ -192,6 +155,7 @@ def run(argv, root: Path, t_start: float, device="cuda",
     config = man.config(cell["config"])
     traffic = man.traffic(cell["traffic"])
     limits = man.limits(cell["name"])
+    arch = man.architecture(config)
     if require_card and (not torch.cuda.is_available()
                          or torch.cuda.device_count() < cell["chips"]):
         print(f"codecbench: {cell['name']} needs {cell['chips']} CUDA "
@@ -206,11 +170,21 @@ def run(argv, root: Path, t_start: float, device="cuda",
               file=sys.stderr)
         return 3
     dev = torch.device(device)
-    cuda = dev.type == "cuda"
+    with weights.prepared(root, config, arch, dev) as weights_dir:
+        return measure(args, man, cell, config, traffic, limits, arch,
+                       weights_dir, root, t_start, dev, break_system)
 
-    system = System(root, config, traffic, dev)
+
+def measure(args, man: Manifest, cell: Dict, config: Dict, traffic: Dict,
+            limits: Dict, arch, weights_dir: Path, root: Path,
+            t_start: float, dev: torch.device,
+            break_system: Optional[Callable]) -> int:
+    """Set-up, the window, the check and the result line of one run, with
+    the configuration's parameters in ``weights_dir``."""
+    cuda = dev.type == "cuda"
+    system = arch.system(root, config, traffic, dev, weights_dir)
     if break_system is not None:
-        break_system(system)
+        break_system(system, arch)
     clips, _ = make_clips(traffic, args.seed, dev)
     n_judged = int(traffic["check_within"])
     specs, waves = system.clip_specs(traffic["frames"])
@@ -278,7 +252,7 @@ def run(argv, root: Path, t_start: float, device="cuda",
     for c, k in kept.items():
         if "decoded" not in k:
             k["decoded"] = system.decode(k["stream"])
-        again, k["batches"] = capture_decode(system, k["stream"])
+        again, k["batches"] = arch.capture_decode(system, k["stream"])
         # The decode of the window and the one that recorded the symbols
         # must both equal the encoder's reconstruction.
         twice = differing(k["encoder"], again)
@@ -288,7 +262,8 @@ def run(argv, root: Path, t_start: float, device="cuda",
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    tally = judge(root, config, traffic, kept, waves, specs, dev)
+    tally = arch.judge(weights_dir, config, traffic, kept, waves, specs,
+                       dev)
     numbers = {"decode_vs_encoder_px": float(sum(diff.values())),
                **tally.numbers()}
     checks, correct = verdict(numbers, limits)
@@ -303,7 +278,7 @@ def run(argv, root: Path, t_start: float, device="cuda",
                       "clips": n_clips, "latencies_ms": lat,
                       "finish_s": sum(t1 - t0 for n, t0, t1, _ in records
                                       if n == "finish")},
-           "trace": traced, "frame_flops": frame_flops,
+           "trace": traced, "frame_flops": arch.frame_flops,
            "peak_flops": PEAK_FLOPS, "hbm_bytes_s": HBM_BYTES_S,
            "load": lambda rel: load_file(man.dir / rel)}
     for m in want:

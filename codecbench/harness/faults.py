@@ -2,43 +2,30 @@
 each breaks the program's timed path at run time, on the codec
 instance, and edits no file.
 
-* ``token``: one symbol of each frame's CodecNet latent altered by +3
-  where it is produced (the encoder's rounding), so the stream and the
+* ``token``: one symbol of each frame's main latent altered by +3 where
+  it is produced (the encoder's rounding), so the stream and the
   reconstruction carry it consistently;
 * ``unchanged``: each frame's synthesis hands back its prediction
   unchanged (no residual; a black I-frame), in encoder and decoder;
 * ``half_batch``: the second half of every wave of two or more frames
   left out, the first half's frames coded in its place.
 
-A cell on one chip has no exchange between chips to leave out."""
+The first two reach into the model's stages, so the architecture plants
+them (``fault(name, system)`` of ``architectures/<name>.py``).  A cell
+on one chip has no exchange between chips to leave out."""
 
 from __future__ import annotations
-
-import torch
 
 FAULTS = ("token", "unchanged", "half_batch")
 
 
 def plant(name: str):
-    """-> a function that breaks a harness System in place."""
-    def token(system):
-        codec = system.codec
-        inner = codec._quantize_y
+    """-> a function that breaks a harness System of an architecture in
+    place: ``break_system(system, arch)``."""
+    if name not in FAULTS:
+        raise KeyError(f"no fault {name!r}; known: {list(FAULTS)}")
 
-        def altered(y, mu):
-            q = inner(y, mu).clone()
-            if q.shape[1] == system.codec.cfg.codecnet.nb_ft_y:
-                q[:, 0, 0, 0] = torch.clamp(q[:, 0, 0, 0] + 3,
-                                            max=codec.ac_max - 1)
-            return q
-        codec._quantize_y = altered
-
-    def unchanged(system):
-        model = system.codec.model
-        model.codecnet_synth = (lambda y, mu, pred, skip, *a, **kw:
-                                pred + skip)
-
-    def half_batch(system):
+    def half_batch(system, arch):
         codec = system.codec
         inner = codec.encode_frames_launch
 
@@ -49,5 +36,6 @@ def plant(name: str):
             return inner(frames, prev, nxt, ftype, idx_rate)
         codec.encode_frames_launch = launch
 
-    return {"token": token, "unchanged": unchanged,
-            "half_batch": half_batch}[name]
+    if name == "half_batch":
+        return half_batch
+    return lambda system, arch: arch.fault(name, system)

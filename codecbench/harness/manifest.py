@@ -2,13 +2,16 @@
 cell's entry, its configuration file, its traffic mix
 (``traffic/<traffic>.json``), its correctness limits
 (``limits/<workload>.json``) and one reader per metric
-(``metrics/<metric>.py``, whose ``read(ctx)`` returns a number or None).
-A later cell, mix or metric is a new file here; nothing is edited."""
+(``metrics/<metric>.py``, whose ``read(ctx)`` returns a number or None),
+and the configuration's architecture (``architectures/<name>.py``, named
+by the configuration's ``"architecture"``).  A later cell, mix, metric or
+architecture is a new file here; nothing is edited."""
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import re
 from pathlib import Path
 from types import ModuleType
 from typing import Dict, List
@@ -55,9 +58,22 @@ class Manifest:
     def reader(self, metric: str) -> ModuleType:
         return load_file(self.dir / "metrics" / f"{metric}.py")
 
+    def architecture(self, config: Dict) -> ModuleType:
+        """The module of the configuration's architecture; an unknown name
+        raises KeyError with the known ones."""
+        name = config.get("architecture")
+        path = self.dir / "architectures" / f"{name}.py"
+        if not (isinstance(name, str) and re.fullmatch(r"\w+", name)
+                and path.is_file()):
+            known = sorted(p.stem for p in
+                           (self.dir / "architectures").glob("*.py"))
+            raise KeyError(f"unknown architecture {name!r}; known: {known}")
+        return load_file(path)
+
 
 def load_file(path: Path) -> ModuleType:
-    """A metric reader or a roofline's byte count, loaded from its file."""
+    """A metric reader, a roofline's byte count or an architecture,
+    loaded from its file."""
     spec = importlib.util.spec_from_file_location(
         "codecbench_" + path.stem.replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)

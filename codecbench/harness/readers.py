@@ -15,8 +15,8 @@ SECONDS = {"encode": "encode_s", "decode": "decode_s"}
 
 def flops_share(ctx: Dict, side: str):
     """% of the card's peak: model FLOPs of every frame the window coded
-    on ``side`` (harness/flops.py, by frame type) over the window's
-    ``side`` seconds, over the configuration's peak."""
+    on ``side`` (the architecture's ``frame_flops``, by frame type) over
+    the window's ``side`` seconds, over the configuration's peak."""
     w, t = ctx["window"], ctx["traffic"]
     if not w[SECONDS[side]]:
         return None

@@ -1,18 +1,18 @@
-"""The system under test: ``aivc_tpu_torch`` coding whole clips through
-``pipeline.video.encode_video`` / ``decode_video`` (and so
-``FrameCodec``), built from a configuration file and a traffic mix.
+"""The system under test: a codec of ``aivc_tpu_torch`` coding whole
+clips through ``pipeline.video.encode_video`` / ``decode_video`` (and so
+``FrameCodec``), with the coding settings of a traffic mix.  The
+configuration's architecture (``architectures/<name>.py``) builds the
+codec from its files.
 
-Everything the benchmark takes from the program passes through here.
-The spans the benchmark records are wrappers set on the codec instance
-around its calls (``Spans``), and the check's capture of the symbols a
-decode reads (``capture_decode``); neither edits the program.
+Everything the benchmark takes from the program passes through here or
+through the architecture.  The spans the benchmark records are wrappers
+set on the codec instance around its calls (``Spans``); they edit
+nothing of the program.
 """
 
 from __future__ import annotations
 
-import json
 import time
-from pathlib import Path
 from typing import Dict, List
 
 import numpy as np
@@ -20,30 +20,16 @@ import torch
 import torch.profiler
 
 
-def model_config(config: dict):
-    from aivc_tpu_torch.config import ModelConfig
-    return ModelConfig.from_json(json.dumps(config["model"]))
-
-
 class System:
-    """One FrameCodec for the cell's frame size, from the configuration
-    ``config`` (its checkpoint, with the compute dtype the file states)
-    and the coding settings of ``traffic``."""
+    """One FrameCodec ``codec`` for the cell's frame size, with the coding
+    settings of ``traffic``."""
 
-    def __init__(self, root: Path, config: dict, traffic: dict, device):
+    def __init__(self, codec, traffic: dict, device):
         from aivc_tpu_torch.config import CodingConfig
-        from aivc_tpu_torch.pipeline.codec import FrameCodec
-        from aivc_tpu_torch.utils.checkpoint import (model_from_params,
-                                                     read_tree)
 
         self.device = torch.device(device)
-        cfg = model_config(config)
-        _, tree = read_tree(root / config["checkpoint"])
-        model = model_from_params(cfg, tree, self.device)
+        self.codec = codec
         self.h, self.w = traffic["height"], traffic["width"]
-        self.codec = FrameCodec(cfg, model, self.h, self.w,
-                                device=self.device)
-        del model
         self.coding = CodingConfig(
             coding_config=traffic["coding"], gop_size=traffic["gop_size"],
             intra_period=traffic["intra_period"],
@@ -62,6 +48,10 @@ class System:
         return {i: out[i].planes for i in sorted(out)}
 
     def clip_specs(self, n: int):
+        return clip_specs(self.coding.gop_struct_name(), self.wave_batch, n)
+
+
+def clip_specs(self, n: int):
         return clip_specs(self.coding.gop_struct_name(), self.wave_batch, n)
 
 
@@ -122,38 +112,3 @@ class Spans:
         for m in ("encode_frames_launch", "encode_frames_finish",
                   "decode_frames_batch"):
             self.codec.__dict__.pop(m, None)
-
-
-def capture_decode(system: System, stream: bytes):
-    """Decode ``stream`` with the symbols each batch reads recorded: per
-    decode batch, in call order, the frame type, per net the z and y
-    symbols (keys ("z", net), ("y", net)) and the DC offsets ("dc").
-    -> (decoded planes, batches)."""
-    codec = system.codec
-    batches: List[dict] = []
-
-    def keep(key):
-        return lambda v: batches[-1].__setitem__(key, v.detach().clone())
-
-    hooks = [
-        (codec, "decode_frames_batch",
-         lambda fb, p, n, t, *a, **kw: batches.append({"type": t})),
-        (codec, "_hyper", lambda which, z: keep(("z", which))(z)),
-        (codec, "_motion", lambda q, *a: keep(("y", "mofnet"))(q)),
-        (codec.model, "codecnet_synth",
-         lambda q, *a: keep(("y", "codecnet"))(q)),
-        (codec, "_apply_dc", lambda out, dc: keep("dc")(dc)),
-    ]
-    for obj, name, see in hooks:
-        inner = getattr(obj, name)
-
-        def wrapped(*a, _inner=inner, _see=see, **kw):
-            _see(*a, **kw)
-            return _inner(*a, **kw)
-        setattr(obj, name, wrapped)
-    try:
-        planes = system.decode(stream)
-    finally:
-        for obj, name, _ in hooks:
-            obj.__dict__.pop(name, None)
-    return planes, batches

@@ -1,7 +1,7 @@
-"""A checkpoint's ``params.msgpack`` read without the program: the flax
-subset of msgpack (maps, strings, numbers and ext type 1, the packed
-triple (shape, dtype name, raw bytes) of a numpy array).  The program
-reads the same raw file with its own reader."""
+"""A checkpoint's ``params.msgpack`` read and written without the
+program: the flax subset of msgpack (maps, strings, numbers and ext type
+1, the packed triple (shape, dtype name, raw bytes) of a numpy array).
+The program reads the same raw file with its own reader."""
 
 from __future__ import annotations
 
@@ -85,3 +85,65 @@ def read_params(ckpt_dir) -> dict:
     if r.pos != len(r.data):
         raise ValueError("trailing bytes after the msgpack object")
     return tree["params"] if set(tree) == {"params"} else tree
+
+
+def _pack_len(out: bytearray, n: int, fix, codes) -> None:
+    """A length header: the fix form where there is one and n fits, else
+    the smallest of ``codes`` ((code, struct format, largest n), ...)."""
+    if fix is not None and n <= fix[1]:
+        out.append(fix[0] | n)
+        return
+    for code, fmt, top in codes:
+        if n <= top:
+            out += bytes([code]) + struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+_U8, _U16, _U32 = (">B", 0xFF), (">H", 0xFFFF), (">I", 0xFFFFFFFF)
+
+
+def _pack(out: bytearray, obj) -> None:
+    if isinstance(obj, dict):
+        _pack_len(out, len(obj), (0x80, 15), ((0xDE, *_U16), (0xDF, *_U32)))
+        for k in sorted(obj):
+            _pack(out, k)
+            _pack(out, obj[k])
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(out, len(obj), (0x90, 15), ((0xDC, *_U16), (0xDD, *_U32)))
+        for v in obj:
+            _pack(out, v)
+    elif isinstance(obj, str):
+        b = obj.encode("utf-8")
+        _pack_len(out, len(b), (0xA0, 31),
+                  ((0xD9, *_U8), (0xDA, *_U16), (0xDB, *_U32)))
+        out += b
+    elif isinstance(obj, bytes):
+        _pack_len(out, len(obj), None,
+                  ((0xC4, *_U8), (0xC5, *_U16), (0xC6, *_U32)))
+        out += obj
+    elif isinstance(obj, int) and 0 <= obj <= 0xFFFFFFFF:
+        _pack_len(out, obj, (0x00, 0x7F),
+                  ((0xCC, *_U8), (0xCD, *_U16), (0xCE, *_U32)))
+    elif isinstance(obj, np.ndarray):
+        payload = bytearray()
+        _pack(payload, [[int(d) for d in obj.shape], obj.dtype.name,
+                        np.ascontiguousarray(obj).tobytes()])
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if len(payload) in fixext:
+            out.append(fixext[len(payload)])
+        else:
+            _pack_len(out, len(payload), None,
+                      ((0xC7, *_U8), (0xC8, *_U16), (0xC9, *_U32)))
+        out += struct.pack(">b", _EXT_NDARRAY) + payload
+    else:
+        raise TypeError(f"cannot pack {type(obj).__name__}")
+
+
+def write_params(ckpt_dir, tree: dict) -> None:
+    """``params.msgpack`` of a parameter tree (nested dicts of numpy
+    arrays in the JAX layout) under ``params``, keys sorted at every level
+    as flax writes them."""
+    out = bytearray()
+    _pack(out, {"params": tree})
+    (Path(ckpt_dir) / "params.msgpack").write_bytes(bytes(out))

@@ -1,5 +1,6 @@
-"""The frozen FLOP count against torch's own counter, and the roofline
-byte counts."""
+"""The frozen FLOP count (the AIVC architecture's ``frame_flops``)
+against torch's own counter and the counts it has always given, and the
+roofline byte counts."""
 
 import dataclasses
 import json
@@ -10,12 +11,11 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from harness.bench import HBM_BYTES_S
-from harness.manifest import load_file
-from harness.flops import frame_flops
-from harness.manifest import Manifest
+from harness.manifest import Manifest, load_file
 import tinycell
 
 REPO = tinycell.REPO
+frame_flops = load_file(REPO / "codecbench/architectures/aivc.py").frame_flops
 
 
 @pytest.fixture(scope="module")
@@ -47,6 +47,22 @@ def test_flops_equal_the_flop_counter(f32_fullnet, ftype, published):
         mine * 1088 * 1920 / 128 / 128, rel=0.02)
     assert (frame_flops(model_cfg, ftype, 1080, 1920, "decode")
             < frame_flops(model_cfg, ftype, 1080, 1920, "encode"))
+
+
+# FLOPs of a 1080p I, P and B frame as every benchmark run so far counted
+# them: the mfu.* readings of the ledger rest on these numbers.
+FROZEN_1080P = {"encode": [1417305047040, 2432944081920, 2537701248000],
+                "decode": [766364221440, 1404568657920, 1509325824000]}
+
+
+@pytest.mark.parametrize("config", ["aivc-r5", "aivc-f32"])
+@pytest.mark.parametrize("part", ["encode", "decode"])
+def test_frozen_1080p_counts(config, part):
+    man = Manifest(REPO)
+    cfg = man.config(config)
+    count = man.architecture(cfg).frame_flops
+    assert [count(cfg["model"], t, 1080, 1920, part)
+            for t in (0, 1, 2)] == FROZEN_1080P[part]
 
 
 def test_k3_bytes_give_the_bound():

@@ -1,4 +1,4 @@
-"""The tiny cell on the card (marked ``cuda``; skips without one):
+"""The tiny cells on the card (marked ``cuda``; skips without one):
 the device path, the trace and the kernels' readers.
 
     python -m pytest codecbench/test_codecbench_cuda.py
@@ -18,13 +18,15 @@ def card():
         pytest.skip("needs an NVIDIA card")
 
 
-def test_tiny_cell_on_the_card(card, tmp_path, capsys):
+@pytest.mark.parametrize("cell", [tinycell.CELL, tinycell.SEEDED])
+def test_tiny_cell_on_the_card(card, tmp_path, capsys, cell):
     root = tinycell.make(tmp_path)
-    rc, res, _ = tinycell.run_tiny(root, capsys, device="cuda")
+    rc, res, _ = tinycell.run_tiny(root, capsys, device="cuda", cell=cell)
     assert rc == 0 and res["correct"] is True, res and res["checks"]
     assert res["device"]["platform"] == "gpu"
     assert res["device"]["memory_peak_bytes"] > 0
-    rc, res, _ = tinycell.run_tiny(root, capsys, device="cuda", trace=1)
+    rc, res, _ = tinycell.run_tiny(root, capsys, device="cuda", trace=1,
+                                   cell=cell)
     assert rc == 0 and res["correct"] is True
     assert 0 < res["device"]["busy_s"] <= res["device"]["window_s"]
     assert res["breakdown"]["device_ops"]

@@ -8,12 +8,15 @@ import sys
 
 import pytest
 
+from harness import weights
 from harness.bench import FORBIDDEN, forbidden_modules
 from harness.manifest import Manifest
 import tinycell
 
 REPO = tinycell.REPO
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+ARCH_FUNCTIONS = ("system", "capture_decode", "judge", "control",
+                  "frame_flops", "init_tree")
 
 
 def test_every_cell_finds_its_files():
@@ -25,7 +28,12 @@ def test_every_cell_finds_its_files():
     for w in b["workloads"]:
         assert NAME.match(w["name"]) and w["chips"] == 1
         config = man.config(w["config"])
-        assert (REPO / config["checkpoint"] / "params.msgpack").exists()
+        # Exactly one of a checkpoint that is there and a weight seed.
+        if weights.seed_of(config) is None:
+            assert (REPO / config["checkpoint"] / "params.msgpack").exists()
+        arch = man.architecture(config)
+        for fn in ARCH_FUNCTIONS:
+            assert callable(getattr(arch, fn)), (config["name"], fn)
         traffic = man.traffic(w["traffic"])
         assert traffic["frames"] == 33
         limits = man.limits(w["name"])
@@ -56,10 +64,31 @@ def test_each_layer_metric_moves_what_its_cells_report():
         assert man.metrics(w["name"], True)
 
 
+@pytest.mark.parametrize("name", ["elic", None, "../harness/bench", 3])
+def test_an_unknown_architecture_raises(name):
+    with pytest.raises(KeyError, match=r"known: \['aivc'\]"):
+        Manifest(REPO).architecture({"architecture": name})
+
+
+@pytest.mark.parametrize("config", [
+    {"checkpoint": "models_ckpt/bf16-r5", "weights": {"seed": 1}},
+    {},
+    {"weights": {"seed": -1}},
+    {"weights": {"seed": "1"}},
+    {"weights": {"seed": True}},
+    {"weights": {"seed": 1, "scale": 2}},
+    {"weights": 1},
+])
+def test_weights_are_one_checkpoint_or_one_seed(config):
+    with pytest.raises(ValueError):
+        weights.seed_of(config)
+
+
 def test_a_dropped_in_cell_is_found(tmp_path):
     root = tinycell.make(tmp_path)
     man = Manifest(root)
     assert man.workload(tinycell.CELL)["traffic"] == "tiny_ra"
+    assert weights.seed_of(man.config("tiny-seeded")) == tinycell.WEIGHT_SEED
     assert man.traffic("tiny_ra")["height"] == 64
     assert man.limits(tinycell.CELL) == tinycell.LIMITS
     names = {m["name"] for m in man.metrics(tinycell.CELL, traced=True)}
@@ -89,8 +118,12 @@ def test_guard_compares_whole_top_level_names(mods, found):
 def test_the_benchmark_and_the_program_load_no_jax():
     code = ("import sys; sys.path.insert(0, 'codecbench'); "
             "sys.path.append('.'); import harness.bench, harness.trace, "
-            "harness.faults, reference.judge, aivc_tpu_torch.pipeline.video, "
-            "aivc_tpu_torch.coding.vrans, aivc_tpu_torch.utils.checkpoint; "
+            "harness.faults, harness.weights, reference.judge, "
+            "aivc_tpu_torch.pipeline.video, aivc_tpu_torch.coding.vrans, "
+            "aivc_tpu_torch.utils.checkpoint; "
+            "from harness.manifest import Manifest; m = Manifest('.'); "
+            "[m.architecture(m.config(c['name'])) "
+            "for c in m.data['configs']]; "
             "from harness.bench import forbidden_modules; "
             "print(forbidden_modules())")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

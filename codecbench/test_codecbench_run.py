@@ -1,6 +1,7 @@
-"""A whole run of the tiny cell on the host: the result line, the
-reference against the program, and planted faults that must come out
-not correct."""
+"""A whole run of a tiny cell on the host (the tiny-toy checkpoint, and
+the same shapes with seeded weights): the result line, the reference
+against the program, and planted faults that must come out not
+correct."""
 
 import json
 import sys
@@ -10,7 +11,10 @@ import pytest
 import torch
 
 from harness.faults import FAULTS, plant
+from harness.manifest import Manifest
 import tinycell
+
+CELLS = [tinycell.CELL, tinycell.SEEDED]
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "checks"]
 
@@ -22,8 +26,9 @@ def root(tmp_path_factory):
 
 
 @pytest.mark.parametrize("seed", [7, 2 ** 31 + 11, 900000000001])
-def test_reference_agrees_with_the_program(root, capsys, seed):
-    rc, res, err = tinycell.run_tiny(root, capsys, seed=seed)
+@pytest.mark.parametrize("cell", CELLS)
+def test_reference_agrees_with_the_program(root, capsys, cell, seed):
+    rc, res, err = tinycell.run_tiny(root, capsys, seed=seed, cell=cell)
     assert rc == 0
     assert list(res) == KEYS
     assert res["correct"] is True and res["failed"] == 0
@@ -40,13 +45,18 @@ def test_the_run_judges_each_of_the_first_clips(root, capsys, monkeypatch):
     """Every one of the window's first ``check_within`` clips is judged, so
     a fault that one clip cannot show (half a wave of a still scene left
     out) shows in the other."""
-    import harness.bench as hb
-    seen, real = [], hb.judge
+    seen, real = [], Manifest.architecture
 
-    def spy(root_, config, traffic, kept, *a):
-        seen.append(sorted(kept))
-        return real(root_, config, traffic, kept, *a)
-    monkeypatch.setattr(hb, "judge", spy)
+    def spying(self, config):
+        arch = real(self, config)
+        judge = arch.judge
+
+        def spy(weights_dir, config, traffic, kept, *a):
+            seen.append(sorted(kept))
+            return judge(weights_dir, config, traffic, kept, *a)
+        arch.judge = spy
+        return arch
+    monkeypatch.setattr(Manifest, "architecture", spying)
     rc, res, _ = tinycell.run_tiny(root, capsys)
     assert rc == 0 and res["correct"] is True
     assert seen == [[0, 1]]
@@ -79,8 +89,10 @@ def test_a_tagged_metric_reports_its_quantity(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("fault", FAULTS)
-def test_a_planted_fault_is_not_correct(root, capsys, fault):
-    rc, res, err = tinycell.run_tiny(root, capsys, break_system=plant(fault))
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_planted_fault_is_not_correct(root, capsys, cell, fault):
+    rc, res, err = tinycell.run_tiny(root, capsys, break_system=plant(fault),
+                                     cell=cell)
     assert rc == 0
     assert res["correct"] is False, res["checks"]
 
