@@ -113,7 +113,7 @@ def main(argv=None) -> int:
 
     from aivc_tpu_torch.config import CodingConfig
     from aivc_tpu_torch.io.yuv import YuvReader, YuvWriter
-    from aivc_tpu_torch.pipeline.codec import FrameCodec
+    from aivc_tpu_torch.pipeline.codec import make_codec
     from aivc_tpu_torch.pipeline.video import (
         decode_video,
         encode_video,
@@ -146,7 +146,7 @@ def main(argv=None) -> int:
 
     decoded = None
     if args.mode in ("all", "encode"):
-        codec = FrameCodec(cfg, model, h, w, device=dev,
+        codec = make_codec(cfg, model, h, w, device=dev,
                            debug=args.bitstream_debug,
                            entropy_backend=args.entropy_backend,
                            rate_priority=args.rate_priority,
@@ -186,7 +186,7 @@ def main(argv=None) -> int:
         from aivc_tpu_torch.coding.bitstream import VideoHeader
 
         header = VideoHeader.unpack(data[:VideoHeader.SIZE])
-        codec = FrameCodec(cfg, model, header.h_x, header.w_x, device=dev)
+        codec = make_codec(cfg, model, header.h_x, header.w_x, device=dev)
         t0 = time.time()
         decoded = decode_video(codec, data)  # wave_batch from the header
         for i in decoded:

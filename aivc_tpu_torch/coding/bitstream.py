@@ -341,6 +341,9 @@ def pack_gop(header: GopHeader, frames_in_coding_order: List[bytes]) -> bytes:
 
 
 def unpack_gop(data: bytes) -> Tuple[GopHeader, List[bytes]]:
+    """-> (header, the frames): views of ``data``, not copies (a stream of
+    tens of MB is sliced at each level of its framing)."""
+    data = memoryview(data)
     header = GopHeader.unpack(data[:GopHeader.SIZE])
     frames = []
     pos = GopHeader.SIZE
@@ -361,6 +364,8 @@ def pack_video(header: VideoHeader, gops: List[bytes]) -> bytes:
 
 
 def unpack_video(data: bytes) -> Tuple[VideoHeader, List[bytes]]:
+    """-> (header, the GOPs): views of ``data``, not copies."""
+    data = memoryview(data)
     header = VideoHeader.unpack(data[:VideoHeader.SIZE])
     gops = []
     pos = VideoHeader.SIZE

@@ -3,13 +3,17 @@
 * z (hyper-latent): one row per channel from the learned factorized prior,
   evaluated once per model load at the symbol edges (``build_z_table``).
 * y (main latent): NBINS log-spaced Laplace scale bins
-  (``build_laplace_table``), addressed per element by ``sigma_to_bin``.
+  (``build_laplace_table``), or for ELIC's Gaussian the same bins
+  (``build_gaussian_table``), addressed per element by ``sigma_to_bin``.
 
 The quantization is plain integer numpy, a copy of the JAX package's, so
 the integer rows match it byte for byte given the same float edge CDFs.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import numpy as np
 import torch
@@ -82,13 +86,31 @@ def build_laplace_table(scale: int = PROB_SCALE,
     return cdf_rows_from_edge_values(cdf, scale)
 
 
+def build_gaussian_table(scale: int = PROB_SCALE,
+                         ac_max: int = AC_MAX_VAL) -> np.ndarray:
+    """[NBINS, 2*ac_max + 1] integer CDF rows of the zero-mean Gaussian of
+    each scale bin (std sigma), tail mass folded into the edge symbols."""
+    sigmas = sigma_bin_centers()[:, None]
+    edges = symbol_edges(ac_max)[None, :]
+    cdf = 0.5 * np.vectorize(math.erfc)(-edges / (sigmas * math.sqrt(2.0)))
+    return cdf_rows_from_edge_values(cdf, scale)
+
+
+@functools.lru_cache(maxsize=None)
+def _bin_constants(device: torch.device):
+    """sigma_to_bin's two float32 constants on ``device``, made once: a
+    tensor made from a host value on the card waits for the card's queue
+    to drain."""
+    return (torch.tensor(np.float32(_LOG_SMIN), device=device),
+            torch.tensor(np.float32((NBINS - 1) / (_LOG_SMAX - _LOG_SMIN)),
+                         device=device))
+
+
 def sigma_to_bin(sigma: torch.Tensor) -> torch.Tensor:
     """sigma -> scale-bin index (int32), float32 arithmetic as
     aivc_tpu/coding/cdf.py:sigma_to_bin_np (cdf.py:123-133)."""
     s = torch.clamp_min(sigma.float(), 1e-9)
-    lo = torch.tensor(np.float32(_LOG_SMIN), device=sigma.device)
-    sc = torch.tensor(np.float32((NBINS - 1) / (_LOG_SMAX - _LOG_SMIN)),
-                      device=sigma.device)
+    lo, sc = _bin_constants(sigma.device)
     t = (torch.log(s) - lo) * sc
     return torch.clamp(torch.round(t), 0, NBINS - 1).to(torch.int32)
 

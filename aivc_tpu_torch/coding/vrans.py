@@ -426,8 +426,10 @@ def serialize_chunk_v2(k: int, states: np.ndarray, words: np.ndarray,
     return bytes(out)
 
 
-def parse_chunk(payload: bytes):
-    """v1 chunk bytes -> (words u16, states u32, k)."""
+def parse_chunk(payload: bytes, native: bool = True):
+    """v1 chunk bytes -> (words u16, states u32, k); with ``native`` False
+    the words of a v1 chunk are a big-endian view of ``payload`` (no copy:
+    an assignment into a u16 array swaps them as it copies)."""
     if payload[0] & CHUNK_V2:
         words, states, k, _ = parse_chunk_v2(payload)
         return words, states, k
@@ -439,7 +441,8 @@ def parse_chunk(payload: bytes):
     words = np.frombuffer(payload, dtype=">u2", count=total, offset=pos)
     if pos + 2 * total != len(payload):
         raise ValueError("vrans chunk size mismatch")
-    return words.astype(np.uint16), states.astype(np.uint32), k
+    return (words.astype(np.uint16) if native else words,
+            states.astype(np.uint32), k)
 
 
 def parse_chunk_v2(payload: bytes):

@@ -241,6 +241,56 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ElicConfig:
+    """ELIC (He et al., CVPR 2022, arXiv 2203.10886): an intra-only image
+    codec with a mean-scale hyperprior and the space-channel context
+    model SCCTX (models/elic.py).  A checkpoint's ``config.json`` selects
+    it with ``"arch": "elic"``."""
+
+    name: str = "elic-n192m320"
+    arch: str = "elic"
+    # Width of the transforms (N) and of the latent y (M); z has N
+    # channels.
+    n: int = 192
+    m: int = 320
+    # The uneven channel groups of y, coded in this order; they sum to m.
+    groups: Tuple[int, ...] = (16, 16, 32, 64, 192)
+    # Hidden widths of each group's channel-context stack (two 5x5
+    # convs) and of its 1x1 parameter-aggregation stack.
+    ctx_hidden: Tuple[int, int] = (224, 128)
+    agg_hidden: Tuple[int, int] = (640, 512)
+    # Compute dtype of every convolution ('float32' or 'bfloat16');
+    # parameters, latents, mu and sigma stay float32.
+    dtype: str = "bfloat16"
+    # Entropy-coding alphabet half-width (recorded in the video header).
+    ac_max_val: int = 64
+
+    def __post_init__(self):
+        if sum(self.groups) != self.m:
+            raise ValueError(f"ELIC groups {self.groups} do not sum to "
+                             f"M = {self.m}")
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2) + "\n"
+
+    @classmethod
+    def from_json(cls, text: str) -> "ElicConfig":
+        raw = json.loads(text)
+        for key in ("groups", "ctx_hidden", "agg_hidden"):
+            if key in raw:
+                raw[key] = tuple(raw[key])
+        return cls(**raw)
+
+
+def model_config_from_json(text: str):
+    """A checkpoint's ``config.json`` -> ElicConfig where its ``arch`` is
+    "elic", else ModelConfig (AIVC's FullNet)."""
+    if json.loads(text).get("arch") == "elic":
+        return ElicConfig.from_json(text)
+    return ModelConfig.from_json(text)
+
+
+@dataclass(frozen=True)
 class CodingConfig:
     """One encode/decode run (the reference CLI surface, src/aivc.py:16-76)."""
 

@@ -45,10 +45,12 @@ def resolve_device(device=None) -> torch.device:
 
 
 def full_float32(cfg) -> bool:
-    """True where either net of ``cfg`` computes in float32: its
-    convolutions and matmuls then run with TF32 off (the codec's
-    configure_determinism, the train step's float32_precision); bf16
-    models keep PyTorch's settings."""
+    """True where either net of ``cfg`` (or an ELIC model) computes in
+    float32: its convolutions and matmuls then run with TF32 off (the
+    codec's configure_determinism, the train step's float32_precision);
+    bf16 models keep PyTorch's settings."""
+    if getattr(cfg, "arch", None) == "elic":
+        return cfg.dtype == "float32"
     return "float32" in (cfg.mofnet.dtype, cfg.codecnet.dtype)
 
 

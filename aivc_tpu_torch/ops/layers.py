@@ -58,20 +58,22 @@ def split_rows(module: nn.Module, rows) -> None:
 class Conv(nn.Module):
     """A conv whose parameters stay float32 and whose compute runs in
     ``dtype`` (flax ``nn.Conv(dtype=...)`` semantics: input, kernel and
-    bias are cast, the output keeps the compute type)."""
+    bias are cast, the output keeps the compute type).  ``padding``
+    zero-pads each side (the AIVC blocks pad by replication before)."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 dtype: str = "float32"):
+                 dtype: str = "float32", padding: int = 0):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
         self.bias = nn.Parameter(torch.zeros(cout))
         self.stride = stride
+        self.padding = padding
         self.dt = DTYPES[dtype]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dt
         return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
-                        stride=self.stride)
+                        stride=self.stride, padding=self.padding)
 
 
 def _nonlinearity(name: str, ch: int) -> Optional[nn.Module]:

@@ -117,6 +117,11 @@ SCHED_SWITCHES = ("AIVC_PACKED_HEAD", "AIVC_GDN_LOWP", "AIVC_MAPS_CM",
                   "AIVC_S2D", "AIVC_DC_OFFSET")
 
 
+# Bit 7 of the schedule byte: the stream was coded by ELIC
+# (pipeline/elic.py), not by AIVC's FullNet.
+SCHED_ELIC = 0x80
+
+
 def switch_on(name: str) -> bool:
     """A switch of the JAX package's environment: on unless "0"."""
     return os.environ.get(name, "1") != "0"
@@ -254,6 +259,9 @@ class DecodedFrame:
 class FrameCodec:
     """Per-resolution codec around a FullNet."""
 
+    # Codes every frame type (pipeline/elic.py's ElicCodec codes I only).
+    intra_only = False
+
     def __init__(self, cfg: ModelConfig, model: FullNet, height: int,
                  width: int, device=None, debug: bool = False,
                  entropy_backend: str = "device",
@@ -280,8 +288,7 @@ class FrameCodec:
         self.model = FullNet(cfg)
         self.model.load_state_dict(model.state_dict())
         self.model = self.model.to(self.device).eval()
-        self.h, self.w = height, width
-        self.hp = math.ceil(height / PAD_MULTIPLE) * PAD_MULTIPLE
+        self._set_geometry(height, width)
         # Optional ('data', 'spatial') mesh (parallel/mesh.py): the nets of
         # a wave run on this rank's slice of it where 'data' divides the
         # wave, and on this rank's band of rows over 'spatial'; entropy
@@ -299,10 +306,6 @@ class FrameCodec:
                 self.band = RowBand(mesh)
                 self.model.split_rows(self.band)
 
-        self.wp = math.ceil(width / PAD_MULTIPLE) * PAD_MULTIPLE
-        self.h_uv, self.w_uv = math.ceil(height / 2), math.ceil(width / 2)
-        self.hy, self.wy = self.hp // Y_DOWNSCALE, self.wp // Y_DOWNSCALE
-        self.hz, self.wz = self.hp // Z_DOWNSCALE, self.wp // Z_DOWNSCALE
         self._n_z = {
             "mofnet": self.hz * self.wz * cfg.mofnet.nb_ft_z,
             "codecnet": self.hz * self.wz * cfg.codecnet.nb_ft_z,
@@ -312,11 +315,7 @@ class FrameCodec:
             "codecnet": self.hy * self.wy * cfg.codecnet.nb_ft_y,
         }
         self.warp_engine = warp_engine(cfg.flow_bound)
-
-        self.ac_max = int(cfg.ac_max_val or 256)
-        if self.ac_max & (self.ac_max - 1) or not 16 <= self.ac_max <= 256:
-            raise ValueError(f"ac_max_val must be a power of two in "
-                             f"[16, 256], got {self.ac_max}")
+        self._set_alphabet(cfg.ac_max_val)
 
         # Fused row space [mofnet-z channels | codecnet-z channels | y
         # sigma bins] (codec.py:311-348).  The z rows are built from the
@@ -328,17 +327,38 @@ class FrameCodec:
             z[which] = build_z_table(prior, scale=PROB_SCALE,
                                      ac_max=self.ac_max)
         fused = np.concatenate([z["mofnet"], z["codecnet"], lap], axis=0)
-        self.fused_rows = fused
-        self.table = vrans.make_table(fused, self.device)
         # The host backend codes at the same 2^16 scale: its rows are the
         # fused table's.
         self.z_rows = z
         self.laplace_rows = lap
         czm, czc = cfg.mofnet.nb_ft_z, cfg.codecnet.nb_ft_z
-        self._row_off = {"z_m": 0, "z_c": czm, "y": czm + czc}
+        self._set_table(fused, {"z_m": 0, "z_c": czm, "y": czm + czc})
+
+    def _set_geometry(self, height: int, width: int) -> None:
+        """The frame's true, padded, y and z sizes."""
+        self.h, self.w = height, width
+        self.hp = math.ceil(height / PAD_MULTIPLE) * PAD_MULTIPLE
+        self.wp = math.ceil(width / PAD_MULTIPLE) * PAD_MULTIPLE
+        self.h_uv, self.w_uv = math.ceil(height / 2), math.ceil(width / 2)
+        self.hy, self.wy = self.hp // Y_DOWNSCALE, self.wp // Y_DOWNSCALE
+        self.hz, self.wz = self.hp // Z_DOWNSCALE, self.wp // Z_DOWNSCALE
+
+    def _set_alphabet(self, ac_max_val: int) -> None:
+        self.ac_max = int(ac_max_val or 256)
+        if self.ac_max & (self.ac_max - 1) or not 16 <= self.ac_max <= 256:
+            raise ValueError(f"ac_max_val must be a power of two in "
+                             f"[16, 256], got {self.ac_max}")
+
+    def _set_table(self, fused: np.ndarray, row_off: Dict[str, int]) -> None:
+        """The fused CDF rows on the device, the first row of each family
+        and each family's pad symbol (its first row's most probable);
+        the K policy starts afresh."""
+        self.fused_rows = fused
+        self.table = vrans.make_table(fused, self.device)
+        self._row_off = row_off
         freq = np.diff(fused.astype(np.int64), axis=1)
         self._pad_sym = {f: int(np.argmax(freq[off]))
-                         for f, off in self._row_off.items()}
+                         for f, off in row_off.items()}
         self._k_hint: Dict[int, int] = {}
 
     # ------------------------------------------------------------------
@@ -1275,6 +1295,16 @@ class FrameCodec:
                 | (8 if self.cfg.codecnet.s2d_analysis else 0)
                 | (16 if self.dc_offset else 0))
 
+    def check_model(self, header: bs.VideoHeader) -> None:
+        """Raise if the stream was coded by the other model (AIVC or
+        ELIC: bit 7 of the schedule byte)."""
+        if (header.sched ^ self.sched_bits) & SCHED_ELIC:
+            names = ("AIVC", "ELIC")
+            raise ValueError(
+                f"bitstream was coded by an "
+                f"{names[bool(header.sched & SCHED_ELIC)]} model; this "
+                f"codec holds {names[bool(self.sched_bits & SCHED_ELIC)]}")
+
     def check_sched(self, header: bs.VideoHeader) -> None:
         """Raise if the stream's compute-schedule byte is not this
         codec's (a mismatched decoder would drift through the GOP), with
@@ -1297,3 +1327,14 @@ class FrameCodec:
                      else bs.BACKEND_HOST),
             wave_batch=max(1, wave_batch),
             ac_log2=self.ac_max.bit_length() - 1, sched=self.sched_bits)
+
+
+def make_codec(cfg, model, height: int, width: int, **kw) -> FrameCodec:
+    """The codec of a loaded model: FrameCodec for AIVC's FullNet, its
+    All-Intra subclass ElicCodec (pipeline/elic.py) for ELIC."""
+    from aivc_tpu_torch.config import ElicConfig
+
+    if isinstance(cfg, ElicConfig):
+        from aivc_tpu_torch.pipeline.elic import ElicCodec
+        return ElicCodec(cfg, model, height, width, **kw)
+    return FrameCodec(cfg, model, height, width, **kw)

@@ -283,6 +283,11 @@ def encode_video(codec: FrameCodec, frames: Sequence[Dict[str, np.ndarray]],
     rebuild the references)."""
     with tracing.span("video.encode"):
         name = coding.gop_struct_name()
+        if codec.intra_only and name != "1_GOP_0":
+            raise ValueError(
+                f"{codec.cfg.name} is an intra-only model: code it "
+                f"All-Intra (coding_config AI), not "
+                f"{coding.coding_config}")
         gop = generate_gop_struct(name)
         gop_len = len(gop)
         n_frames = len(frames)
@@ -350,6 +355,7 @@ def decode_video(codec: FrameCodec, data: bytes,
     with tracing.span("video.decode"):
         with tracing.span("video.gop"):
             header, gop_chunks = bs.unpack_video(data)
+        codec.check_model(header)
         if (1 << header.ac_log2) != codec.ac_max:
             raise ValueError(
                 f"bitstream alphabet +-{1 << header.ac_log2} != the model's "

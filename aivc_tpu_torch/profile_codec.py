@@ -2,10 +2,11 @@
 (tracing.py), run on demand.
 
     python -m aivc_tpu_torch.profile_codec [--coding RA|LDP|AI] [--float32]
-        [--clips bounce,wheel,zoom] [--rounds 2] [--out FILE]
+        [--ckpt DIR] [--clips bounce,wheel,zoom] [--rounds 2] [--out FILE]
 
 Codes 33-frame 1920x1080 clips of held-out families (eval/clips.py) with
-bf16-r5 (both nets in float32 and TF32 off with ``--float32``): RA GOP
+bf16-r5 (both nets in float32 and TF32 off with ``--float32``), or the
+checkpoint ``--ckpt`` names (an ELIC one codes All-Intra alone): RA GOP
 16 / intra 32 and All-Intra at wave batch 8, encoded then decoded; LDP
 intra 32, one frame a wave, encoded only.  For each clip: one warm
 encode and decode; ``--rounds`` rounds of (off, on, on, off), each
@@ -14,7 +15,8 @@ tracing off and inside ``tracing.recording()`` (what the spans cost);
 then one encode and one decode under torch.profiler inside
 ``recording()``: the card's idle share of each, split by the class of
 the innermost span the host was in ("dispatch", "host", or outside the
-codec's calls) and by its name, every span's count, seconds and self
+codec's calls) and by its name (ELIC's context steps: ``launch.ctx``,
+``batch.ctx``), every span's count, seconds and self
 seconds, the K1 / K2 steps of each wave (``finish.k1`` / ``batch.k2``),
 and each frame's latency from its wave's ``launch`` start to its
 ``finish`` end in the recorded, unprofiled encodes.  Prints the card's
@@ -144,6 +146,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--coding", choices=sorted(CODING), default="RA")
     ap.add_argument("--float32", action="store_true")
+    ap.add_argument("--ckpt", default=str(ROOT / "models_ckpt" / "bf16-r5"))
     ap.add_argument("--clips", default="bounce,wheel,zoom")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--out", default=None)
@@ -151,20 +154,23 @@ def main() -> int:
     from aivc_tpu_torch import smoke
     from aivc_tpu_torch.config import CodingConfig
     from aivc_tpu_torch.eval.clips import FAMILIES
-    from aivc_tpu_torch.pipeline.codec import FrameCodec
+    from aivc_tpu_torch.pipeline.codec import make_codec
     from aivc_tpu_torch.utils.checkpoint import model_from_params, read_tree
 
     dev = torch.device("cuda")
-    cfg, tree = read_tree(ROOT / "models_ckpt" / "bf16-r5")
+    cfg, tree = read_tree(args.ckpt)
     if args.float32:
         cfg = smoke.f32_config(cfg)
-    codec = FrameCodec(cfg, model_from_params(cfg, tree, dev), HEIGHT,
+    codec = make_codec(cfg, model_from_params(cfg, tree, dev), HEIGHT,
                        WIDTH, device=dev)
+    if codec.intra_only and args.coding != "AI":
+        ap.error(f"{cfg.name} is an intra-only model: --coding AI")
     wave_batch, decode = CODING[args.coding]
     coding = CodingConfig(coding_config=args.coding, gop_size=16,
                           intra_period=32, idx_rate=0.0)
     head = {"card": smoke.device_info()["smi"], "coding": args.coding,
-            "float32": args.float32, "wave_batch": wave_batch}
+            "float32": args.float32, "model": cfg.name,
+            "wave_batch": wave_batch}
     print(json.dumps(head), flush=True)
     clips = []
     for name in args.clips.split(","):

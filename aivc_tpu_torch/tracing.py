@@ -49,6 +49,10 @@ CLASS = {
     "launch.warp": "dispatch",
     "launch.codecnet": "dispatch",
     "launch.planes": "dispatch",
+    # a model without MOFNet and CodecNet (ELIC, pipeline/elic.py): its
+    # transforms and hyperprior; each context step (group, pass)
+    "launch.nets": "dispatch",
+    "launch.ctx": "dispatch",
     # FrameCodec.encode_frames_finish
     "finish": "host",
     "finish.pull": "host",
@@ -60,6 +64,8 @@ CLASS = {
     "batch.upload": "host",
     "batch.k2": "dispatch",
     "batch.nets": "dispatch",
+    # ELIC: a context step's nets (group, pass), its K2 launch inside
+    "batch.ctx": "dispatch",
     # a wave's uint8 planes pulled to the host on first access
     "planes.pull": "host",
     # pipeline/video.py: a call, a GOP packed or unpacked

@@ -1,6 +1,7 @@
 """Checkpoints without flax or msgpack: read and write.
 
-A checkpoint is a directory with ``config.json`` (ModelConfig) and
+A checkpoint is a directory with ``config.json`` (ModelConfig, or
+ElicConfig where its ``arch`` is "elic") and
 ``params.msgpack``: a flax-serialized parameter tree, i.e. msgpack maps of
 strings, keys sorted as flax writes them, whose leaves are msgpack ext
 type 1 carrying the packed triple (shape, dtype name, raw bytes).
@@ -33,7 +34,11 @@ from typing import Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
-from aivc_tpu_torch.config import ModelConfig
+from aivc_tpu_torch.config import (
+    ElicConfig,
+    ModelConfig,
+    model_config_from_json,
+)
 
 _EXT_NDARRAY = 1
 
@@ -378,30 +383,33 @@ def read_params(ckpt_dir: str | Path):
     return read_msgpack((Path(ckpt_dir) / "params.msgpack").read_bytes())
 
 
-def read_tree(ckpt_dir: str | Path) -> Tuple[ModelConfig, dict]:
+def read_tree(ckpt_dir: str | Path
+              ) -> Tuple[ModelConfig | ElicConfig, dict]:
     """-> (cfg, the parameter tree as ``read_params`` gives it): a
     checkpoint on the host, for surgery that ``save_tree`` writes back."""
     ckpt_dir = Path(ckpt_dir)
-    cfg = ModelConfig.from_json((ckpt_dir / "config.json").read_text())
+    cfg = model_config_from_json((ckpt_dir / "config.json").read_text())
     return cfg, read_params(ckpt_dir)
 
 
-def model_from_params(cfg: ModelConfig, tree, device=None
+def model_from_params(cfg: ModelConfig | ElicConfig, tree, device=None
                       ) -> "torch.nn.Module":
-    """A FullNet of ``cfg`` holding the parameter tree ``tree`` (the JAX
-    package's nested arrays), on ``device`` in eval mode."""
+    """The model of ``cfg`` (a FullNet, or an Elic for an ElicConfig)
+    holding the parameter tree ``tree`` (nested arrays in the JAX
+    package's layout), on ``device`` in eval mode."""
     from aivc_tpu_torch.device import resolve_device
+    from aivc_tpu_torch.models.elic import Elic
     from aivc_tpu_torch.models.fullnet import FullNet
 
     dev = resolve_device(device)
-    model = FullNet(cfg)
+    model = Elic(cfg) if isinstance(cfg, ElicConfig) else FullNet(cfg)
     model.load_state_dict(params_from_jax(tree), strict=True)
     return model.to(dev).eval()
 
 
 def load_checkpoint(ckpt_dir: str | Path, device=None
                     ) -> Tuple[ModelConfig, "torch.nn.Module"]:
-    """-> (cfg, FullNet on ``device`` in eval mode).  ``device`` defaults
+    """-> (cfg, its model on ``device`` in eval mode).  ``device`` defaults
     to the card; pass ``"cpu"`` explicitly to run on the host."""
     from aivc_tpu_torch.device import resolve_device
 

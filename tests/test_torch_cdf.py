@@ -71,3 +71,40 @@ def test_sigma_to_bin_matches_numpy():
     np.testing.assert_array_equal(ours, jcdf.sigma_to_bin_np(s))
     np.testing.assert_array_equal(
         ours, np.asarray(jax.jit(jcdf.sigma_to_bin_jnp)(s)))
+
+
+@pytest.mark.parametrize("ac", [64, 256])
+def test_gaussian_table_quantises_each_bins_normal(ac):
+    """ELIC's Gaussian rows: each sums to PROB_SCALE, every symbol has a
+    frequency of at least 1, and every frequency but the row's most
+    probable lies within one quantum of p * (PROB_SCALE - n_sym) + 1,
+    with p the bin's probability under normal_bin_prob (the edge symbols
+    holding the tails); the most probable symbol takes the rounding
+    remainder, under n_sym quanta."""
+    from aivc_tpu_torch.ops.entropy_models import normal_bin_prob
+
+    cdf = tcdf.build_gaussian_table(ac_max=ac).astype(np.int64)
+    freq = np.diff(cdf, axis=1)
+    n_sym = 2 * ac
+    assert cdf.shape == (tcdf.NBINS, n_sym + 1)
+    assert (cdf[:, 0] == 0).all() and (cdf[:, -1] == tcdf.PROB_SCALE).all()
+    assert freq.min() >= 1
+    sym = torch.arange(-ac, ac, dtype=torch.float64)
+    sig = torch.from_numpy(tcdf.sigma_bin_centers())[:, None]
+    p = normal_bin_prob(sym[None, :], sig).numpy()
+    # Symbols -ac .. ac - 1: the tails beyond -ac - 0.5 and ac - 0.5.
+    p[:, 0] += torch.special.ndtr((-ac - 0.5) / sig)[:, 0].numpy()
+    p[:, -1] += torch.special.ndtr((-ac + 0.5) / sig)[:, 0].numpy()
+    want = p / p.sum(axis=1, keepdims=True) * (tcdf.PROB_SCALE - n_sym) + 1
+    # The row's most probable symbol (one of two equal edges for the
+    # widest bins) is where the remainder went.
+    dev = np.abs(freq - want)
+    top = dev.argmax(axis=1)
+    rows = np.arange(len(top))
+    moved = dev.max(axis=1) > 1.0
+    assert (p[rows, top] >= p.max(axis=1) * (1 - 1e-9))[moved].all()
+    rest = np.ones_like(freq, bool)
+    rest[rows, top] = False
+    assert dev[rest].max() <= 1.0
+    over = freq[rows, top] - want[rows, top]
+    assert (over >= -1.0).all() and (over < n_sym).all()

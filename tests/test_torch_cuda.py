@@ -1236,3 +1236,46 @@ def test_two_ranks_on_one_card(card, tmp_path):
     assert sorted(md5) == list(range(9))
     dec = video.decode_video(_r5_codec(card, 128, 192), rr[0]["bitstream"])
     assert smoke.recon_md5(dec, range(9)) == md5
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_elic_all_intra_on_card(card, dtype):
+    """A tiny ELIC (N 16, M 40, groups 2/2/4/8/24) on seeded weights codes
+    5 frames All-Intra in waves of 2 bit-exactly on the card: one K1
+    launch an encoded wave, eleven K2 launches (z and the ten context
+    steps) a decoded one."""
+    import json
+
+    from aivc_tpu_torch.config import CodingConfig, ElicConfig
+    from aivc_tpu_torch.models.elic import Elic
+    from aivc_tpu_torch.pipeline.codec import make_codec
+    from aivc_tpu_torch.pipeline.video import (decode_video, encode_video,
+                                               synthetic_frames)
+    from aivc_tpu_torch.utils.checkpoint import (model_from_params,
+                                                 params_to_jax)
+
+    cfg = ElicConfig(name="elic-tiny", n=16, m=40, groups=(2, 2, 4, 8, 24),
+                     ctx_hidden=(12, 8), agg_hidden=(24, 16), dtype=dtype)
+    model = Elic(cfg)
+    gen = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        for name, p in sorted(model.named_parameters()):
+            v = torch.randn(p.shape, generator=gen)
+            p.copy_(v / float(np.sqrt(p[0].numel())) if name.endswith(
+                "weight") else 0.1 * v)
+        model.g_a.conv_3.weight.mul_(6.0)
+    tree = params_to_jax(model.state_dict())["params"]
+    frames = synthetic_frames(5, 64, 96, seed=3)
+    ai = CodingConfig(coding_config="AI")
+    codec = make_codec(cfg, model_from_params(cfg, tree, card), 64, 96,
+                       device=card)
+    before = dict(kernels.LAUNCHES)
+    res = encode_video(codec, frames, ai, wave_batch=2)
+    assert kernels.LAUNCHES["rans_encode"] == before["rans_encode"] + 3
+    dec = decode_video(codec, res.bitstream)
+    assert kernels.LAUNCHES["rans_decode"] == before["rans_decode"] + 33
+    for i in range(5):
+        for c in ("y", "u", "v"):
+            assert np.array_equal(dec[i].planes[c],
+                                  res.decoded_frames[i].planes[c])
+    assert json.loads(cfg.to_json())["arch"] == "elic"
