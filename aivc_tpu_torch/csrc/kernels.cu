@@ -18,6 +18,9 @@
 //                 GDN layers of the nets (gdn_layer_tc_kernel).
 // K5 warp_vclamped replaces aivc_tpu/ops/warp_pallas.py:_warp_plane_kernel
 //                 (through warp_pallas).
+// K6 pad_stage    replaces no TPU kernel: the input of each replicate-padded
+//                 bf16 convolution of the nets, padded, cast and laid out
+//                 channels-last in one pass (ops/layers.py:pad_stage).
 //
 // Each kernel is bit-identical to its plain PyTorch version beside its
 // wrapper (coding/vrans.py, ops/warp.py, ops/gdn.py), except K4's bf16
@@ -1123,10 +1126,22 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 // whole 32-byte sectors of 8 rows.  A tile's arithmetic does
 // not depend on the block that runs it, so an image's output does not
 // depend on the batch or the grid.
+//
+// Channels-last x (kNhwc; the nets' layout between their convolutions,
+// ops/layers.py) is read into [pixel x channel] tiles, rows of 128 bf16
+// as gamma's, and its B fragments come from ldmatrix without .trans: the
+// registers hold the same values as from an NCHW tile, so each output is
+// bit-identical to the NCHW launch's.  The output is channels-last too.
+// f32 (without lowp) is stored from the fragments a value at a time: a
+// warp store covers 8 consecutive channels of 4 pixels, whole 32-byte
+// sectors.  bf16 (lowp) would fill half sectors so: each output is
+// written over its own x in the stage once every warp's products are
+// done, and the tile goes out in 16-byte rows of pixels (two barriers
+// more a tile).
 // ---------------------------------------------------------------------------
 constexpr int kLayerGammaW = 128;   // bf16 a gamma row in shared memory
 
-template <int C, bool kLowp>
+template <int C, bool kLowp, bool kNhwc>
 struct GdnLayer {
   static_assert(C % 32 == 0 && C <= kLayerGammaW, "C: 32 to 128 by 32");
   // Tiles of 128 pixels (64 a warp) in a 2-stage ring with lowp, of 64
@@ -1140,7 +1155,9 @@ struct GdnLayer {
   static constexpr int kWarpsO = C / 32;
   static constexpr int kThreads = kWarpsO * (kPix / kWarpPix) * 32;
   static constexpr int kGammaBytes = C * kLayerGammaW * 2;   // one term
-  static constexpr int kStageBytes = C * kPix * 2;
+  // [C x kPix] of NCHW x; [kPix x kLayerGammaW] of channels-last x.
+  static constexpr int kStageBytes =
+      kNhwc ? kPix * kLayerGammaW * 2 : C * kPix * 2;
   static constexpr int kStages = kLowp ? 2 : 3;   // x tiles in the ring
   static constexpr size_t kSmem = (kLowp ? 1 : 2) * (size_t)kGammaBytes +
                                   kStages * (size_t)kStageBytes;
@@ -1204,15 +1221,91 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* row, int pw, int q,
   }
 }
 
-template <int C, bool kLowp>
-__global__ void __launch_bounds__(GdnLayer<C, kLowp>::kThreads)
-    gdn_layer_tc_kernel(const __nv_bfloat16* __restrict__ x,
-                        const __nv_bfloat16* __restrict__ g_hi,
-                        const __nv_bfloat16* __restrict__ g_lo,
-                        const float* __restrict__ beta, int HW, int inverse,
-                        int vec,
-                        typename GdnLayer<C, kLowp>::Out* __restrict__ out) {
-  using L = GdnLayer<C, kLowp>;
+// Stores a quad lane's 8 f32 outputs of one channel (pixels pw + 8 ni +
+// 2 q, + 1, r[ni]) of channels-last output, channel 0 of pixel 0 at
+// col[0] and pixels C apart; pixels at or past HW are not stored.
+__device__ __forceinline__ void store_pixels(float* col, int C, int pw,
+                                             int q, const float (&r)[4][2],
+                                             int HW) {
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int p = pw + ni * 8 + 2 * q + e;
+      if (p < HW) col[(size_t)p * C] = r[ni][e];
+    }
+}
+
+// Copies a stage of channels-last bf16 outputs (rows of kLayerGammaW, as
+// the x tiles) to pixels [p0, p0 + Pix) of out, 16 bytes a thread (one
+// 16-byte store where aligned): a warp store covers 512 consecutive
+// bytes.  Pixels at or past HW are not stored.
+template <int C, int Threads, int Pix>
+__device__ __forceinline__ void store_stage_nhwc(__nv_bfloat16* oi,
+                                                 const unsigned char* stage,
+                                                 int p0, int HW, bool vec) {
+  for (int seg = threadIdx.x; seg < Pix * (C / 8); seg += Threads) {
+    const int row = seg / (C / 8);
+    const int col = (seg % (C / 8)) * 8;
+    const int p = p0 + row;
+    if (p >= HW) continue;
+    const uint4 v =
+        *reinterpret_cast<const uint4*>(stage + swz(row, col, kLayerGammaW));
+    __nv_bfloat16* dst = oi + (size_t)p * C + col;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = v;
+    } else {
+      memcpy(dst, &v, 16);
+    }
+  }
+}
+
+// Issues the copy of channels-last x's pixels [p0, p0 + Pix) (all C
+// channels) into a stage of rows of kLayerGammaW: 16-byte cp.async where
+// aligned, plain copies elsewhere, 0 past HW.
+template <int C, int Threads, int Pix>
+__device__ __forceinline__ void gdn_stage_fill_nhwc(unsigned char* stage,
+                                                    const __nv_bfloat16* xi,
+                                                    int p0, int HW,
+                                                    bool vec) {
+  for (int seg = threadIdx.x; seg < Pix * (C / 8); seg += Threads) {
+    const int row = seg / (C / 8);
+    const int col = (seg % (C / 8)) * 8;
+    const int p = p0 + row;
+    unsigned char* dst = stage + swz(row, col, kLayerGammaW);
+    if (p >= HW) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    } else if (vec) {
+      cp_async16(dst, xi + (size_t)p * C + col);
+    } else {
+      const __nv_bfloat16* src = xi + (size_t)p * C + col;
+      __nv_bfloat16* d = reinterpret_cast<__nv_bfloat16*>(dst);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) d[e] = src[e];
+    }
+  }
+}
+
+template <int C, bool kNhwc, int Threads, int Pix>
+__device__ __forceinline__ void layer_fill(unsigned char* stage,
+                                           const __nv_bfloat16* xi, int p0,
+                                           int HW, bool vec) {
+  if (kNhwc) {
+    gdn_stage_fill_nhwc<C, Threads, Pix>(stage, xi, p0, HW, vec);
+  } else {
+    gdn_stage_fill<C, Threads, Pix>(stage, xi, 0, p0, HW, vec);
+  }
+}
+
+template <int C, bool kLowp, bool kNhwc>
+__global__ void __launch_bounds__(GdnLayer<C, kLowp, kNhwc>::kThreads)
+    gdn_layer_tc_kernel(
+        const __nv_bfloat16* __restrict__ x,
+        const __nv_bfloat16* __restrict__ g_hi,
+        const __nv_bfloat16* __restrict__ g_lo,
+        const float* __restrict__ beta, int HW, int inverse, int vec,
+        typename GdnLayer<C, kLowp, kNhwc>::Out* __restrict__ out) {
+  using L = GdnLayer<C, kLowp, kNhwc>;
   extern __shared__ __align__(128) unsigned char layer_smem[];
   unsigned char* a_hi = layer_smem;
   unsigned char* a_lo = layer_smem + L::kGammaBytes;   // without lowp
@@ -1246,8 +1339,8 @@ __global__ void __launch_bounds__(GdnLayer<C, kLowp>::kThreads)
 #pragma unroll
   for (int t = 0; t < L::kStages - 1; ++t) {
     if (t < my_tiles) {
-      gdn_stage_fill<C, L::kThreads, L::kPix>(
-          stages + t * L::kStageBytes, xi, 0,
+      layer_fill<C, kNhwc, L::kThreads, L::kPix>(
+          stages + t * L::kStageBytes, xi,
           ((int)blockIdx.x + t * (int)gridDim.x) * L::kPix, HW, vec != 0);
     }
     cp_async_commit();
@@ -1275,8 +1368,8 @@ __global__ void __launch_bounds__(GdnLayer<C, kLowp>::kThreads)
     __syncthreads();     // this tile (and gamma) is in; tile it - 1 is done
     const int ahead = it + L::kStages - 1;
     if (ahead < my_tiles) {
-      gdn_stage_fill<C, L::kThreads, L::kPix>(
-          stages + (ahead % L::kStages) * L::kStageBytes, xi, 0,
+      layer_fill<C, kNhwc, L::kThreads, L::kPix>(
+          stages + (ahead % L::kStages) * L::kStageBytes, xi,
           p0 + (L::kStages - 1) * (int)gridDim.x * L::kPix, HW, vec != 0);
     }
     cp_async_commit();
@@ -1293,9 +1386,15 @@ __global__ void __launch_bounds__(GdnLayer<C, kLowp>::kThreads)
       unsigned b[L::kNi / 2][4];
 #pragma unroll
       for (int nb = 0; nb < L::kNi / 2; ++nb) {
-        ldsm_x4_t(stage_s + swz(k0 + lrow, wp * L::kWarpPix + nb * 16 + lcol,
-                                L::kPix),
+        const int pw = wp * L::kWarpPix + nb * 16;
+        if (kNhwc) {
+          // Matrix i = lane / 8: pixels + 8 (i / 2), channels + 8 (i % 2).
+          ldsm_x4(stage_s + swz(pw + (lane & 7) + (lane >> 4) * 8,
+                                k0 + ((lane >> 3) & 1) * 8, kLayerGammaW),
                   b[nb]);
+        } else {
+          ldsm_x4_t(stage_s + swz(k0 + lrow, pw + lcol, L::kPix), b[nb]);
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) b[nb][e] = square_bf16x2(b[nb][e]);
       }
@@ -1318,8 +1417,11 @@ __global__ void __launch_bounds__(GdnLayer<C, kLowp>::kThreads)
 
     // Epilogue: rows o = wo*32 + mi*16 + lane/4 (+8), pixel pairs
     // wp*kWarpPix + ni*8 + 2*(lane%4), stored straight from the fragments
-    // 32 pixels at a time.
+    // 32 pixels at a time (channels-last bf16: through the stage).
     typename L::Out* oi = out + img;
+    if constexpr (kNhwc && kLowp) {
+      __syncthreads();   // every warp's products have read this tile's x
+    }
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -1333,7 +1435,12 @@ __global__ void __launch_bounds__(GdnLayer<C, kLowp>::kThreads)
             const int ni = g4 * 4 + n4;
             const int p = wp * L::kWarpPix + ni * 8 + (lane & 3) * 2;
             __nv_bfloat162 xv;
-            memcpy(&xv, stage + swz(o, p, L::kPix), 4);
+            if (kNhwc) {
+              memcpy(&xv.x, stage + swz(p, o, kLayerGammaW), 2);
+              memcpy(&xv.y, stage + swz(p + 1, o, kLayerGammaW), 2);
+            } else {
+              memcpy(&xv, stage + swz(o, p, L::kPix), 4);
+            }
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const float s = round_bf16(acc[mi][ni][h * 2 + e]);
@@ -1345,10 +1452,30 @@ __global__ void __launch_bounds__(GdnLayer<C, kLowp>::kThreads)
               r[n4][e] = inverse ? __fmul_rn(xe, n) : __fdiv_rn(xe, n);
             }
           }
-          store_row(oi + (size_t)o * HW, p0 + wp * L::kWarpPix + g4 * 32,
-                    lane & 3, r, HW, vec != 0);
+          const int pw = wp * L::kWarpPix + g4 * 32;
+          if constexpr (kNhwc && kLowp) {
+            // Over this thread's own x, which no warp reads again.
+#pragma unroll
+            for (int n4 = 0; n4 < 4; ++n4)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                *reinterpret_cast<__nv_bfloat16*>(
+                    stage + swz(pw + n4 * 8 + (lane & 3) * 2 + e, o,
+                                kLayerGammaW)) =
+                    __float2bfloat16_rn(r[n4][e]);
+              }
+          } else if constexpr (kNhwc) {
+            store_pixels(oi + o, C, p0 + pw, lane & 3, r, HW);
+          } else {
+            store_row(oi + (size_t)o * HW, p0 + pw, lane & 3, r, HW,
+                      vec != 0);
+          }
         }
       }
+    if constexpr (kNhwc && kLowp) {
+      __syncthreads();   // the tile's outputs are in the stage
+      store_stage_nhwc<C, L::kThreads, L::kPix>(oi, stage, p0, HW, vec != 0);
+    }
   }
   cp_async_wait<0>();
 }
@@ -1455,6 +1582,173 @@ __global__ void __launch_bounds__(kVcTx * kVcTy, 4)
       float g[kVcPx][4];
       vc_gather(src + c * hw, t, g);
       vc_blend(dst + c * hw, t, g);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6: the conv stage, the input of a replicate-padded bf16 convolution of
+// the nets (ops/layers.py:pad_stage_cuda; plain version pad_stage_plain).
+//
+//   out[b, y, x, c] = bf16(in[b, c, clamp(y - p, 0, H - 1),
+//                                   clamp(x - p, 0, W - 1)])   for c < C,
+//                   = 0                                         for c >= C
+//
+// out: bf16, channels-last [B, H + 2p, W + 2p, Co], Co >= C; in: f32 or
+// bf16, NCHW (a transform's entry) or channels-last (between its
+// convolutions).  Replication and the cast commute, so out is F.pad(in,
+// mode="replicate").to(bf16) laid out channels-last, bit for bit, with
+// Co - C zero channels after it.  The nets ask for Co = C rounded up to 8
+// (the analyses' 3-, 6- and 9-channel entries; the conv's weight gets zero
+// channels to match): cuDNN runs such a bf16 NHWC conv on the tensor
+// cores, where with 6 channels it took a generic engine 2.6-3.5x as slow
+// (H100, 1080p, a wave of 8).
+//
+// Replaces no TPU kernel.  On the TPU XLA folds the nets' edge padding and
+// the cast to bf16 into the convolution's operand.  PyTorch ran them as
+// passes of their own before each bf16 convolution: the replication pad
+// in the activation's type (f32 behind every GDN layer without lowp), the
+// cast, and cuDNN's NCHW -> NHWC transpose, with the output transposed
+// back: about 18 bytes of traffic an f32 element before the conv read it.
+// K6 is the one pass left, and the nets keep their activations
+// channels-last between convolutions, so nothing is transposed back.
+//
+// What bounds it: bytes; it computes nothing.  Each input element is read
+// once (the few border rows and columns again, from L2) and each output
+// element written once: 6 bytes an f32 element, 4 a bf16 one.  Design:
+// * channels-last in (pad_stage_nhwc_kernel): a thread stores 8 channels
+//   of one output pixel in one 16-byte store, from one 16-byte (bf16) or
+//   two (f32) loads of its source pixel; consecutive threads take
+//   consecutive channels, then pixels, so every warp access is contiguous;
+//   kStageVec such vectors a thread, their loads issued before the stores.
+//   No shared memory.
+// * NCHW in (pad_stage_nchw_kernel): a block takes a tile of an output
+//   row, at most kStageTile elements of [channels x pixels]: it reads each
+//   channel's row into shared memory (as bf16, rows padded by 2 elements
+//   so that the transposed reads hit distinct banks), then writes the
+//   tile along the output's channels-last row, the zero channels with the
+//   last chunk.  Up to 256 pixels a tile where C is small (the 3 to 9
+//   channels of the analysis's 1080p input).
+// Both run one block a tile of an output row, over all rows of all
+// images: a 1080p wave of 8 launches tens of thousands of blocks of 256
+// threads, many for each of the 132 SMs.
+// ---------------------------------------------------------------------------
+constexpr int kStageThreads = 256;
+constexpr int kStageVec = 2;        // 16-byte vectors a thread (NHWC in)
+constexpr int kStageTile = 4096;    // elements of an NCHW tile
+constexpr int kStageTileRows = 128;  // most channels in one NCHW tile
+
+__device__ __forceinline__ __nv_bfloat16 to_bf16(float v) {
+  return __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 v) {
+  return v;
+}
+
+// 8 consecutive values from a 16-byte aligned src, as bf16 in one word.
+__device__ __forceinline__ uint4 load8_bf16(const float* src) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(src));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(src) + 1);
+  const __nv_bfloat162 h[4] = {
+      __floats2bfloat162_rn(a.x, a.y), __floats2bfloat162_rn(a.z, a.w),
+      __floats2bfloat162_rn(b.x, b.y), __floats2bfloat162_rn(b.z, b.w)};
+  uint4 r;
+  memcpy(&r, h, 16);
+  return r;
+}
+__device__ __forceinline__ uint4 load8_bf16(const __nv_bfloat16* src) {
+  return __ldg(reinterpret_cast<const uint4*>(src));
+}
+
+// kVec: 8 channels a step by 16-byte accesses (C % 8 == 0, both bases
+// 16-byte aligned); else a channel a step.
+// (kVec needs Co == C; else channels C .. Co - 1 are zeros.)
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kStageThreads)
+    pad_stage_nhwc_kernel(const T* __restrict__ in, int C, int H, int W,
+                          int p, int rows, int Co,
+                          __nv_bfloat16* __restrict__ out) {
+  constexpr int kStep = kVec ? 8 : 1;
+  const int Hp = H + 2 * p, Wp = W + 2 * p;
+  const int per_px = Co / kStep;
+  const int n = Wp * per_px;   // steps in an output row
+  const int i0 = blockIdx.x * (kStageThreads * kStageVec) + threadIdx.x;
+  for (int row = blockIdx.y; row < rows; row += gridDim.y) {
+    const int b = row / Hp;
+    const int y = row - b * Hp;
+    const T* src = in + ((size_t)b * H + clamp_index(y - p, H)) * W * C;
+    __nv_bfloat16* dst = out + (size_t)row * Wp * Co;
+    if constexpr (kVec) {
+      uint4 v[kStageVec];
+#pragma unroll
+      for (int u = 0; u < kStageVec; ++u) {
+        const int i = i0 + u * kStageThreads;
+        if (i < n) {
+          const int x = i / per_px;
+          v[u] = load8_bf16(src + (size_t)clamp_index(x - p, W) * C +
+                            (i - x * per_px) * 8);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kStageVec; ++u) {
+        const int i = i0 + u * kStageThreads;
+        if (i < n) *reinterpret_cast<uint4*>(dst + (size_t)i * 8) = v[u];
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < kStageVec; ++u) {
+        const int i = i0 + u * kStageThreads;
+        if (i < n) {
+          const int x = i / Co;
+          const int c = i - x * Co;
+          dst[i] = c < C ? to_bf16(src[(size_t)clamp_index(x - p, W) * C + c])
+                         : __float2bfloat16_rn(0.0f);
+        }
+      }
+    }
+  }
+}
+
+// A tile: 2^tx_shift pixels of an output row from x0, cc channels at a
+// time (cc <= kStageTileRows, cc << tx_shift <= kStageTile); the last
+// chunk also writes the zero channels C .. Co - 1.
+template <typename T>
+__global__ void __launch_bounds__(kStageThreads)
+    pad_stage_nchw_kernel(const T* __restrict__ in, int C, int H, int W,
+                          int p, int rows, int tx_shift, int cc, int Co,
+                          __nv_bfloat16* __restrict__ out) {
+  __shared__ __nv_bfloat16 tile[kStageTile + 2 * kStageTileRows];
+  const int tx = 1 << tx_shift;
+  const int ld = tx + 2;
+  const int Hp = H + 2 * p, Wp = W + 2 * p;
+  const int x0 = blockIdx.x * tx;
+  const int npx = Wp - x0 < tx ? Wp - x0 : tx;
+  const size_t plane = (size_t)H * W;
+  for (int row = blockIdx.y; row < rows; row += gridDim.y) {
+    const int b = row / Hp;
+    const int y = row - b * Hp;
+    const T* src = in + (size_t)b * C * plane +
+                   (size_t)clamp_index(y - p, H) * W;
+    __nv_bfloat16* dst = out + ((size_t)row * Wp + x0) * Co;
+    for (int c0 = 0; c0 < C; c0 += cc) {
+      const int nc = C - c0 < cc ? C - c0 : cc;
+      const int nw = c0 + nc == C ? Co - c0 : nc;   // channels written
+      for (int e = threadIdx.x; e < (nc << tx_shift); e += kStageThreads) {
+        const int c = e >> tx_shift;
+        const int px = e & (tx - 1);
+        if (px < npx) {
+          tile[c * ld + px] = to_bf16(
+              src[(size_t)(c0 + c) * plane + clamp_index(x0 + px - p, W)]);
+        }
+      }
+      __syncthreads();
+      for (int e = threadIdx.x; e < npx * nw; e += kStageThreads) {
+        const int px = e / nw;
+        const int c = e - px * nw;
+        dst[(size_t)px * Co + c0 + c] =
+            c < nc ? tile[c * ld + px] : __float2bfloat16_rn(0.0f);
+      }
+      __syncthreads();   // the tile is read before the next chunk lands
     }
   }
 }
@@ -1605,16 +1899,16 @@ cudaError_t gdn_grid(Kern kern, int threads, size_t smem, int B, int C,
   return cudaSuccess;
 }
 
-// A persistent launch of gdn_layer_tc_kernel<C, kLowp>: enough blocks to
-// fill every SM slot once over the images, at most one per tile.  The
-// slots are found at the first launch on each device and kept, since the
-// layers launch it many times a frame.
-template <int C, bool kLowp>
+// A persistent launch of gdn_layer_tc_kernel<C, kLowp, kNhwc>: enough
+// blocks to fill every SM slot once over the images, at most one per tile.
+// The slots are found at the first launch on each device and kept, since
+// the layers launch it many times a frame.
+template <int C, bool kLowp, bool kNhwc>
 cudaError_t gdn_layer_launch(const void* x, const void* g_hi,
                              const void* g_lo, const float* beta, int B,
                              int HW, int inverse, void* out,
                              cudaStream_t stream) {
-  using L = GdnLayer<C, kLowp>;
+  using L = GdnLayer<C, kLowp, kNhwc>;
   static long slots[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1624,11 +1918,12 @@ cudaError_t gdn_layer_launch(const void* x, const void* g_hi,
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess) {
-      err = set_smem(gdn_layer_tc_kernel<C, kLowp>, L::kSmem);
+      err = set_smem(gdn_layer_tc_kernel<C, kLowp, kNhwc>, L::kSmem);
     }
     if (err == cudaSuccess) {
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, gdn_layer_tc_kernel<C, kLowp>, L::kThreads, L::kSmem);
+          &per_sm, gdn_layer_tc_kernel<C, kLowp, kNhwc>, L::kThreads,
+          L::kSmem);
     }
     if (err != cudaSuccess) return err;
     slots[dev] = (long)sms * (per_sm > 0 ? per_sm : 1);
@@ -1637,9 +1932,13 @@ cudaError_t gdn_layer_launch(const void* x, const void* g_hi,
   const long per_image = (slots[dev] + B - 1) / B;
   const dim3 grid((unsigned)(per_image < n_tiles ? per_image : n_tiles),
                   (unsigned)B);
-  const int vec = HW % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+  // 16-byte copies: every row of the tiles starts 16-byte aligned (a
+  // channels-last pixel holds C * 2 bytes, a multiple of 16).
+  const int vec = (kNhwc || HW % 8 == 0) &&
+                  reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  gdn_layer_tc_kernel<C, kLowp><<<grid, L::kThreads, L::kSmem, stream>>>(
+  gdn_layer_tc_kernel<C, kLowp, kNhwc>
+      <<<grid, L::kThreads, L::kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(g_hi),
       static_cast<const __nv_bfloat16*>(g_lo), beta, HW, inverse, vec,
@@ -1859,30 +2158,86 @@ int aivc_gdn_fused_bf16(const void* x, const void* g_hi, const void* g_lo,
   return (int)cudaGetLastError();
 }
 
-// K4 in a GDN layer, on the tensor cores.  x bf16 [B, C, HW], C 96 or
-// 128; g_hi, g_lo bf16 [C, C] ([o, j]; g_lo is not read with lowp); beta
-// f32 [C] (bf16 values with lowp).  Out: bf16 [B, C, HW] with lowp, else
-// f32.
+// K4 in a GDN layer, on the tensor cores.  x bf16 [B, C, HW] (nhwc 0) or
+// channels-last [B, HW, C] (nhwc 1), C 96 or 128; g_hi, g_lo bf16 [C, C]
+// ([o, j]; g_lo is not read with lowp); beta f32 [C] (bf16 values with
+// lowp).  Out, in x's layout: bf16 with lowp, else f32.
 int aivc_gdn_layer_bf16(const void* x, const void* g_hi, const void* g_lo,
                         const float* beta, int B, int C, int HW,
-                        int inverse, int lowp, void* out,
+                        int inverse, int lowp, int nhwc, void* out,
                         cudaStream_t stream) {
   if (C != 96 && C != 128) return (int)cudaErrorInvalidValue;
   if (B == 0 || HW == 0) return (int)cudaGetLastError();
   if (B > 65535) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if (C == 96) {
-    err = lowp ? gdn_layer_launch<96, true>(x, g_hi, g_lo, beta, B, HW,
-                                            inverse, out, stream)
-               : gdn_layer_launch<96, false>(x, g_hi, g_lo, beta, B, HW,
-                                             inverse, out, stream);
-  } else {
-    err = lowp ? gdn_layer_launch<128, true>(x, g_hi, g_lo, beta, B, HW,
-                                             inverse, out, stream)
-               : gdn_layer_launch<128, false>(x, g_hi, g_lo, beta, B, HW,
-                                              inverse, out, stream);
-  }
+#define AIVC_LAYER(CC, LOWP, NHWC)                                          \
+  gdn_layer_launch<CC, LOWP, NHWC>(x, g_hi, g_lo, beta, B, HW, inverse,    \
+                                   out, stream)
+#define AIVC_LAYER_C(CC, NHWC) \
+  (lowp ? AIVC_LAYER(CC, true, NHWC) : AIVC_LAYER(CC, false, NHWC))
+  const cudaError_t err =
+      C == 96 ? (nhwc ? AIVC_LAYER_C(96, true) : AIVC_LAYER_C(96, false))
+              : (nhwc ? AIVC_LAYER_C(128, true) : AIVC_LAYER_C(128, false));
+#undef AIVC_LAYER_C
+#undef AIVC_LAYER
   return (int)err;
+}
+
+// K6.  in f32 (in_bf16 0) or bf16 (in_bf16 1) [B, C, H, W], NCHW-
+// contiguous (nhwc 0) or channels-last (nhwc 1); pad >= 0; Co >= C.  Out:
+// bf16 channels-last [B, H + 2 pad, W + 2 pad, Co], channels C .. Co - 1
+// zero.
+int aivc_pad_stage(const void* in, int in_bf16, int nhwc, int B, int C,
+                   int H, int W, int pad, int Co, void* out,
+                   cudaStream_t stream) {
+  if (B < 0 || C < 0 || H < 0 || W < 0 || pad < 0 || Co < C) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (B == 0 || C == 0 || H == 0 || W == 0) return (int)cudaGetLastError();
+  const long Hp = H + 2L * pad, Wp = W + 2L * pad;
+  const long rows = (long)B * Hp;
+  if (rows > 0x7FFFFFFFL || Wp * Co > 0x7FFFFFFFL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const unsigned gy = (unsigned)(rows < 65535 ? rows : 65535);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  if (nhwc) {
+    const bool vec = C % 8 == 0 && Co == C &&
+                     ((reinterpret_cast<uintptr_t>(in) |
+                       reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+    const long n = Wp * (vec ? Co / 8 : Co);
+    const dim3 grid((unsigned)((n + kStageThreads * kStageVec - 1) /
+                               (kStageThreads * kStageVec)), gy);
+#define AIVC_STAGE(T, V)                                                    \
+  pad_stage_nhwc_kernel<T, V><<<grid, kStageThreads, 0, stream>>>(          \
+      static_cast<const T*>(in), C, H, W, pad, (int)rows, Co, o)
+    if (in_bf16) {
+      if (vec) AIVC_STAGE(__nv_bfloat16, true);
+      else AIVC_STAGE(__nv_bfloat16, false);
+    } else {
+      if (vec) AIVC_STAGE(float, true);
+      else AIVC_STAGE(float, false);
+    }
+#undef AIVC_STAGE
+  } else {
+    // The widest tile of at most kStageTile elements that holds every
+    // channel, 32 to 256 pixels; past 128 channels, chunks of 128.
+    int tx_shift = 5;
+    while (tx_shift < 8 && ((long)C << (tx_shift + 1)) <= kStageTile) {
+      ++tx_shift;
+    }
+    const int cc = C < (kStageTile >> tx_shift) ? C : (kStageTile >> tx_shift);
+    const dim3 grid((unsigned)((Wp + (1 << tx_shift) - 1) >> tx_shift), gy);
+    if (in_bf16) {
+      pad_stage_nchw_kernel<__nv_bfloat16><<<grid, kStageThreads, 0, stream>>>(
+          static_cast<const __nv_bfloat16*>(in), C, H, W, pad, (int)rows,
+          tx_shift, cc, Co, o);
+    } else {
+      pad_stage_nchw_kernel<float><<<grid, kStageThreads, 0, stream>>>(
+          static_cast<const float*>(in), C, H, W, pad, (int)rows, tx_shift,
+          cc, Co, o);
+    }
+  }
+  return (int)cudaGetLastError();
 }
 
 // K5.  x f32 [B, C, H, W]; flow f32 [B, 2, H, W] (u, v planes); vmax the

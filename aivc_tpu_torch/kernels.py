@@ -15,6 +15,9 @@ points) counts in ``LAUNCHES["gdn_layer"]``, apart from the exported
 ``gdn_fused``; a GDN layer whose input lies on the card but does not take
 it (ops/gdn.py:GDN) adds one to ``FALLBACKS["gdn_layer"]``, so that the
 layers' hit share is LAUNCHES / (LAUNCHES + FALLBACKS) of "gdn_layer".
+The conv stage K6 (ops/layers.py:pad_stage_cuda) counts the same way:
+``LAUNCHES["conv_stage"]``, and a ConvBlock or UpBlock call on the card
+that pads its input the other way, ``FALLBACKS["conv_stage"]``.
 """
 
 from __future__ import annotations
@@ -43,9 +46,10 @@ NVCC_TIMEOUT_S = 600
 MAX_SMEM = 232448
 
 LAUNCHES = {"rans_encode": 0, "rans_decode": 0, "warp_packed": 0,
-            "gdn_fused": 0, "warp_vclamped": 0, "gdn_layer": 0}
+            "gdn_fused": 0, "warp_vclamped": 0, "gdn_layer": 0,
+            "conv_stage": 0}
 STEPS = {"rans_encode": 0, "rans_decode": 0}
-FALLBACKS = {"gdn_layer": 0}
+FALLBACKS = {"gdn_layer": 0, "conv_stage": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: dict = {}
@@ -134,8 +138,11 @@ def lib() -> ctypes.CDLL:
                                                _I, _P, _P]
         handle.aivc_gdn_fused_bf16.restype = _I
         handle.aivc_gdn_layer_bf16.argtypes = [_P, _P, _P, _P, _I, _I, _I,
-                                               _I, _I, _P, _P]
+                                               _I, _I, _I, _P, _P]
         handle.aivc_gdn_layer_bf16.restype = _I
+        handle.aivc_pad_stage.argtypes = [_P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                          _P, _P]
+        handle.aivc_pad_stage.restype = _I
         handle.aivc_warp_vclamped.argtypes = [_P, _P, _I, _I, _I, _I, _I,
                                               _P, _P]
         handle.aivc_warp_vclamped.restype = _I
@@ -152,9 +159,22 @@ def check(name: str, rc: int) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
+def layout(t: torch.Tensor) -> torch.memory_format:
+    """channels_last where a 4-D ``t`` is laid out so and is not
+    NCHW-contiguous (where it is both, as with one channel or one pixel,
+    the two layouts are the same bytes), else contiguous_format."""
+    if not t.is_contiguous() and t.is_contiguous(
+            memory_format=torch.channels_last):
+        return torch.channels_last
+    return torch.contiguous_format
+
+
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,
-            shape: tuple) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of dtype/shape."""
+            shape: tuple,
+            memory_format: torch.memory_format = torch.contiguous_format
+            ) -> None:
+    """Raise unless ``t`` is a CUDA tensor of dtype/shape, contiguous in
+    ``memory_format``."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be on the card, got {t.device}")
     if t.dtype != dtype:
@@ -162,5 +182,5 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    if not t.is_contiguous(memory_format=memory_format):
+        raise ValueError(f"{name} must be contiguous ({memory_format})")

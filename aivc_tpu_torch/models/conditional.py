@@ -45,10 +45,10 @@ from aivc_tpu_torch.ops.entropy_models import (
 )
 from aivc_tpu_torch.ops.gain import GainMatrix
 from aivc_tpu_torch.ops.layers import (
-    DTYPES,
     ConvBlock,
     SimplifiedAttention,
     UpBlock,
+    nchw_f32,
     split_rows,
 )
 from aivc_tpu_torch.ops.quantizer import quantize
@@ -68,7 +68,6 @@ class AnalysisTransform(nn.Module):
                  gdn_clamp: float = 0.0, gdn_lowp: bool = False):
         super().__init__()
         gdn = _gdn_name("gdn", gdn_clamp, gdn_lowp)
-        self.dt = DTYPES[dtype]
         self.ConvBlock_0 = ConvBlock(in_c, nb_ft, k_size, 2, gdn, dtype)
         self.ConvBlock_1 = ConvBlock(nb_ft, nb_ft, k_size, 2, gdn, dtype)
         self.use_attention = use_attention
@@ -79,11 +78,11 @@ class AnalysisTransform(nn.Module):
         self.ConvBlock_3 = ConvBlock(nb_ft, out_ft, k_size, 2, "no", dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.ConvBlock_1(self.ConvBlock_0(x.to(self.dt)))
+        x = self.ConvBlock_1(self.ConvBlock_0(self.ConvBlock_0.entry(x)))
         if self.use_attention:
             x = self.SimplifiedAttention_0(x)
         x = self.ConvBlock_3(self.ConvBlock_2(x))
-        return x.float()
+        return nchw_f32(x)
 
 
 class SynthesisTransform(nn.Module):
@@ -94,7 +93,6 @@ class SynthesisTransform(nn.Module):
                  gdn_clamp: float = 0.0, gdn_lowp: bool = False):
         super().__init__()
         igdn = _gdn_name("gdn_inverse", gdn_clamp, gdn_lowp)
-        self.dt = DTYPES[dtype]
         self.UpBlock_0 = UpBlock(in_c, nb_ft, k_size, igdn, dtype)
         self.use_attention = use_attention
         if use_attention:
@@ -105,39 +103,38 @@ class SynthesisTransform(nn.Module):
         self.UpBlock_3 = UpBlock(nb_ft, out_ft, k_size, "no", dtype)
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
-        y = self.UpBlock_0(y.to(self.dt))
+        y = self.UpBlock_0(self.UpBlock_0.entry(y))
         if self.use_attention:
             y = self.SimplifiedAttention_0(y)
         y = self.UpBlock_3(self.UpBlock_2(self.UpBlock_1(y)))
-        return y.float()
+        return nchw_f32(y)
 
 
 class HyperAnalysis(nn.Module):
     def __init__(self, in_c: int, nb_ft: int, out_ft: int,
                  dtype: str = "float32"):
         super().__init__()
-        self.dt = DTYPES[dtype]
         self.ConvBlock_0 = ConvBlock(in_c, nb_ft, 3, 1, "leaky_relu", dtype)
         self.ConvBlock_1 = ConvBlock(nb_ft, nb_ft, 5, 2, "leaky_relu", dtype)
         self.ConvBlock_2 = ConvBlock(nb_ft, out_ft, 5, 2, "no", dtype)
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
-        y = ties.abs_(y).to(self.dt)
-        return self.ConvBlock_2(self.ConvBlock_1(self.ConvBlock_0(y))).float()
+        y = self.ConvBlock_0.entry(ties.abs_(y))
+        return nchw_f32(self.ConvBlock_2(self.ConvBlock_1(
+            self.ConvBlock_0(y))))
 
 
 class HyperSynthesis(nn.Module):
     def __init__(self, in_c: int, nb_ft: int, out_ft: int,
                  dtype: str = "float32"):
         super().__init__()
-        self.dt = DTYPES[dtype]
         self.UpBlock_0 = UpBlock(in_c, nb_ft, 5, "leaky_relu", dtype)
         self.UpBlock_1 = UpBlock(nb_ft, nb_ft, 5, "leaky_relu", dtype)
         self.ConvBlock_0 = ConvBlock(nb_ft, out_ft, 3, 1, "no", dtype)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        z = self.UpBlock_1(self.UpBlock_0(z.to(self.dt)))
-        return self.ConvBlock_0(z).float()
+        z = self.UpBlock_1(self.UpBlock_0(self.UpBlock_0.entry(z)))
+        return nchw_f32(self.ConvBlock_0(z))
 
 
 class ConditionalNet(nn.Module):

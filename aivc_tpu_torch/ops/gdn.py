@@ -19,7 +19,10 @@ input of 96 or 128 channels that autograd needs no graph for, in a layer
 without a clamp, goes to K4 at gdn_apply's own rounding points
 (``gdn_layer_cuda``: csrc/kernels.cu:gdn_layer_tc_kernel; its plain
 version ``gdn_layer_plain``), with or without the low-precision rule:
-the same function, summed in the tensor cores' order.  Every other input
+the same function, summed in the tensor cores' order.  It takes x
+NCHW-contiguous or channels-last (the bf16 nets' layout between their
+convolutions, ops/layers.py) and returns its output in x's layout, each
+value the same in both.  Every other input
 (the host, training, float32 nets, clamped layers) takes gdn_apply, and
 on the card counts in ``kernels.FALLBACKS["gdn_layer"]``; the kernel's
 launches count in ``kernels.LAUNCHES["gdn_layer"]``, gdn_fused's in
@@ -227,25 +230,29 @@ def gdn_layer_cuda(x: torch.Tensor, beta: torch.Tensor, hi: torch.Tensor,
                    lo: torch.Tensor, inverse: bool,
                    lowp: bool) -> torch.Tensor:
     """Kernel K4 at gdn_apply's rounding points, the contract of
-    ``gdn_layer_plain``, on a contiguous bf16 x of C in LAYER_CHANNELS
-    and ``layer_params``.  Out: bf16 with ``lowp``, else f32, gdn_apply's
-    types.  Forward only, as gdn_fused_cuda: an x that requires grad is
-    refused (the layer hands it a detached x, under no graph)."""
+    ``gdn_layer_plain``, on a bf16 x of C in LAYER_CHANNELS, contiguous
+    or channels-last, and ``layer_params``.  Out, in x's layout: bf16
+    with ``lowp``, else f32, gdn_apply's types.  Forward only, as
+    gdn_fused_cuda: an x that requires grad is refused (the layer hands
+    it a detached x, under no graph)."""
     B, C, H, W = x.shape
     if x.requires_grad:
         raise ValueError("gdn_layer_cuda is forward-only; x must not "
                          "require grad")
-    kernels.require(x, "x", torch.bfloat16, (B, C, H, W))
+    fmt = kernels.layout(x)
+    kernels.require(x, "x", torch.bfloat16, (B, C, H, W), fmt)
     if C not in LAYER_CHANNELS:
         raise ValueError(f"C={C} must be one of {LAYER_CHANNELS}")
     kernels.require(beta, "beta", torch.float32, (C,))
     kernels.require(hi, "gamma", torch.bfloat16, (C, C))
     kernels.require(lo, "gamma", torch.bfloat16, (C, C))
     out = torch.empty(x.shape, device=x.device,
-                      dtype=torch.bfloat16 if lowp else torch.float32)
+                      dtype=torch.bfloat16 if lowp else torch.float32,
+                      memory_format=fmt)
     rc = kernels.lib().aivc_gdn_layer_bf16(
         x.data_ptr(), hi.data_ptr(), lo.data_ptr(), beta.data_ptr(), B, C,
-        H * W, int(inverse), int(lowp), out.data_ptr(), kernels.stream_ptr())
+        H * W, int(inverse), int(lowp), int(fmt == torch.channels_last),
+        out.data_ptr(), kernels.stream_ptr())
     kernels.check("gdn_layer", rc)
     kernels.LAUNCHES["gdn_layer"] += 1
     return out
@@ -301,7 +308,9 @@ class GDN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.takes_kernel(x):
-            return gdn_layer_cuda(x.detach().contiguous(),
+            x = x.detach()
+            return gdn_layer_cuda(x.contiguous(
+                memory_format=kernels.layout(x)),
                                   *self.kernel_params(),
                                   self.inverse, self.lowp)
         if _on_card(x):

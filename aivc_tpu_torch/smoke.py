@@ -31,7 +31,10 @@ take their plain versions).  On the card:
            GDN_PLAIN_ULPS), each timed beside its bound (K5 also with L2
            cold); then the GDN layers' kernel (K4 at gdn_apply's
            rounding points) at the codec's largest shapes, a wave of 8,
-           every image against its plain version (``check_gdn_layer``)
+           every image against its plain version, NCHW and
+           channels-last (``check_gdn_layer``); then the conv stage K6 at
+           the codec's shapes, bit for bit against its plain version
+           (``check_conv_stage``)
   (the CLI and training phases: ``cli_runs``, ``train_small``,
   ``train_recipe``)
   golden   the golden suite's pins (eval/golden.py) within the card's
@@ -89,6 +92,7 @@ from aivc_tpu_torch.config import FRAME_B, FRAME_P, CodingConfig
 from aivc_tpu_torch.gop import generate_gop_struct
 from aivc_tpu_torch.io.yuv import YuvReader, YuvWriter, parse_geometry
 from aivc_tpu_torch.ops import gdn as gdn_ops
+from aivc_tpu_torch.ops import layers as layer_ops
 from aivc_tpu_torch.ops import warp as warp_ops
 from aivc_tpu_torch.parallel.launch import run_ranks
 from aivc_tpu_torch.pipeline import video as video_mod
@@ -186,6 +190,8 @@ KERNEL_SOURCES = {
                   "aivc_tpu/ops/gdn.py:57"),
     "warp_vclamped": ("aivc_tpu_torch/csrc/kernels.cu",
                       "aivc_tpu/ops/warp_pallas.py:113"),
+    # K6, the input of each replicate-padded bf16 conv of the nets
+    "conv_stage": ("aivc_tpu_torch/csrc/kernels.cu", "none"),
 }
 FORWARD_GOP = "1_GOP_8"
 
@@ -659,7 +665,9 @@ def warp_calls(gop_name: str) -> int:
 
 class GdnWatch:
     """Forward pre-hooks on a model's GDN layers that capture the first
-    input of each layer named in ``capture``, with the layer."""
+    input of each layer named in ``capture``, with the layer: an NCHW
+    copy, the exported gdn_fused's layout (the bf16 nets hand their GDN
+    layers channels-last tensors)."""
 
     def __init__(self, model: torch.nn.Module, capture=()):
         self.inputs: Dict[str, tuple] = {}
@@ -670,7 +678,8 @@ class GdnWatch:
     def _hook(self, name, mod):
         def hook(_, args):
             if name not in self.inputs:
-                self.inputs[name] = (args[0].detach().clone(), mod)
+                self.inputs[name] = (args[0].detach().clone(
+                    memory_format=torch.contiguous_format), mod)
         return hook
 
     def close(self) -> None:
@@ -874,7 +883,8 @@ def check_gdn_layer(layers: Dict[str, torch.nn.Module], device: torch.device,
     image by image (within GDN_LAYER_RTOL and GDN_LAYER_DIFFERING_SHARE),
     timed against the larger of its bytes (x read once, the output
     written once) and its tensor-core operations at the card's rates, and
-    against gdn_apply on the same input.  Returns the kernels line's
+    against gdn_apply on the same input; then on the same x channels-last
+    (on the card the same bits as NCHW), timed too.  Returns the kernels line's
     record of the codec's own route (the last case, lowp), every case's
     record under "cases", and the launches of the checks.  Under no_grad
     and not inference mode, so that the layer's parameters keep their
@@ -895,7 +905,6 @@ def check_gdn_layer(layers: Dict[str, torch.nn.Module], device: torch.device,
             launched = kernels.LAUNCHES["gdn_layer"]
             if launched != (device.type == "cuda"):
                 raise AssertionError(f"the layer launched {launched} times")
-            launches += launched
             params = gdn_ops.layer_params(
                 *gdn_ops.reparam(layer.beta, layer.gamma), lowp)
             worst, rel, n_diff = 0.0, 0.0, 0.0
@@ -915,7 +924,16 @@ def check_gdn_layer(layers: Dict[str, torch.nn.Module], device: torch.device,
             if not share <= GDN_LAYER_DIFFERING_SHARE:
                 raise AssertionError(f"GDN layer {name} {shape} lowp {lowp}:"
                                      f" {share} of the outputs differ")
+            # The same values channels-last, the nets' layout between
+            # their convolutions: on the card the same bits.
+            x_cl = x.contiguous(memory_format=torch.channels_last)
+            got_cl = layer(x_cl)
+            launches += kernels.LAUNCHES["gdn_layer"]
+            if device.type == "cuda" and not torch.equal(got_cl, got):
+                raise AssertionError(f"GDN layer {name} {shape} lowp {lowp}"
+                                     ": channels-last x differs from NCHW")
             ms = time_ms(lambda: layer(x), device, reps)
+            ms_cl = time_ms(lambda: layer(x_cl), device, reps)
             plain_ms = B * time_ms(lambda: gdn_ops.gdn_layer_plain(
                 x[:1], *params, layer.inverse, lowp), device, 1, warmup=0)
             lib_ms = time_ms(lambda: gdn_ops.gdn_apply(
@@ -930,11 +948,67 @@ def check_gdn_layer(layers: Dict[str, torch.nn.Module], device: torch.device,
                           + 6 * n, library_ms=lib_ms,
                           ops_per_s=BF16_TC_OPS_PER_S)
             rec.update(layer=name, shape=shape, lowp=lowp,
-                       max_rel_err=rel, differing_share=share)
+                       max_rel_err=rel, differing_share=share,
+                       ms_channels_last=ms_cl)
             recs.append(rec)
     rec = dict(next(r for r in reversed(recs) if r["lowp"]), cases=recs,
                launches=launches)
     return rec
+
+
+# K6's cases (shape, type, layout, pad, channels out): CodecNet's g_a
+# input behind its first GDN (f32 channels-last, pad 2) at 1080p in a wave
+# of 8, the one the kernels line records; the analysis's 6-channel NCHW
+# entry, staged as 8 channels; a bf16 channels-last input with pad 1 (an
+# attention ResBlock's conv).
+CONV_STAGE_CASES = (
+    ((8, 128, 544, 960), torch.float32, "channels_last", 2, None),
+    ((8, 6, 1088, 1920), torch.float32, "nchw", 2, 8),
+    ((8, 128, 272, 480), torch.bfloat16, "channels_last", 1, None))
+
+
+@torch.no_grad()
+def check_conv_stage(device: torch.device, reps: int = 10,
+                     cases=CONV_STAGE_CASES) -> Dict:
+    """The conv stage K6 (ops/layers.py:pad_stage: the kernel on the card,
+    its plain version on the host) at each case's shape: bit for bit
+    against pad_stage_plain, timed against its bytes (x read once, the
+    padded bf16 output written once) at the card's rate, against the
+    plain version on the same x, and against the library passes the
+    nets ran before it on the same values laid out NCHW (replication pad,
+    cast, channels-last copy: cuDNN's transpose).  Returns the first
+    case's record, every case's under "cases", and the launches."""
+    g = torch.Generator(device=device).manual_seed(22)
+    recs, launches = [], 0
+    for shape, dtype, fmt, pad, channels in cases:
+        x = (torch.randn(shape, generator=g, device=device) * 3).to(dtype)
+        x_nchw = x
+        if fmt == "channels_last":
+            x = x.contiguous(memory_format=torch.channels_last)
+        before = kernels.LAUNCHES["conv_stage"]
+        got = layer_ops.pad_stage(x, pad, channels)
+        launches += kernels.LAUNCHES["conv_stage"] - before
+        ref = layer_ops.pad_stage_plain(x, pad, channels)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"conv stage {shape} {dtype} {fmt} pad "
+                                 f"{pad}: differs from its plain version")
+        ms = time_ms(lambda: layer_ops.pad_stage(x, pad, channels), device,
+                     reps)
+        plain_ms = time_ms(
+            lambda: layer_ops.pad_stage_plain(x, pad, channels), device,
+            reps)
+        lib_ms = time_ms(lambda: F.pad(
+            x_nchw, (pad, pad, pad, pad), mode="replicate").to(
+                torch.bfloat16).contiguous(
+                    memory_format=torch.channels_last), device, reps)
+        rec = _record("conv_stage", 0.0, ms, plain_ms,
+                      x.numel() * x.element_size()
+                      + got.numel() * got.element_size(), 0,
+                      library_ms=lib_ms)
+        rec.update(shape=shape, dtype=str(dtype).split(".")[-1], fmt=fmt,
+                   pad=pad, channels=got.shape[1])
+        recs.append(rec)
+    return dict(recs[0], cases=recs, launches=launches)
 
 
 @torch.inference_mode()

@@ -22,7 +22,11 @@ port's entry points with models_ckpt/bf16-r5:
   layers' kernel (gdn_layer_cuda, K4 at gdn_apply's rounding points) with
   the checkpoint's parameters at the codec's largest 1080p shapes, a wave
   of 8, with and without lowp, every image against its plain version,
-  timed against its bound and gdn_apply.
+  timed against its bound and gdn_apply, and on the same input
+  channels-last (the bf16 nets' layout), bit for bit as NCHW; then the
+  conv stage K6 (ops/layers.py:pad_stage_cuda) at the codec's shapes, bit
+  for bit against its plain version, timed against its byte bound, its
+  plain version and the library passes it replaced.
 
 The main phase also prints the steps K1 walked in the clip's encode and
 K2 in its decode, with their estimated shares of the encode and decode
@@ -201,6 +205,7 @@ def main() -> int:
     res = smoke.code_clip(codec, frames, wave_batch=WAVE_BATCH, gop=GOP)
     main_launches = dict(kernels.LAUNCHES)
     main_fallbacks = kernels.FALLBACKS["gdn_layer"]
+    stage_fallbacks = kernels.FALLBACKS["conv_stage"]
     ph.say(f"main: {N_FRAMES} frames {W}x{H} RA GOP{GOP}: {res['bytes']} B, "
            f"{res['bpp']:.5f} bpp, PSNR {res['psnr']:.4f} dB, MS-SSIM "
            f"{res['ms_ssim']:.6f}, encode {res['encode_fps']:.3f} fps, "
@@ -212,6 +217,13 @@ def main() -> int:
     ph.say(f"main: the GDN layers took their kernel in "
            f"{main_launches['gdn_layer']} of {gdn_calls} calls (hit share "
            f"{main_launches['gdn_layer'] / max(gdn_calls, 1):.4f})")
+    stage_calls = main_launches["conv_stage"] + stage_fallbacks
+    ph.say(f"main: the conv blocks took the conv stage in "
+           f"{main_launches['conv_stage']} of {stage_calls} calls (hit share "
+           f"{main_launches['conv_stage'] / max(stage_calls, 1):.4f})")
+    if stage_fallbacks:
+        raise AssertionError(f"{stage_fallbacks} conv block calls of the "
+                             f"bf16 main path missed the conv stage")
     k1_us = records[0]["us_per_step"]
     ph.say(f"main: rans_encode walked {res['encode_steps']} steps in the "
            f"encode; at {k1_us:.4f} us per step that is "
@@ -225,7 +237,8 @@ def main() -> int:
            f"{res['decode_steps'] * k2_us / 1e6 / res['decode_s']:.4f} of "
            f"the {res['decode_s'] * 1e3:.1f} ms decode")
     missing = [k for k in ("rans_encode", "rans_decode", "warp_packed",
-                           "gdn_layer") if main_launches[k] == 0]
+                           "gdn_layer", "conv_stage")
+               if main_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -359,12 +372,25 @@ def main() -> int:
                f" {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound "
                f"{r['bound_ms']:.4f} ms by {r['bound_by']}, "
                f"{100 * r['bound_ms'] / r['ms']:.1f}%; gdn_apply "
-               f"{r['library_ms']:.4f} ms)")
-    if rec_layer["launches"] != 2 * len(smoke.GDN_LAYER_CASES):
+               f"{r['library_ms']:.4f} ms); channels-last: the same bits, "
+               f"{r['ms_channels_last']:.4f} ms")
+    if rec_layer["launches"] != 4 * len(smoke.GDN_LAYER_CASES):
         raise AssertionError(f"gdn_layer launched {rec_layer['launches']} "
-                             f"times in {2 * len(smoke.GDN_LAYER_CASES)} "
+                             f"times in {4 * len(smoke.GDN_LAYER_CASES)} "
                              f"checks")
-    records += [rec4, rec5, rec_layer]
+    rec_stage = smoke.check_conv_stage(dev)
+    for r in rec_stage["cases"]:
+        ph.say(f"kernel conv_stage {list(r['shape'])} {r['dtype']} "
+               f"{r['fmt']} pad {r['pad']} -> {r['channels']} channels: "
+               f"bit-identical to its plain "
+               f"version; {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+               f"{r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f}%; "
+               f"plain {r['plain_ms']:.4f} ms; library (pad, cast, "
+               f"channels-last copy) {r['library_ms']:.4f} ms)")
+    if rec_stage["launches"] != len(smoke.CONV_STAGE_CASES):
+        raise AssertionError(f"conv_stage launched {rec_stage['launches']} "
+                             f"times in {len(smoke.CONV_STAGE_CASES)} checks")
+    records += [rec4, rec5, rec_layer, rec_stage]
 
     # -- training path ----------------------------------------------------
     # No kernel lies on it: the training forward takes the plain float
@@ -608,6 +634,7 @@ def main() -> int:
     launches["warp_vclamped"] = fwd_launches["warp_vclamped"]
     launches["gdn_fused"] = rec4["launches"]
     launches["gdn_layer"] = main_launches["gdn_layer"]
+    launches["conv_stage"] = main_launches["conv_stage"]
     # K3 on a row window: the spatial mesh codec's launches, both ranks.
     launches["warp_packed_band"] = sum(la["warp_packed"]
                                        for la in sp["launches"])

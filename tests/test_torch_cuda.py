@@ -1,6 +1,7 @@
-"""Kernels K1-K5 on the card against their plain versions, the GDN
-layers' route to K4, the codec's closed loop and the RD forward's launches
-on the card.  Imports no JAX, so it runs on the card's machine:
+"""Kernels K1-K6 on the card against their plain versions, the GDN
+layers' route to K4, the bf16 nets' route to K6, the codec's closed loop
+and the RD forward's launches on the card.  Imports no JAX, so it runs on
+the card's machine:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
@@ -17,6 +18,7 @@ from aivc_tpu_torch import kernels
 from aivc_tpu_torch.coding import vrans
 from aivc_tpu_torch.coding.cdf import build_laplace_table
 from aivc_tpu_torch.ops import gdn as tg
+from aivc_tpu_torch.ops import layers as tl
 from aivc_tpu_torch.ops import warp as tw
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -1279,3 +1281,140 @@ def test_elic_all_intra_on_card(card, dtype):
             assert np.array_equal(dec[i].planes[c],
                                   res.decoded_frames[i].planes[c])
     assert json.loads(cfg.to_json())["arch"] == "elic"
+
+
+# K6's cases: (shape, dtype, layout, pad, channels out).  The codec's
+# largest: CodecNet's g_a input behind its first GDN (f32, channels-last,
+# pad 2) at 1080p in a wave of 8; the analyses' 1088 x 1920 NCHW entries
+# (CodecNet 3 and 6 channels, MOFNet 6 and 9), zero channels up to a
+# multiple of 8 as the nets stage them; a bf16 channels-last input with pad
+# 1 (an attention ResBlock's second conv); then ragged widths, C % 8 != 0
+# (the channel-at-a-time path, with and without zero channels), more than
+# 128 channels NCHW (chunks, zero channels after the last), one row and
+# one column.
+STAGE_CASES = [
+    ((8, 128, 544, 960), torch.float32, "cl", 2, None),
+    ((8, 3, 1088, 1920), torch.float32, "nchw", 2, 8),
+    ((8, 6, 1088, 1920), torch.float32, "nchw", 2, 8),
+    ((8, 9, 1088, 1920), torch.float32, "nchw", 2, 16),
+    ((8, 128, 272, 480), torch.bfloat16, "cl", 1, None),
+    ((3, 96, 17, 197), torch.bfloat16, "cl", 2, None),
+    ((2, 96, 13, 131), torch.float32, "nchw", 1, None),
+    ((2, 12, 9, 33), torch.float32, "cl", 2, None),
+    ((2, 12, 9, 33), torch.bfloat16, "cl", 1, 16),
+    ((2, 3, 31, 1001), torch.bfloat16, "nchw", 2, None),
+    ((1, 200, 6, 40), torch.float32, "nchw", 1, 208),
+    ((2, 64, 1, 1), torch.float32, "cl", 2, None),
+    ((1, 16, 5, 7), torch.bfloat16, "nchw", 0, None),
+]
+
+
+@pytest.mark.parametrize("shape, dtype, fmt, pad, channels", STAGE_CASES)
+def test_conv_stage_bit_identical(card, shape, dtype, fmt, pad, channels):
+    g = torch.Generator(device=card).manual_seed(sum(shape) + pad)
+    x = (torch.randn(shape, generator=g, device=card) * 3).to(dtype)
+    if fmt == "cl":
+        x = x.contiguous(memory_format=torch.channels_last)
+    before = kernels.LAUNCHES["conv_stage"]
+    got = tl.pad_stage(x, pad, channels)
+    assert kernels.LAUNCHES["conv_stage"] == before + 1
+    want = tl.pad_stage_plain(x, pad, channels)
+    B, C, H, W = shape
+    assert got.shape == (B, channels or C, H + 2 * pad, W + 2 * pad)
+    assert got.dtype == torch.bfloat16
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+
+
+def test_conv_stage_unaligned_base(card):
+    """A channels-last input that starts 2 elements into its storage
+    takes the channel-at-a-time path, bit for bit."""
+    shape = (2, 32, 11, 23)
+    big = torch.randn(2 + int(np.prod(shape)), device=card)
+    x = big[2:].view(2, 11, 23, 32).permute(0, 3, 1, 2)
+    assert kernels.layout(x) == torch.channels_last
+    assert torch.equal(tl.pad_stage(x, 2), tl.pad_stage_plain(x, 2))
+
+
+@pytest.mark.parametrize("c", tg.LAYER_CHANNELS)
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("lowp", [False, True])
+def test_gdn_layer_channels_last_bit_identical(card, c, inverse, lowp):
+    """K4 in a GDN layer on a channels-last x: each output equals the
+    NCHW launch's on the same values, bit for bit, in x's layout (a
+    ragged 37 x 53 image: the last tile runs past the pixels)."""
+    g = torch.Generator().manual_seed(c + 2 * inverse + lowp)
+    beta = torch.sqrt(torch.rand(c, generator=g) + 0.5)
+    gamma = torch.sqrt(torch.rand(c, c, generator=g) * 0.05)
+    params = tg.layer_params(beta.to(card), gamma.to(card), lowp)
+    for shape in ((2, c, 37, 53), (8, c, 68, 120)):
+        x = (torch.randn(shape, generator=g) * 1.5).to(torch.bfloat16).to(
+            card)
+        nchw = tg.gdn_layer_cuda(x, *params, inverse, lowp)
+        cl = tg.gdn_layer_cuda(x.contiguous(memory_format=torch.channels_last),
+                               *params, inverse, lowp)
+        assert cl.is_contiguous(memory_format=torch.channels_last)
+        assert cl.dtype == nchw.dtype
+        assert torch.equal(cl, nchw)
+
+
+def _f32_r5(card):
+    """bf16-r5's parameters with both nets in float32 (aivc-f32's
+    configuration)."""
+    import dataclasses
+
+    from aivc_tpu_torch.utils.checkpoint import model_from_params, read_tree
+
+    cfg, tree = read_tree(ROOT / "models_ckpt" / "bf16-r5")
+    cfg = dataclasses.replace(
+        cfg, mofnet=dataclasses.replace(cfg.mofnet, dtype="float32"),
+        codecnet=dataclasses.replace(cfg.codecnet, dtype="float32"))
+    return cfg, model_from_params(cfg, tree, card)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_codec_conv_stage_route(card, dtype):
+    """A small RA clip through FrameCodec on the card decodes bit-exactly;
+    with bf16 nets every ConvBlock / UpBlock call takes K6 (hit share 1),
+    with float32 nets none does."""
+    from aivc_tpu_torch.config import CodingConfig
+    from aivc_tpu_torch.pipeline.codec import FrameCodec
+    from aivc_tpu_torch.pipeline import video
+    from aivc_tpu_torch.utils.checkpoint import load_checkpoint
+
+    if dtype == "float32":
+        cfg, model = _f32_r5(card)
+    else:
+        cfg, model = load_checkpoint(ROOT / "models_ckpt" / "bf16-r5",
+                                     device=card)
+    codec = FrameCodec(cfg, model, 136, 200, device=card)
+    frames = video.synthetic_frames(9, 136, 200, seed=6)
+    kernels.reset_launches()
+    enc = video.encode_video(codec, frames, CodingConfig(
+        coding_config="RA", gop_size=8, intra_period=8), wave_batch=4)
+    dec = video.decode_video(codec, enc.bitstream)
+    for i in range(9):
+        for c in ("y", "u", "v"):
+            assert np.array_equal(dec[i][c], enc.decoded_frames[i][c])
+    launched, fell = (kernels.LAUNCHES["conv_stage"],
+                      kernels.FALLBACKS["conv_stage"])
+    if dtype == "bfloat16":
+        assert launched > 0 and fell == 0
+    else:
+        assert launched == 0 and fell > 0
+
+
+def test_conv_stage_rejects_bad_inputs(card):
+    x = torch.zeros((1, 8, 6, 10), device=card)
+    with pytest.raises(ValueError):     # forward only
+        tl.pad_stage_cuda(x.clone().requires_grad_(), 2)
+    with pytest.raises(ValueError):     # type
+        tl.pad_stage_cuda(x.half(), 2)
+    with pytest.raises(ValueError):     # shape
+        tl.pad_stage_cuda(x[0], 2)
+    with pytest.raises(ValueError):     # neither NCHW nor channels-last
+        tl.pad_stage_cuda(x.transpose(2, 3), 2)
+    with pytest.raises(ValueError):     # pad
+        tl.pad_stage_cuda(x, -1)
+    with pytest.raises(ValueError):     # fewer channels out than in
+        tl.pad_stage_cuda(x, 2, 4)

@@ -15,11 +15,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+import torch.nn.functional as F
 
 from aivc_tpu.ops import entropy_models as jem
 from aivc_tpu.ops import gain as jgain
 from aivc_tpu.ops import gdn as jgdn
 from aivc_tpu.ops import layers as jl
+from aivc_tpu_torch import kernels
+from aivc_tpu_torch.models import conditional as tm
 from aivc_tpu_torch.ops import entropy_models as tem
 from aivc_tpu_torch.ops import gain as tgain
 from aivc_tpu_torch.ops import gdn as tgdn
@@ -203,3 +206,171 @@ def test_quantize_rounds_half_to_even_and_clips():
     np.testing.assert_array_equal(
         quantize(x, 64).numpy(),
         np.clip(np.asarray(jnp.round(jnp.asarray(x.numpy()))), -64, 63))
+
+
+# ---------------------------------------------------------------------------
+# The staged route of the bf16 nets (kernel K6 and channels-last
+# activations).  K6 itself runs on the card alone (tests/test_torch_cuda.py);
+# here its plain version, and the route with the plain version standing in
+# for the kernel on the host.
+# ---------------------------------------------------------------------------
+
+def _replicate_gather(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Replication padding by clamped indices, independent of F.pad."""
+    B, C, H, W = x.shape
+    ys = (torch.arange(H + 2 * pad) - pad).clamp(0, H - 1)
+    xs = (torch.arange(W + 2 * pad) - pad).clamp(0, W - 1)
+    return x[:, :, ys][:, :, :, xs]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fmt", ["nchw", "channels_last"])
+@pytest.mark.parametrize("pad", [1, 2])
+@pytest.mark.parametrize("shape, channels", [((2, 8, 7, 13), None),
+                                             ((1, 6, 5, 9), 8)])
+def test_pad_stage_plain_is_replicate_pad_cast_channels_last(
+        dtype, fmt, pad, shape, channels):
+    g = torch.Generator().manual_seed(sum(shape) + pad)
+    x = (torch.randn(shape, generator=g) * 3).to(dtype)
+    if fmt == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    out = tl.pad_stage_plain(x, pad, channels)
+    B, C, H, W = shape
+    co = channels or C
+    assert out.shape == (B, co, H + 2 * pad, W + 2 * pad)
+    assert out.dtype == torch.bfloat16
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    assert not out.is_contiguous()
+    want = F.pad(x, (pad, pad, pad, pad), mode="replicate").to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    assert torch.equal(out[:, :C], want)
+    # The cast commutes with the replication: padding the bf16 values
+    # gives the same bits.
+    assert torch.equal(out[:, :C],
+                       _replicate_gather(x.to(torch.bfloat16), pad))
+    # The channels past C, up to ``channels``, are zeros.
+    assert not out[:, C:].any()
+    # On the host the dispatcher takes the plain version and launches
+    # nothing.
+    before = dict(kernels.LAUNCHES)
+    assert torch.equal(tl.pad_stage(x, pad, channels), out)
+    assert kernels.LAUNCHES == before
+
+
+def _perturbed(module: torch.nn.Module, seed: int) -> torch.nn.Module:
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith("gamma"):
+                p.copy_(torch.sqrt(torch.rand(p.shape, generator=g) * 0.05))
+            elif name.endswith("beta"):
+                p.copy_(torch.sqrt(torch.rand(p.shape, generator=g) + 0.5))
+            else:
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+    return module
+
+
+def _transform(name: str):
+    """(a bf16 transform of the codec's kinds at small widths, its input
+    shape, its output shape, its ConvBlock / UpBlock count)."""
+    if name == "g_a":
+        return (tm.AnalysisTransform(6, 16, 24, 5, True, "bfloat16"),
+                (2, 6, 64, 48), (2, 24, 4, 3), 16)
+    if name == "g_s":
+        return (tm.SynthesisTransform(24, 16, 3, 5, True, "bfloat16"),
+                (2, 24, 4, 3), (2, 3, 64, 48), 16)
+    if name == "h_a":
+        return (tm.HyperAnalysis(24, 16, 16, "bfloat16"), (2, 24, 8, 12),
+                (2, 16, 2, 3), 3)
+    return (tm.HyperSynthesis(16, 16, 48, "bfloat16"), (2, 16, 2, 3),
+            (2, 48, 8, 12), 3)
+
+
+@pytest.mark.parametrize("name", ["g_a", "g_s", "h_a", "h_s"])
+def test_bf16_transform_staged_route_keeps_nchw_f32(name, monkeypatch):
+    """A bf16 transform returns NCHW-contiguous float32 of the same shape on
+    the host route and on the staged route (the host standing in for the
+    card, K6's plain version for the kernel), the same values on both;
+    every block stages its input, and every one behind the transform's
+    entry gets it channels-last."""
+    module, in_shape, out_shape, n_blocks = _transform(name)
+    _perturbed(module, 3)
+    x = torch.randn(in_shape, generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        host = module(x)
+        staged_inputs = []
+
+        def stage(t, pad, channels):
+            staged_inputs.append(t)
+            return tl.pad_stage_plain(t, pad, channels)
+
+        monkeypatch.setattr(tl, "_on_card", lambda t: True)
+        monkeypatch.setattr(tl, "pad_stage_cuda", stage)
+        kernels.reset_launches()
+        staged = module(x)
+    for out in (host, staged):
+        assert out.shape == out_shape
+        assert out.dtype == torch.float32
+        assert out.is_contiguous()
+    assert torch.equal(staged, host)
+    assert len(staged_inputs) == n_blocks
+    assert kernels.FALLBACKS["conv_stage"] == 0
+    assert staged_inputs[0].is_contiguous()       # the transform's input
+    assert staged_inputs[0].dtype == torch.float32
+    for t in staged_inputs[1:]:
+        assert kernels.layout(t) == torch.channels_last
+
+
+def _block(kind: str, dtype: str):
+    if kind == "conv":
+        return tl.ConvBlock(8, 8, 3, 1, "relu", dtype)
+    return tl.UpBlock(8, 8, 3, "leaky_relu", dtype)
+
+
+@pytest.mark.parametrize("kind", ["conv", "up"])
+@pytest.mark.parametrize("case, staged", [
+    ("bf16", True), ("bf16_no_grad_mode", True), ("float32", False),
+    ("grad", False), ("input_grad", False), ("rows", False),
+    ("host", False)])
+def test_stage_route_predicate(kind, case, staged, monkeypatch):
+    """The staged route takes bf16 calls on the card on the whole frame
+    where autograd needs no graph; float32 nets, grad-needing calls and
+    row bands keep the other route, which counts in
+    FALLBACKS["conv_stage"] on the card."""
+    block = _block(kind, "float32" if case == "float32" else "bfloat16")
+    x = torch.randn((1, 8, 6, 5))
+    if case != "host":
+        monkeypatch.setattr(tl, "_on_card", lambda t: True)
+    if case in ("bf16", "float32", "rows", "host"):
+        block.requires_grad_(False)
+    if case == "input_grad":
+        block.requires_grad_(False)
+        x.requires_grad_(True)
+    if case == "rows":
+        block.rows = object()
+    with torch.set_grad_enabled(case != "bf16_no_grad_mode"):
+        assert block.takes_stage(x) is staged
+        if case in ("float32", "grad", "input_grad"):
+            kernels.reset_launches()
+            block(x)
+            assert kernels.FALLBACKS["conv_stage"] == 1
+            assert kernels.LAUNCHES["conv_stage"] == 0
+
+
+@pytest.mark.parametrize("c", [1, 3, 8])
+def test_staged_upblock_conv_order_and_shuffle(c):
+    """An UpBlock's conv on the staged route (5 input channels, staged as
+    8 with zeros) emits its channels in shuffle_order, and shuffle_staged
+    of that channels-last output is pixel_shuffle of the conv's own
+    output, laid out channels-last."""
+    block = _perturbed(tl.UpBlock(5, c, 3, "no", "bfloat16"), c)
+    assert block.Conv_0.stage_channels == 8
+    x = torch.randn((2, 5, 4, 7)).to(torch.bfloat16)
+    with torch.no_grad():
+        want = F.pixel_shuffle(block.Conv_0(x), 2)
+        y = block.Conv_0.staged(tl.pad_stage_plain(x, 0, 8))
+        got = tl.shuffle_staged(y)
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+    if c > 1:
+        assert kernels.layout(got) == torch.channels_last

@@ -248,6 +248,56 @@ def test_gdn_layer_check_rejects_a_faulty_route(monkeypatch, fault):
                               cases=(("igdn", (3, 96, 4, 8)),))
 
 
+STAGE_HOST_CASES = (
+    ((2, 16, 6, 10), torch.float32, "channels_last", 2, None),
+    ((1, 6, 9, 7), torch.float32, "nchw", 2, 8),
+    ((2, 8, 5, 4), torch.bfloat16, "channels_last", 1, None))
+
+
+def test_conv_stage_check_rehearsed_on_host():
+    """check_conv_stage at small shapes on the host (the plain version, no
+    launch): every case bit for bit, one record for the kernels line, of
+    the first case, bound by bytes (4 B read and 2 written an f32
+    element)."""
+    rec = smoke.check_conv_stage(torch.device("cpu"), reps=1,
+                                 cases=STAGE_HOST_CASES)
+    assert rec["launches"] == 0
+    assert [(r["shape"], r["fmt"], r["pad"]) for r in rec["cases"]] == [
+        (c[0], c[2], c[3]) for c in STAGE_HOST_CASES]
+    assert (rec["name"], rec["replaces"], rec["bound_by"]) == (
+        "conv_stage", "none", "bytes")
+    n_in, n_out = 2 * 16 * 6 * 10, 2 * 16 * 10 * 14
+    assert rec["bound_ms"] == pytest.approx(
+        (4 * n_in + 2 * n_out) / smoke.HBM_BYTES_PER_S * 1e3)
+    for r in rec["cases"]:
+        assert r["ms"] > 0 and r["plain_ms"] > 0 and r["library_ms"] > 0
+    line = json.loads(smoke.kernels_line([rec], {"conv_stage": 240}))
+    assert set(line["kernels"][0]) == KEYS
+    assert line["kernels"][0]["launches"] == 240
+
+
+@pytest.mark.parametrize("fault", ["one_value", "layout"])
+def test_conv_stage_check_rejects_a_faulty_stage(monkeypatch, fault):
+    """check_conv_stage compares the whole output: one value off by a bf16
+    step, or the padding taken from the wrong edge, fails it."""
+    from aivc_tpu_torch.ops import layers as layer_ops
+
+    plain = layer_ops.pad_stage_plain
+
+    def faulty(x, pad, channels):
+        out = plain(x, pad, channels).clone()
+        if fault == "one_value":
+            out[-1, 3, 4, 5] = out[-1, 3, 4, 5] * 1.0078125 + 1
+        else:
+            out = out.flip(3)
+        return out
+
+    monkeypatch.setattr(layer_ops, "pad_stage", faulty)
+    with pytest.raises(AssertionError, match="differs from its plain"):
+        smoke.check_conv_stage(torch.device("cpu"), reps=1,
+                               cases=STAGE_HOST_CASES[:1])
+
+
 def test_small_agreement_rehearsed_on_host():
     out = smoke.small_agreement(str(CKPT), torch.device("cpu"), size=64,
                                 n_frames=5)
