@@ -426,10 +426,10 @@ def serialize_chunk_v2(k: int, states: np.ndarray, words: np.ndarray,
     return bytes(out)
 
 
-def parse_chunk(payload: bytes, native: bool = True):
-    """v1 chunk bytes -> (words u16, states u32, k); with ``native`` False
-    the words of a v1 chunk are a big-endian view of ``payload`` (no copy:
-    an assignment into a u16 array swaps them as it copies)."""
+def parse_chunk(payload: bytes):
+    """v1 chunk bytes -> (words, states u32, k), the words a big-endian
+    u16 view of ``payload`` (no copy: an assignment into a u16 array
+    swaps them as it copies)."""
     if payload[0] & CHUNK_V2:
         words, states, k, _ = parse_chunk_v2(payload)
         return words, states, k
@@ -441,12 +441,12 @@ def parse_chunk(payload: bytes, native: bool = True):
     words = np.frombuffer(payload, dtype=">u2", count=total, offset=pos)
     if pos + 2 * total != len(payload):
         raise ValueError("vrans chunk size mismatch")
-    return (words.astype(np.uint16) if native else words,
-            states.astype(np.uint32), k)
+    return words, states.astype(np.uint32), k
 
 
 def parse_chunk_v2(payload: bytes):
-    """Chunk bytes -> (words, states, k, bitmaps | None for a v1 chunk)."""
+    """Chunk bytes -> (words, states, k, bitmaps | None for a v1 chunk),
+    the words a view as ``parse_chunk``'s."""
     first = payload[0]
     if not first & CHUNK_V2:
         w, s, k = parse_chunk(payload)
@@ -467,7 +467,7 @@ def parse_chunk_v2(payload: bytes):
     words = np.frombuffer(payload, dtype=">u2", count=total, offset=pos)
     if pos + 2 * total != len(payload):
         raise ValueError("vrans v2 chunk size mismatch")
-    return words.astype(np.uint16), states.astype(np.uint32), k, bitmaps
+    return words, states.astype(np.uint32), k, bitmaps
 
 
 def chan_bitmap(mask: np.ndarray) -> bytes:

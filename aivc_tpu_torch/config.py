@@ -228,6 +228,14 @@ class ModelConfig:
     # in the video header so mismatched decode fails loudly.
     ac_max_val: int = 256
 
+    @property
+    def full_float32(self) -> bool:
+        """True where either net computes in float32: its convolutions
+        and matmuls then run with TF32 off (the codec's
+        configure_determinism, the train step's float32_precision); bf16
+        models keep PyTorch's settings."""
+        return "float32" in (self.mofnet.dtype, self.codecnet.dtype)
+
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2) + "\n"
 
@@ -269,6 +277,12 @@ class ElicConfig:
         if sum(self.groups) != self.m:
             raise ValueError(f"ELIC groups {self.groups} do not sum to "
                              f"M = {self.m}")
+
+    @property
+    def full_float32(self) -> bool:
+        """True where the model computes in float32 (TF32 then off, as
+        ModelConfig.full_float32)."""
+        return self.dtype == "float32"
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2) + "\n"

@@ -44,21 +44,11 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def full_float32(cfg) -> bool:
-    """True where either net of ``cfg`` (or an ELIC model) computes in
-    float32: its convolutions and matmuls then run with TF32 off (the
-    codec's configure_determinism, the train step's float32_precision);
-    bf16 models keep PyTorch's settings."""
-    if getattr(cfg, "arch", None) == "elic":
-        return cfg.dtype == "float32"
-    return "float32" in (cfg.mofnet.dtype, cfg.codecnet.dtype)
-
-
 @contextlib.contextmanager
 def float32_precision(cfg):
     """TF32 off for cuDNN and matmuls while the block runs where
-    full_float32(cfg), and the previous settings back afterwards."""
-    if not full_float32(cfg):
+    ``cfg.full_float32``, and the previous settings back afterwards."""
+    if not cfg.full_float32:
         yield
         return
     saved = (torch.backends.cudnn.allow_tf32,

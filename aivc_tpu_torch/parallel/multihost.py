@@ -10,7 +10,7 @@ GOP order on every rank.
 
 Bytes: every rank must build the same FrameCodec (checkpoint, size, wave
 batch).  The stream count K of a wave follows the payloads of the earlier
-waves of its type that this codec coded (FrameCodec._pick_k), and a rank
+waves of its type that this codec coded (WaveCodec._pick_k), and a rank
 that codes every n-th GOP has another history than a single process:
 where K moves with the history (1080p), the bytes depend on the number
 of ranks.  AIVC_VRANS_K pins K, and with it the bytes.  K travels in the
@@ -29,8 +29,9 @@ from aivc_tpu_torch.coding import bitstream as bs
 from aivc_tpu_torch.config import CodingConfig
 from aivc_tpu_torch.gop import generate_gop_struct
 from aivc_tpu_torch.parallel.mesh import comm_device
-from aivc_tpu_torch.pipeline.codec import DecodedFrame, FrameCodec
+from aivc_tpu_torch.pipeline.codec import FrameCodec
 from aivc_tpu_torch.pipeline.video import FrameResult, encode_gop
+from aivc_tpu_torch.pipeline.wave import DecodedFrame
 
 
 def _group_up() -> bool:

@@ -1,5 +1,8 @@
-"""FrameCodec: the frame coding engine (counterpart of
-aivc_tpu/pipeline/codec.py), with both entropy backends.
+"""FrameCodec: AIVC's frame codec (counterpart of
+aivc_tpu/pipeline/codec.py), with both entropy backends.  It holds what
+is AIVC's: the FullNet's stages, the mesh, the v1 / v2 fused streams,
+the host backend, debug and audit; WaveCodec (pipeline/wave.py) the
+wave plumbing.  ``make_codec`` picks the codec of a loaded model.
 
   encode: to444 -> [P/B] mof_analyze -> mof_hyper -> quantize -> mof_synth
           -> warp -> cod_analyze -> cod_hyper -> quantize -> cod_synth
@@ -12,11 +15,6 @@ aivc_tpu/pipeline/codec.py), with both entropy backends.
           stages (K2 on the device backend, the host range coder on the
           host backend), then the same cast.  The video header says which
           backend wrote a stream, so either codec decodes either format.
-
-Encoder and decoder run the same module code on batches of the same
-composition (a wave of the GOP), with cuDNN deterministic and its
-benchmark search off, so the float inputs of entropy coding (sigma bins)
-and of the reference loop are bit-identical on both sides of one card.
 
 Options, as in JAX: ``debug`` (per-chunk lossless self-check with [AC]
 lines, and the in-band latent md5 trailer, checked at decode),
@@ -36,27 +34,17 @@ uint8 planes and the alpha / beta maps are gathered into whole frames,
 from which the DC trailer, the mask means and the references are
 computed, so they equal one process's.
 
-An encode is two calls per wave: ``encode_frames_launch`` queues the
-device half (the nets, the cast, the DC correction, the references) and
-returns handles whose ``decoded`` are device references;
-``encode_frames_finish`` does the rest (the K policy, entropy coding,
-packing).  pipeline/video.py:encode_gop keeps up to
-AIVC_PIPELINE_LOOKAHEAD waves launched ahead of the one it finishes;
-the K policy runs in ``encode_frames_finish``, which sees the waves in
-coding order, so every lookahead writes the same bytes.
-
-Spans (tracing.py) mark each wave's parts while something records:
-``launch`` (upload, nets, warp, planes) and ``finish`` (K1, each pull to
-the host, packing) of an encode, sharing the wave's id; ``batch``
-(parse, upload, K2, nets) of a decode; ``planes.pull``; ``pool``.
+Spans (tracing.py): WaveCodec's, with ``launch.upload``,
+``launch.mofnet``, ``launch.warp``, ``launch.codecnet``,
+``launch.planes`` in ``launch``; ``pool``.
 
 Format: v2 fused streams with all-zero y channels elided
 (codec.py:665-990,1221-1300), or under AIVC_VRANS_ELIDE=0 the dense v1
 fused stream (codec.py:243-248, 357-367, 1184-1200); host-backend chunks
 with the same elision (coding/bitstream.py); the per-frame DC trailer
 (codec.py:494-541); the schedule byte of the video header, from the
-five switches JAX reads at construction (``SCHED_SWITCHES``).  The DC
-plane sums are int64 (the JAX sums are int32, which agree below ~8.4M
+five switches JAX reads at construction (wave.py:SCHED_SWITCHES).  The
+DC plane sums are int64 (the JAX sums are int32, which agree below ~8.4M
 luma pixels).
 """
 
@@ -65,14 +53,11 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
-import math
-import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from aivc_tpu_torch import tracing
 from aivc_tpu_torch.coding import bitstream as bs
@@ -84,16 +69,8 @@ from aivc_tpu_torch.coding.cdf import (
     expected_bits,
     sigma_to_bin,
 )
-from aivc_tpu_torch.config import (
-    FRAME_I,
-    PAD_MULTIPLE,
-    Y_DOWNSCALE,
-    Z_DOWNSCALE,
-    ModelConfig,
-)
-from aivc_tpu_torch.device import full_float32, resolve_device
+from aivc_tpu_torch.config import FRAME_I, ElicConfig, ModelConfig
 from aivc_tpu_torch.models.fullnet import FullNet
-from aivc_tpu_torch.ops.layers import x444_to_yuv420, yuv420_to_444
 from aivc_tpu_torch.ops.warp import warp_engine
 from aivc_tpu_torch.parallel.halo import RowBand
 from aivc_tpu_torch.parallel.mesh import (
@@ -103,28 +80,13 @@ from aivc_tpu_torch.parallel.mesh import (
     check_rows,
     shard_params,
 )
-
-# The compute-schedule switches of the JAX package's FrameCodec
-# (aivc_tpu/pipeline/codec.py:169-218), bit i of the video header's
-# schedule byte each, all on unless set to "0".  Bit 1 (GDN parameters in
-# the compute dtype of a bf16 model) and bit 4 (the closed-loop DC
-# correction and its trailer) change the port's values.  Bits 0, 2 and 3
-# are recorded only: the port has no lane-packed head, channel-major
-# maps or space-to-depth convs to switch, so they leave its values
-# unchanged; a stream is still decoded only by a codec with all five
-# bits equal.
-SCHED_SWITCHES = ("AIVC_PACKED_HEAD", "AIVC_GDN_LOWP", "AIVC_MAPS_CM",
-                  "AIVC_S2D", "AIVC_DC_OFFSET")
-
-
-# Bit 7 of the schedule byte: the stream was coded by ELIC
-# (pipeline/elic.py), not by AIVC's FullNet.
-SCHED_ELIC = 0x80
-
-
-def switch_on(name: str) -> bool:
-    """A switch of the JAX package's environment: on unless "0"."""
-    return os.environ.get(name, "1") != "0"
+from aivc_tpu_torch.pipeline.elic import ElicCodec
+from aivc_tpu_torch.pipeline.wave import (
+    WaveCodec,
+    canonical,
+    planes_to_444,
+    switch_on,
+)
 
 
 def head_lane_pack_auto(out_ft: int) -> int:
@@ -155,18 +117,6 @@ def scheduled_config(cfg: ModelConfig) -> ModelConfig:
     return rp(cfg, mofnet=m, codecnet=c)
 
 
-def configure_determinism(cfg: ModelConfig) -> None:
-    """cuDNN deterministic with no benchmark search (same algorithms for
-    the same shapes on encoder and decoder).  TF32 is turned off for
-    float32 models so their convs and matmuls run in full float32; bf16
-    models compute in bf16 and are unaffected."""
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.deterministic = True
-    if full_float32(cfg):
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-
-
 def _nhwc(t: torch.Tensor) -> np.ndarray:
     """An integer-valued NCHW latent (or sigma bins) -> host int32
     [B, H, W, C], the JAX package's layout of the chunks and digests."""
@@ -183,84 +133,14 @@ def _par_map(fn, items):
             return list(ex.map(fn, items))
 
 
-def canonical(x: torch.Tensor) -> torch.Tensor:
-    """A copy with default row-major strides.  A tensor with a size-1 dim
-    (the 1x1 z grid of a 64x64 frame) can carry other strides and still
-    count as contiguous; cuDNN and oneDNN may then run it in another
-    memory format and round differently.  Encoder and decoder normalise
-    the latents they feed the nets, so both run the same algorithms."""
-    return x.clone(memory_format=torch.contiguous_format)
-
-
 def _part(x: torch.Tensor, sl: slice) -> torch.Tensor:
     """This rank's slice of a wave's tensor, in a fresh buffer as the
     encoder's own slice was (``x`` itself where the slice is all)."""
     return x if sl == slice(None) else canonical(x[sl])
 
 
-def _pad_edge(x: torch.Tensor, mult: int) -> torch.Tensor:
-    """Edge-pad H, W of [B, C, H, W] up to a multiple of ``mult``."""
-    ph = (-x.shape[2]) % mult
-    pw = (-x.shape[3]) % mult
-    if ph or pw:
-        x = F.pad(x, (0, pw, 0, ph), mode="replicate")
-    return x
-
-
-def planes_to_444(y: torch.Tensor, u: torch.Tensor,
-                  v: torch.Tensor) -> torch.Tensor:
-    """uint8 true-size planes [B, H, W] -> edge-padded float 444 [B, 3, Hp,
-    Wp]; shared by encoder, decoder and the RD forward."""
-    y = _pad_edge(y[:, None].float() / 255.0, PAD_MULTIPLE)
-    u = _pad_edge(u[:, None].float() / 255.0, PAD_MULTIPLE // 2)
-    v = _pad_edge(v[:, None].float() / 255.0, PAD_MULTIPLE // 2)
-    return yuv420_to_444(y, u, v).contiguous()
-
-
-class _BatchPlanes:
-    """uint8 planes of one coded wave on the device, pulled to the host
-    once, on first access."""
-
-    __slots__ = ("_dev", "_host")
-
-    def __init__(self, planes_dev: Dict[str, torch.Tensor]):
-        self._dev = planes_dev
-        self._host = None
-
-    def host(self) -> Dict[str, np.ndarray]:
-        if self._host is None:
-            with tracing.span("planes.pull"):
-                self._host = {k: v.cpu().numpy()
-                              for k, v in self._dev.items()}
-            self._dev = None
-        return self._host
-
-
-class DecodedFrame:
-    """A decoded frame: the padded 444 reference on the device [1, 3, Hp,
-    Wp] and its wave's uint8 planes (host copy made lazily)."""
-
-    __slots__ = ("_batch", "_i", "ref")
-
-    def __init__(self, batch: _BatchPlanes, i: int, ref: torch.Tensor):
-        self._batch = batch
-        self._i = i
-        self.ref = ref
-
-    @property
-    def planes(self) -> Dict[str, np.ndarray]:
-        h = self._batch.host()
-        return {k: h[k][self._i] for k in ("y", "u", "v")}
-
-    def __getitem__(self, k: str) -> np.ndarray:
-        return self.planes[k]
-
-
-class FrameCodec:
+class FrameCodec(WaveCodec):
     """Per-resolution codec around a FullNet."""
-
-    # Codes every frame type (pipeline/elic.py's ElicCodec codes I only).
-    intra_only = False
 
     def __init__(self, cfg: ModelConfig, model: FullNet, height: int,
                  width: int, device=None, debug: bool = False,
@@ -273,22 +153,15 @@ class FrameCodec:
         self.backend = entropy_backend
         self.debug = debug
         self.audit = audit
-        self.rate_priority = rate_priority
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            configure_determinism(cfg)
         # The schedule switches, read once here, as in JAX.
         cfg = scheduled_config(cfg)
-        self.dc_offset = switch_on("AIVC_DC_OFFSET")
+        net = FullNet(cfg)
+        net.load_state_dict(model.state_dict())
+        super().__init__(cfg, net, height, width, device, rate_priority)
         # The device backend writes the v2 fused stream with all-zero y
         # channels elided, or under AIVC_VRANS_ELIDE=0 the dense v1 one.
         self.elide = (entropy_backend == "device"
                       and switch_on("AIVC_VRANS_ELIDE"))
-        self.cfg = cfg
-        self.model = FullNet(cfg)
-        self.model.load_state_dict(model.state_dict())
-        self.model = self.model.to(self.device).eval()
-        self._set_geometry(height, width)
         # Optional ('data', 'spatial') mesh (parallel/mesh.py): the nets of
         # a wave run on this rank's slice of it where 'data' divides the
         # wave, and on this rank's band of rows over 'spatial'; entropy
@@ -306,16 +179,7 @@ class FrameCodec:
                 self.band = RowBand(mesh)
                 self.model.split_rows(self.band)
 
-        self._n_z = {
-            "mofnet": self.hz * self.wz * cfg.mofnet.nb_ft_z,
-            "codecnet": self.hz * self.wz * cfg.codecnet.nb_ft_z,
-        }
-        self._n_y = {
-            "mofnet": self.hy * self.wy * cfg.mofnet.nb_ft_y,
-            "codecnet": self.hy * self.wy * cfg.codecnet.nb_ft_y,
-        }
         self.warp_engine = warp_engine(cfg.flow_bound)
-        self._set_alphabet(cfg.ac_max_val)
 
         # Fused row space [mofnet-z channels | codecnet-z channels | y
         # sigma bins] (codec.py:311-348).  The z rows are built from the
@@ -334,116 +198,9 @@ class FrameCodec:
         czm, czc = cfg.mofnet.nb_ft_z, cfg.codecnet.nb_ft_z
         self._set_table(fused, {"z_m": 0, "z_c": czm, "y": czm + czc})
 
-    def _set_geometry(self, height: int, width: int) -> None:
-        """The frame's true, padded, y and z sizes."""
-        self.h, self.w = height, width
-        self.hp = math.ceil(height / PAD_MULTIPLE) * PAD_MULTIPLE
-        self.wp = math.ceil(width / PAD_MULTIPLE) * PAD_MULTIPLE
-        self.h_uv, self.w_uv = math.ceil(height / 2), math.ceil(width / 2)
-        self.hy, self.wy = self.hp // Y_DOWNSCALE, self.wp // Y_DOWNSCALE
-        self.hz, self.wz = self.hp // Z_DOWNSCALE, self.wp // Z_DOWNSCALE
-
-    def _set_alphabet(self, ac_max_val: int) -> None:
-        self.ac_max = int(ac_max_val or 256)
-        if self.ac_max & (self.ac_max - 1) or not 16 <= self.ac_max <= 256:
-            raise ValueError(f"ac_max_val must be a power of two in "
-                             f"[16, 256], got {self.ac_max}")
-
-    def _set_table(self, fused: np.ndarray, row_off: Dict[str, int]) -> None:
-        """The fused CDF rows on the device, the first row of each family
-        and each family's pad symbol (its first row's most probable);
-        the K policy starts afresh."""
-        self.fused_rows = fused
-        self.table = vrans.make_table(fused, self.device)
-        self._row_off = row_off
-        freq = np.diff(fused.astype(np.int64), axis=1)
-        self._pad_sym = {f: int(np.argmax(freq[off]))
-                         for f, off in row_off.items()}
-        self._k_hint: Dict[int, int] = {}
-
     # ------------------------------------------------------------------
-    # K policy (codec.py:357-424)
+    # References and the mesh's gathers
     # ------------------------------------------------------------------
-    def _fused_n(self, frame_type: int, k: int):
-        """(total padded symbols, per-segment padded lengths) of a frame's
-        dense (v1) fused stream at stream count k."""
-        segs = []
-        if frame_type != FRAME_I:
-            segs.append(-(-self._n_z["mofnet"] // k) * k)
-            segs.append(-(-self._n_y["mofnet"] // k) * k)
-        segs.append(-(-self._n_z["codecnet"] // k) * k)
-        segs.append(-(-self._n_y["codecnet"] // k) * k)
-        return sum(segs), tuple(segs)
-
-    def _fused_n2(self, frame_type: int, k: int, bm: int, bc: int):
-        """(total padded symbols, per-segment padded lengths) of a frame's
-        elided fused stream at stream count k."""
-        hw = self.hy * self.wy
-        segs = []
-        if frame_type != FRAME_I:
-            segs.append(-(-self._n_z["mofnet"] // k) * k)
-            if bm:
-                segs.append(-(-(bm * hw) // k) * k)
-        segs.append(-(-self._n_z["codecnet"] // k) * k)
-        if bc:
-            segs.append(-(-(bc * hw) // k) * k)
-        return sum(segs), tuple(segs)
-
-    def _pick_k(self, frame_type: int, n_total: int) -> int:
-        """Stream count for the next frame of this type: the 4K-byte state
-        flush stays ~<5% of the previous frame's payload, floored so the
-        scan stays <= 2048 steps.  Rate priority floors the scan at 65536
-        steps instead and sizes K for ~1% flush overhead (K doubles while
-        K * 2 * bytes_per_stream <= payload; the flush is 4 bytes a
-        stream, so its share is at most 2 / bytes_per_stream).
-        AIVC_VRANS_K, read on each call, overrides the policy (JAX's
-        override for tests and tuning, unchecked as there): it pins K, and
-        with it the bytes, where the policy's history differs, as in a
-        GOP round-robin encode (parallel/multihost.py)."""
-        env_k = os.environ.get("AIVC_VRANS_K")
-        if env_k:
-            return int(env_k)
-        max_steps = 65536 if self.rate_priority else 2048
-        bytes_per_stream = 200 if self.rate_priority else 40
-        k_lo = 8
-        while n_total // k_lo > max_steps:
-            k_lo *= 2
-        hint = self._k_hint.get(frame_type)
-        if hint is None:
-            k = 8 if self.rate_priority else vrans.pick_k(n_total)
-        else:
-            k = 8
-            while k < vrans.K_MAX and k * 2 * bytes_per_stream <= hint:
-                k *= 2
-        return max(k_lo, min(k, vrans.K_MAX))
-
-    def _update_k_hint(self, frame_type: int, payload_bytes: int) -> None:
-        prev = self._k_hint.get(frame_type)
-        self._k_hint[frame_type] = (payload_bytes if prev is None
-                                    else (prev + payload_bytes) // 2)
-
-    def note_coded_wave(self, frame_type: int, frame_bytes) -> None:
-        """Replay the K policy's update for a wave coded earlier (its
-        frames' bytes, as stored): a resumed encode that decodes finished
-        GOPs instead of encoding them keeps the same stream counts, and
-        so the same bytes, as an encode in one go.  The JAX package
-        skips this, so its resumed device-backend streams may differ."""
-        if self.backend == "device":
-            self._update_k_hint(frame_type,
-                                int(np.mean([len(b) for b in frame_bytes])))
-
-    # ------------------------------------------------------------------
-    # Planes, references, cast and DC correction (codec.py:451-541)
-    # ------------------------------------------------------------------
-    def _to_device_planes(self, frames_u8):
-        return [torch.from_numpy(np.stack([np.asarray(f[c]) for f in
-                                           frames_u8])).to(self.device)
-                for c in ("y", "u", "v")]
-
-    def ref_to_444(self, frame_u8) -> torch.Tensor:
-        """uint8 YUV420 planes (true size) -> padded float 444 on device."""
-        return planes_to_444(*self._to_device_planes([frame_u8]))
-
     def _zero_ref(self) -> torch.Tensor:
         return torch.zeros((1, 3, self.hp, self.wp), dtype=torch.float32,
                            device=self.device)
@@ -452,79 +209,30 @@ class FrameCodec:
         arrs = [r if r is not None else self._zero_ref() for r in refs]
         return torch.cat(arrs, dim=0).contiguous()
 
-    def _cast_planes(self, x444: torch.Tensor, maps=()):
-        """444 -> 420, quantize to 256 levels, crop: uint8 [B, h, w] each;
-        of a row band, the bands of every rank gathered first, with the
-        float ``maps`` [B, 1, rows, W] (the alpha / beta masks) in the
-        same collective.  -> (planes, the maps of the whole frame)."""
-        ts = [torch.clamp(torch.round(torch.clamp(p, 0.0, 1.0) * 255.0),
-                          0, 255).to(torch.uint8)
-              for p in x444_to_yuv420(x444)] + list(maps)
-        if self.band is not None:
-            ts = all_gather_cat(self.mesh, ts, 2, axis="spatial")
-        y, u, v = (t[:, 0] for t in ts[:3])
-        planes = {"y": y[:, :self.h, :self.w].contiguous(),
-                  "u": u[:, :self.h_uv, :self.w_uv].contiguous(),
-                  "v": v[:, :self.h_uv, :self.w_uv].contiguous()}
-        return planes, ts[3:]
-
-    @staticmethod
-    def _apply_dc(out, dc: torch.Tensor):
-        """Per-plane signed offsets dc [B, 3] on uint8 planes, saturating."""
-        return {k: torch.clamp(out[k].to(torch.int32)
-                               + dc[:, i, None, None], 0, 255
-                               ).to(torch.uint8)
-                for i, k in enumerate(("y", "u", "v"))}
-
-    @staticmethod
-    def _measure_dc(out, orig) -> torch.Tensor:
-        """Per-plane offsets from exact int64 plane sums: round((sum(orig)
-        - sum(decoded)) / n) in float32, as the JAX f32 mean."""
-        ds = []
-        for k in ("y", "u", "v"):
-            so = orig[k].to(torch.int64).sum(dim=(1, 2))
-            sd = out[k].to(torch.int64).sum(dim=(1, 2))
-            n = float(out[k].shape[1] * out[k].shape[2])
-            ds.append(torch.round((so - sd).to(torch.float32) / n)
-                      .to(torch.int32))
-        return torch.stack(ds, dim=1)
-
-    def _dc_correct_enc(self, out, orig):
-        """Measure, apply, re-measure; the total offset is applied once to
-        the raw planes, as the decoder does with the trailer value."""
-        dc1 = self._measure_dc(out, orig)
-        out1 = self._apply_dc(out, torch.clamp(dc1, -127, 127))
-        dc = torch.clamp(dc1 + self._measure_dc(out1, orig), -127, 127)
-        return self._apply_dc(out, dc), dc
-
-    def _split_decoded(self, planes, ref444, k: int) -> List[DecodedFrame]:
-        batch = _BatchPlanes(planes)
-        return [DecodedFrame(batch, i, ref444[i:i + 1]) for i in range(k)]
+    def _whole_rows(self, ts: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Of a row band, every rank's bands in one collective."""
+        if self.band is None:
+            return ts
+        return all_gather_cat(self.mesh, ts, 2, axis="spatial")
 
     # ------------------------------------------------------------------
     # Fused stream segments
     # ------------------------------------------------------------------
-    @staticmethod
-    def _pad_seg(sym, rows, k: int, pad_sym: int, pad_row: int):
-        pad = (-sym.shape[1]) % k
-        if pad:
-            sym = F.pad(sym, (0, pad), value=pad_sym)
-            rows = F.pad(rows, (0, pad), value=pad_row)
-        return sym, rows
+    def _fused_n(self, frame_type: int, k: int):
+        """(total padded symbols, per-segment padded lengths) of a frame's
+        dense (v1) fused stream at stream count k: every y channel kept."""
+        return self._fused_n2(frame_type, k, self.cfg.mofnet.nb_ft_y,
+                              self.cfg.codecnet.nb_ft_y)
 
-    def _z_rows(self, B: int, C: int, off: int) -> torch.Tensor:
-        """Row index of each z symbol in (H, W, C) order."""
-        ch = torch.arange(C, dtype=torch.int32, device=self.device) + off
-        return ch.repeat(self.hz * self.wz).expand(B, -1)
-
-    def _z_seg(self, zq: torch.Tensor, fam: str, k: int):
-        """z [B, C, Hz, Wz] -> symbols/rows in the JAX (H, W, C) order."""
-        B, C = zq.shape[:2]
-        sym = (zq.permute(0, 2, 3, 1).reshape(B, -1).to(torch.int32)
-               + self.ac_max)
-        off = self._row_off[fam]
-        return self._pad_seg(sym, self._z_rows(B, C, off), k,
-                             self._pad_sym[fam], off)
+    def _fused_n2(self, frame_type: int, k: int, bm: int, bc: int):
+        """(total padded symbols, per-segment padded lengths) of a frame's
+        elided fused stream at stream count k."""
+        nz, hw = self.hz * self.wz, self.hy * self.wy
+        n = [self.cfg.codecnet.nb_ft_z * nz, bc * hw]
+        if frame_type != FRAME_I:
+            n = [self.cfg.mofnet.nb_ft_z * nz, bm * hw] + n
+        segs = tuple(-(-s // k) * k for s in n if s)
+        return sum(segs), segs
 
     def _y_slots(self, idx: torch.Tensor, nkeep: torch.Tensor, hw: int):
         """[B, bucket * hw] mask of the slots of kept channels."""
@@ -575,12 +283,6 @@ class FrameCodec:
     # ------------------------------------------------------------------
     # Encode
     # ------------------------------------------------------------------
-    def _quantize_y(self, y, mu):
-        # "+ 0.0" turns -0.0 into +0.0, the value the decoder rebuilds
-        # from the integer symbols.
-        return torch.clamp(torch.round(y - mu), -self.ac_max,
-                           self.ac_max - 1) + 0.0
-
     def _hyper(self, which: str, z_q):
         mu, sigma = getattr(self.model, f"{which}_hyper")(z_q)
         return mu, sigma_to_bin(sigma)
@@ -599,10 +301,9 @@ class FrameCodec:
         m = self.model
         acv = self.ac_max
         with tracing.span("launch.upload"):
-            orig_dev = self._to_device_planes(frames_u8)
-        orig = dict(zip(("y", "u", "v"), orig_dev))
+            orig = self._to_device_planes(frames_u8)
         with tracing.span("launch.planes"):
-            frame = planes_to_444(*orig_dev)
+            frame = planes_to_444(**orig)
         with tracing.span("launch.upload"):
             prev = self._stack_refs(prev_refs)
             nxt = self._stack_refs(next_refs)
@@ -641,8 +342,7 @@ class FrameCodec:
                 # mesh takes the means one process takes.
                 t["alpha_mean"], t["beta_mean"] = (
                     a.contiguous().mean(dim=(1, 2, 3)) for a in maps)
-            if self.dc_offset:
-                out, t["dc"] = self._dc_correct_enc(out, orig)
+            out, t["dc"] = self._dc_correct_enc(out, orig)
         t.update(z_c=z_qc, q_c=q_c, bins_c=bins_c, **out)
         return t
 
@@ -659,72 +359,34 @@ class FrameCodec:
         if sl != slice(None):
             t = dict(zip(self.WAVE_KEYS, all_gather_cat(
                 self.mesh, [t[key] for key in self.WAVE_KEYS])))
-        out = {c: t[c] for c in ("y", "u", "v")}
+        out = {c: t.pop(c) for c in ("y", "u", "v")}
         with tracing.span("launch.planes"):
-            ref444 = planes_to_444(out["y"], out["u"], out["v"])
-        mof = (None if t["alpha_mean"] is None else
-               {"alpha_mean": t["alpha_mean"], "beta_mean": t["beta_mean"]})
-        return {"k": k, "frame_type": frame_type, "z_m": t["z_m"],
-                "q_m": t["q_m"], "bins_m": t["bins_m"], "mof": mof,
-                "z_c": t["z_c"], "q_c": t["q_c"], "bins_c": t["bins_c"],
-                "dc": t["dc"], "decoded": self._split_decoded(out, ref444, k)}
+            t["decoded"] = self._split_decoded(out, k)
+        t.update(k=k, frame_type=frame_type)
+        return t
 
-    @torch.no_grad()
-    def encode_frames_launch(self, frames_u8, prev_refs, next_refs,
-                             frame_type: int, idx_rate: float) -> Dict:
-        """The device half of k same-type frames' encode, queued: the
-        nets, the cast, the DC correction and the references (the host
-        waits for the frames' upload and, under a mesh, the gathers, not
-        for the nets).  Returns the wave's handles;
-        their ``decoded`` (DecodedFrame list) are device references that
-        later waves may take before ``encode_frames_finish``, their
-        ``wave`` the wave's id in the recorded spans (tracing.py; None
-        where nothing records)."""
-        wave = tracing.new_wave()
-        with tracing.span("launch", wave=wave, k=len(frames_u8),
-                          frame_type=frame_type):
-            handles = self._encode_transforms(frames_u8, prev_refs,
-                                              next_refs, frame_type,
-                                              idx_rate)
-        handles["wave"] = wave
-        return handles
-
-    @torch.no_grad()
-    def encode_frames_finish(self, handles: Dict):
-        """The host half of a launched wave: the K policy, entropy coding
-        and packing (and the rate audit).  Waves must be finished in the
-        order they were launched.  Returns (frame bytes list,
-        DecodedFrame list, per-frame stats)."""
-        with tracing.span("finish", wave=handles.get("wave"),
-                          k=handles["k"], frame_type=handles["frame_type"]):
-            if self.backend == "device":
-                frame_bytes, stats = self._entropy_device(handles)
-            else:
-                frame_bytes, stats = self._entropy_host(handles)
-            if self.audit:
-                for s, bits in zip(stats,
-                                   self._analytic_bits(handles).tolist()):
-                    s["analytic_bits"] = bits
-        return frame_bytes, handles["decoded"], stats
-
-    def encode_frames_batch(self, frames_u8, prev_refs, next_refs,
-                            frame_type: int, idx_rate: float):
-        """Code k same-type frames as one device batch: launch, then
-        finish.  Returns (frame bytes list, DecodedFrame list, per-frame
-        stats)."""
-        return self.encode_frames_finish(self.encode_frames_launch(
-            frames_u8, prev_refs, next_refs, frame_type, idx_rate))
+    def _code_wave(self, w):
+        """Entropy coding on the backend this codec encodes with, and
+        under ``audit`` each frame's analytic bits."""
+        if self.backend == "device":
+            frame_bytes, stats = self._entropy_device(w)
+        else:
+            frame_bytes, stats = self._entropy_host(w)
+        if self.audit:
+            for s, bits in zip(stats, self._analytic_bits(w).tolist()):
+                s["analytic_bits"] = bits
+        return frame_bytes, stats
 
     def _base_stats(self, w) -> List[Dict]:
-        k = w["k"]
-        if w["mof"] is None:
-            return [{"alpha_mean": 1.0, "beta_mean": 1.0} for _ in range(k)]
+        """Each frame's alpha / beta mask means (P / B frames)."""
+        if w["alpha_mean"] is None:
+            return super()._base_stats(w)
         with tracing.span("finish.pull"):
-            a = w["mof"]["alpha_mean"].cpu().numpy()
+            a = w["alpha_mean"].cpu().numpy()
         with tracing.span("finish.pull"):
-            b = w["mof"]["beta_mean"].cpu().numpy()
+            b = w["beta_mean"].cpu().numpy()
         return [{"alpha_mean": float(a[i]), "beta_mean": float(b[i])}
-                for i in range(k)]
+                for i in range(w["k"])]
 
     def _fused_parts_v2(self, w):
         """(K, segments, their (z_m, y_m, z_c, y_c) columns, per-frame
@@ -770,9 +432,12 @@ class FrameCodec:
             cols.append(3)
         return kk, parts, cols, bitmaps
 
-    def _fused_parts_v1(self, w):
-        """The same for the dense stream (no bitmaps): K from the dense
-        total (codec.py:1190-1192), every segment present."""
+    def _wave_parts(self, w):
+        """The v2 stream's parts or, without elision, the dense stream's:
+        K from the dense total (codec.py:1190-1192), every segment
+        present, no bitmaps."""
+        if self.elide:
+            return self._fused_parts_v2(w)
         frame_type = w["frame_type"]
         kk = self._pick_k(frame_type, self._fused_n(frame_type, 8)[0])
         parts = []
@@ -784,71 +449,22 @@ class FrameCodec:
         cols = [2, 3] if frame_type == FRAME_I else [0, 1, 2, 3]
         return kk, parts, cols, None
 
-    def _dc_trailers(self, w) -> List[Optional[tuple]]:
-        """Each frame's DC trailer, or None without the correction."""
-        if w["dc"] is None:
-            return [None] * w["k"]
-        with tracing.span("finish.pull"):
-            dc = w["dc"].cpu().numpy()
-        return [tuple(int(v) for v in row) for row in dc]
-
-    def _entropy_device(self, w):
-        """Fused entropy coding of a wave, one K1 launch: the v2 stream
-        (channel masks to the host, wave-shared buckets) or, without
-        elision, the dense v1 stream of every y symbol."""
-        k, frame_type = w["k"], w["frame_type"]
-        with tracing.span("finish.k1") as sp:
-            if self.elide:
-                kk, parts, cols, bitmaps = self._fused_parts_v2(w)
-            else:
-                kk, parts, cols, bitmaps = self._fused_parts_v1(w)
-            sym = torch.cat([p[0] for p in parts], dim=1).contiguous()
-            rows = torch.cat([p[1] for p in parts], dim=1).contiguous()
-            segs = tuple(p[0].shape[1] // kk for p in parts)
-            buf, states, seg_g = vrans.encode_batch(sym, rows, self.table,
-                                                    kk, segs)
-            n_pad = sym.shape[1]
-            sp.note(K=kk, steps=n_pad // kk)
-        with tracing.span("finish.pull"):
-            seg_np = seg_g.cpu().numpy().astype(np.int64)
-        with tracing.span("finish.pull"):
-            states_np = states.cpu().numpy()
-        totals = n_pad - seg_np[:, 0]
-        mmax = int(totals.max())
-        with tracing.span("finish.pull"):
-            tail = buf[:, n_pad - mmax:].cpu().numpy() if mmax else None
-        with tracing.span("finish.pack"):
-            bounds = np.concatenate([seg_np, np.full((k, 1), n_pad)], axis=1)
-            segw = np.zeros((k, 4), np.int64)
-            segw[:, cols] = np.diff(bounds, axis=1)
-            chunks = []
-            for i in range(k):
-                t = int(totals[i])
-                words = (tail[i, mmax - t:] if t else np.empty(0, np.uint16))
-                chunks.append(
-                    vrans.serialize_chunk(kk, states_np[i], words)
-                    if bitmaps is None else
-                    vrans.serialize_chunk_v2(kk, states_np[i], words,
-                                             bitmaps[i]))
-            digs = None
-            if self.debug:
-                digs = self._wave_digests(w)
-                for i in range(k):
-                    self._debug_vr_frame(chunks[i], sym[i], rows[i], i)
-            dcs = self._dc_trailers(w)
-            frame_bytes, stats = [], self._base_stats(w)
-            for i in range(k):
-                fb = bs.pack_frame({"codecnet_z": chunks[i]},
-                                   digs[i] if digs else None, dc=dcs[i])
-                frame_bytes.append(fb)
-                stats[i].update({
-                    "bytes": len(fb),
-                    "mode_bytes": 2 * int(segw[i, :2].sum()),
-                    "codec_bytes": 2 * int(segw[i, 2:].sum()),
-                    "k": kk,
-                })
-            self.note_coded_wave(frame_type, frame_bytes)
-        return frame_bytes, stats
+    def _frame_chunks(self, w, kk: int, states, words, bitmaps, sym, rows):
+        """v2 chunks with each frame's channel bitmaps, or v1 chunks; under
+        ``debug`` each chunk decoded again against its symbols, and the
+        latents' digests -> (chunks, digests | None)."""
+        if bitmaps is None:
+            chunks, _ = super()._frame_chunks(w, kk, states, words, None,
+                                              sym, rows)
+        else:
+            chunks = [vrans.serialize_chunk_v2(kk, st, wd, bm)
+                      for st, wd, bm in zip(states, words, bitmaps)]
+        if not self.debug:
+            return chunks, None
+        digs = self._wave_digests(w)
+        for i in range(w["k"]):
+            self._debug_vr_frame(chunks[i], sym[i], rows[i], i)
+        return chunks, digs
 
     def _entropy_host(self, w):
         """Host backend: latents pulled to the host, each chunk coded by
@@ -940,7 +556,7 @@ class FrameCodec:
         version on the host) against the rows its encode used."""
         words, states, kk, _ = vrans.parse_chunk_v2(payload)
         back, _, _ = vrans.decode_batch(
-            torch.from_numpy(words)[None].to(self.device),
+            torch.from_numpy(words.astype(np.uint16))[None].to(self.device),
             torch.from_numpy(states)[None].to(self.device),
             rows[None].contiguous(), self.table, kk)
         lossless = torch.equal(back[0], sym)
@@ -1026,30 +642,14 @@ class FrameCodec:
     # ------------------------------------------------------------------
     # Decode
     # ------------------------------------------------------------------
-    def _dec_z(self, words, st, g, n: int, k: int, C: int, fam: str):
-        """Decode one z segment -> float32 [B, C, Hz, Wz] and the carry."""
-        with tracing.span("batch.k2", K=k, steps=n // k):
-            B = words.shape[0]
-            off = self._row_off[fam]
-            nraw = self.hz * self.wz * C
-            rows = F.pad(self._z_rows(B, C, off), (0, n - nraw), value=off)
-            syms, st, g = vrans.decode_batch(words, st, rows.contiguous(),
-                                             self.table, k, g)
-            z = (syms[:, :nraw] - self.ac_max).to(torch.float32)
-            z = z.reshape(B, self.hz, self.wz, C).permute(0, 3, 1, 2)
-            return canonical(z), st, g
-
     def _dec_y(self, words, st, g, bins, n: int, k: int, C: int):
         """Decode one dense (v1) y segment -> float32 [B, C, Hy, Wy]."""
         with tracing.span("batch.k2", K=k, steps=n // k):
             B = words.shape[0]
-            nraw = self.hy * self.wy * C
+            off = self._row_off["y"]
             rows = (bins.permute(0, 2, 3, 1).reshape(B, -1).to(torch.int32)
-                    + self._row_off["y"])
-            rows = F.pad(rows, (0, n - nraw), value=self._row_off["y"])
-            syms, st, g = vrans.decode_batch(words, st, rows.contiguous(),
-                                             self.table, k, g)
-            y = (syms[:, :nraw] - self.ac_max).to(torch.float32)
+                    + off)
+            y, st, g = self._k2_seg(words, st, g, rows, n, k, off)
             y = y.reshape(B, self.hy, self.wy, C).permute(0, 3, 1, 2)
             return canonical(y), st, g
 
@@ -1061,14 +661,11 @@ class FrameCodec:
             B = words.shape[0]
             hw = self.hy * self.wy
             bucket = idx.shape[1]
+            off = self._row_off["y"]
             valid = self._y_slots(idx, nkeep, hw)
-            rows = (self._gather_ch(bins, idx).to(torch.int32)
-                    + self._row_off["y"])
-            rows = torch.where(valid, rows, self._row_off["y"])
-            rows = F.pad(rows, (0, n - bucket * hw), value=self._row_off["y"])
-            syms, st, g = vrans.decode_batch(words, st, rows.contiguous(),
-                                             self.table, k, g)
-            yk = (syms[:, :bucket * hw] - self.ac_max).to(torch.float32)
+            rows = self._gather_ch(bins, idx).to(torch.int32) + off
+            rows = torch.where(valid, rows, off)
+            yk, st, g = self._k2_seg(words, st, g, rows, n, k, off)
             yk = torch.where(valid, yk, 0.0).reshape(B, bucket, hw)
             dense = torch.zeros((B, C, hw), dtype=torch.float32,
                                 device=self.device)
@@ -1078,57 +675,28 @@ class FrameCodec:
                                yk)
             return canonical(dense.reshape(B, C, self.hy, self.wy)), st, g
 
-    @torch.no_grad()
-    def decode_frames_batch(self, frame_bytes_list, prev_refs, next_refs,
-                            frame_type: int, idx_rate: float,
-                            backend: Optional[str] = None):
-        """Decode k same-type frames as one batch.  Must be called with
-        the grouping the encoder used (the wave composition is part of
-        the bit-exactness contract).  ``backend`` names the chunk format
-        the stream carries ("device" | "host"; decode_video passes the
-        video header's flag) and defaults to this codec's own."""
-        with tracing.span("batch", wave=tracing.new_wave(),
-                          k=len(frame_bytes_list), frame_type=frame_type):
-            with tracing.span("batch.parse"):
-                chunks = [bs.unpack_frame(fb) for fb in frame_bytes_list]
-            digests = [c.get("__digests__") for c in chunks]
-            # Under a mesh the entropy decode runs on the whole wave on
-            # every rank and the nets on this rank's slice, the encoder's
-            # split.
-            sl = batch_slice(self.mesh, len(chunks))
-            with tracing.span("batch.upload"):
-                prev = self._stack_refs(prev_refs[sl])
-                nxt = self._stack_refs(next_refs[sl])
-            if (backend or self.backend) == "device":
-                q_c, mu_c, pred, skip = self._decode_latents_device(
-                    chunks, digests, prev, nxt, frame_type, idx_rate, sl)
-            else:
-                q_c, mu_c, pred, skip = self._decode_latents_host(
-                    chunks, digests, prev, nxt, frame_type, idx_rate, sl)
-            with tracing.span("batch.nets"):
-                x_hat = self.model.codecnet_synth(_part(q_c, sl), mu_c, pred,
-                                                  skip, idx_rate, frame_type)
-                out, _ = self._cast_planes(x_hat)
-            if self.dc_offset:
-                dcs = []
-                for c in chunks:
-                    if c.get("__dc__") is None:
-                        raise ValueError(
-                            "dc_offset enabled but a frame carries no DC "
-                            "trailer (stream from an AIVC_DC_OFFSET=0 "
-                            "encoder?)")
-                    dcs.append(c["__dc__"])
-                with tracing.span("batch.upload"):
-                    dc = torch.tensor(dcs[sl], dtype=torch.int32,
-                                      device=self.device)
-                with tracing.span("batch.nets"):
-                    out = self._apply_dc(out, dc)
-            if sl != slice(None):
-                out = dict(zip(("y", "u", "v"), all_gather_cat(
-                    self.mesh, [out[c] for c in ("y", "u", "v")])))
-            with tracing.span("batch.nets"):
-                ref444 = planes_to_444(out["y"], out["u"], out["v"])
-            return self._split_decoded(out, ref444, len(chunks))
+    def _decode_planes(self, chunks, prev_refs, next_refs, frame_type: int,
+                       idx_rate: float, backend: str):
+        """Under a mesh the entropy decode runs on the whole wave on every
+        rank and the nets on this rank's slice, the encoder's split; the
+        planes of every slice are gathered."""
+        digests = [c.get("__digests__") for c in chunks]
+        sl = batch_slice(self.mesh, len(chunks))
+        with tracing.span("batch.upload"):
+            prev = self._stack_refs(prev_refs[sl])
+            nxt = self._stack_refs(next_refs[sl])
+        latents = (self._decode_latents_device if backend == "device"
+                   else self._decode_latents_host)
+        q_c, mu_c, pred, skip = latents(chunks, digests, prev, nxt,
+                                        frame_type, idx_rate, sl)
+        with tracing.span("batch.nets"):
+            x_hat = self.model.codecnet_synth(_part(q_c, sl), mu_c, pred,
+                                              skip, idx_rate, frame_type)
+            out, _ = self._cast_planes(x_hat)
+        if sl == slice(None):
+            return out
+        return dict(zip(("y", "u", "v"), all_gather_cat(
+            self.mesh, [out[c] for c in ("y", "u", "v")])))
 
     def _hyper_wave(self, which: str, z_q, sl: slice):
         """The hyper stage of a decode on this rank's slice of the wave's
@@ -1156,49 +724,41 @@ class FrameCodec:
                            device=self.device)
         return pred, torch.zeros_like(pred)
 
+    def _stream_layout(self, parsed, kk: int, frame_type: int):
+        """A wave's fused stream, from its parsed chunks: (v2 or not, the
+        segments' padded lengths, of a v2 stream each frame's kept MOFNet
+        channels and their bucket, CodecNet's packed indices and their
+        bucket)."""
+        v2 = parsed[0][3] is not None
+        if any((p[3] is not None) != v2 for p in parsed):
+            raise ValueError("mixed v1/v2 vrans chunks in a wave")
+        if not v2:
+            return False, self._fused_n(frame_type, kk)[1], None, 0, None, 0
+        cm, cc = self.cfg.mofnet.nb_ft_y, self.cfg.codecnet.nb_ft_y
+        ch_m, ch_c = [], []
+        for _, _, _, bms in parsed:
+            if frame_type != FRAME_I:
+                ch_m.append(vrans.bitmap_channels(bms[0], cm))
+                ch_c.append(vrans.bitmap_channels(bms[1], cc))
+            else:
+                ch_c.append(vrans.bitmap_channels(bms[0], cc))
+        bc = vrans.elide_bucket(max(c.size for c in ch_c), cc)
+        bm = (vrans.elide_bucket(max(c.size for c in ch_m), cm)
+              if ch_m else 0)
+        idx_c = self._pack_idx(ch_c, bc)
+        return (True, self._fused_n2(frame_type, kk, bm, bc)[1], ch_m, bm,
+                idx_c, bc)
+
     def _decode_latents_device(self, chunks, digests, prev, nxt,
                                frame_type: int, idx_rate: float, sl: slice):
         """Staged rANS decode of the fused stream (K2) interleaved with
         the hyper and synthesis stages -> (q_c of the whole wave; mu_c,
         pred, skip of this rank's slice ``sl``)."""
         k = len(chunks)
-        with tracing.span("batch.parse"):
-            parsed = [vrans.parse_chunk_v2(c["codecnet_z"]) for c in chunks]
-            kk = parsed[0][2]
-            if any(p[2] != kk for p in parsed):
-                raise ValueError("inconsistent vrans stream counts in a wave")
-            v2 = parsed[0][3] is not None
-            if any((p[3] is not None) != v2 for p in parsed):
-                raise ValueError("mixed v1/v2 vrans chunks in a wave")
-            cm, cc = self.cfg.mofnet.nb_ft_y, self.cfg.codecnet.nb_ft_y
-            if v2:
-                ch_m, ch_c = [], []
-                for _, _, _, bms in parsed:
-                    if frame_type != FRAME_I:
-                        ch_m.append(vrans.bitmap_channels(bms[0], cm))
-                        ch_c.append(vrans.bitmap_channels(bms[1], cc))
-                    else:
-                        ch_c.append(vrans.bitmap_channels(bms[0], cc))
-                bc = vrans.elide_bucket(max(c.size for c in ch_c), cc)
-                bm = (vrans.elide_bucket(max(c.size for c in ch_m), cm)
-                      if ch_m else 0)
-                idxc, nkc = self._pack_idx(ch_c, bc)
-                _, segs = self._fused_n2(frame_type, kk, bm, bc)
-            else:
-                _, segs = self._fused_n(frame_type, kk)
-            seg_it = iter(segs)
-
-            mw = vrans.bucket(max(max(p[0].size for p in parsed), 1),
-                              1 << 30)
-            wb = np.zeros((k, mw), np.uint16)
-            for i, p in enumerate(parsed):
-                wb[i, :p[0].size] = p[0]
-        with tracing.span("batch.upload"):
-            words = torch.from_numpy(wb).to(self.device)
-            st = torch.from_numpy(np.stack([p[1] for p in parsed])).to(
-                self.device)
-            g = torch.zeros(k, dtype=torch.int32, device=self.device)
-
+        kk, layout, words, st, g = self._decode_front(chunks, frame_type)
+        v2, segs, ch_m, bm, idx_c, bc = layout
+        seg_it = iter(segs)
+        cm, cc = self.cfg.mofnet.nb_ft_y, self.cfg.codecnet.nb_ft_y
         if frame_type == FRAME_I:
             with tracing.span("batch.nets"):
                 pred, skip = self._zero_pred(len(range(k)[sl]))
@@ -1231,7 +791,7 @@ class FrameCodec:
             q_c, st, g = self._dec_y(words, st, g, bins_c, next(seg_it), kk,
                                      cc)
         elif bc:
-            q_c, st, g = self._dec_y_el(words, st, g, bins_c, idxc, nkc,
+            q_c, st, g = self._dec_y_el(words, st, g, bins_c, *idx_c,
                                         next(seg_it), kk, cc)
         else:
             q_c = torch.zeros((k, cc, self.hy, self.wy), dtype=torch.float32,
@@ -1282,7 +842,6 @@ class FrameCodec:
         t = torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
         return canonical(t.permute(0, 3, 1, 2).to(torch.float32))
 
-    # ------------------------------------------------------------------
     @property
     def sched_bits(self) -> int:
         """Compute-schedule byte of the video header, as JAX computes it
@@ -1295,46 +854,10 @@ class FrameCodec:
                 | (8 if self.cfg.codecnet.s2d_analysis else 0)
                 | (16 if self.dc_offset else 0))
 
-    def check_model(self, header: bs.VideoHeader) -> None:
-        """Raise if the stream was coded by the other model (AIVC or
-        ELIC: bit 7 of the schedule byte)."""
-        if (header.sched ^ self.sched_bits) & SCHED_ELIC:
-            names = ("AIVC", "ELIC")
-            raise ValueError(
-                f"bitstream was coded by an "
-                f"{names[bool(header.sched & SCHED_ELIC)]} model; this "
-                f"codec holds {names[bool(self.sched_bits & SCHED_ELIC)]}")
 
-    def check_sched(self, header: bs.VideoHeader) -> None:
-        """Raise if the stream's compute-schedule byte is not this
-        codec's (a mismatched decoder would drift through the GOP), with
-        JAX's message naming the switches that rebuild the right codec."""
-        if header.sched != self.sched_bits:
-            sets = " ".join(f"{name}={1 if header.sched >> i & 1 else 0}"
-                            for i, name in enumerate(SCHED_SWITCHES))
-            raise ValueError(
-                f"bitstream compute schedule {header.sched:#04x} != this "
-                f"codec's {self.sched_bits:#04x}; set {sets} and rebuild the "
-                f"codec to decode this stream bit-exactly")
-
-    def video_header(self, nb_gop: int, idx_first: int, idx_last: int,
-                     wave_batch: int = 1) -> bs.VideoHeader:
-        return bs.VideoHeader(
-            h_x=self.h, w_x=self.w, h_y=self.hy, w_y=self.wy,
-            h_z=self.hz, w_z=self.wz, nb_gop=nb_gop,
-            idx_first_frame=idx_first, idx_last_frame=idx_last,
-            backend=(bs.BACKEND_DEVICE if self.backend == "device"
-                     else bs.BACKEND_HOST),
-            wave_batch=max(1, wave_batch),
-            ac_log2=self.ac_max.bit_length() - 1, sched=self.sched_bits)
-
-
-def make_codec(cfg, model, height: int, width: int, **kw) -> FrameCodec:
-    """The codec of a loaded model: FrameCodec for AIVC's FullNet, its
-    All-Intra subclass ElicCodec (pipeline/elic.py) for ELIC."""
-    from aivc_tpu_torch.config import ElicConfig
-
+def make_codec(cfg, model, height: int, width: int, **kw) -> WaveCodec:
+    """The codec of a loaded model: FrameCodec for AIVC's FullNet,
+    ElicCodec (pipeline/elic.py) for ELIC."""
     if isinstance(cfg, ElicConfig):
-        from aivc_tpu_torch.pipeline.elic import ElicCodec
         return ElicCodec(cfg, model, height, width, **kw)
     return FrameCodec(cfg, model, height, width, **kw)

@@ -1,5 +1,6 @@
-"""ElicCodec: FrameCodec's wave plumbing around ELIC (models/elic.py), an
-intra-only model, so All-Intra only.
+"""ElicCodec: ELIC (models/elic.py), an intra-only model, so All-Intra
+only.  It holds ELIC's table, steps, stream parts and context loops;
+WaveCodec (pipeline/wave.py) the wave plumbing.
 
   encode_frames_launch: planes to 4:4:4, g_a, h_a, z rounded, h_s, then
       the ten context steps in order (group k's anchors, then its
@@ -23,29 +24,25 @@ sigma bins and the reconstructions agree bit for bit.  A step's symbols
 are its group's channels in order, each over the step's positions in
 raster order (``_gather``).
 
-The stream is FrameCodec's v1 chunk in the frame's CodecNet-z slot, and
+The stream is the dense v1 chunk in the frame's CodecNet-z slot, and
 the video header's schedule byte carries ``SCHED_ELIC``: a FrameCodec
 refuses an ELIC stream and an ElicCodec an AIVC one.
 
-Spans (tracing.py): ``launch`` (``launch.upload``, ``launch.planes``,
-``launch.nets``, ``launch.ctx`` a step with ``group`` and ``pass``);
-``finish`` (``finish.k1``, ``finish.pull``, ``finish.pack``); ``batch``
-(``batch.parse``, ``batch.upload``, ``batch.k2``, ``batch.nets``,
-``batch.ctx`` a step, its K2 launch a ``batch.k2`` inside).
+Spans (tracing.py): WaveCodec's; in ``launch`` also ``launch.upload``,
+``launch.planes``, ``launch.nets``, ``launch.ctx`` (a step, with
+``group`` and ``pass``); in ``batch`` ``batch.ctx`` (a step, its K2
+launch a ``batch.k2`` inside).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from aivc_tpu_torch import tracing
-from aivc_tpu_torch.coding import bitstream as bs
-from aivc_tpu_torch.coding import vrans
 from aivc_tpu_torch.coding.cdf import (
     PROB_SCALE,
     build_gaussian_table,
@@ -53,19 +50,16 @@ from aivc_tpu_torch.coding.cdf import (
     sigma_to_bin,
 )
 from aivc_tpu_torch.config import FRAME_I, ElicConfig
-from aivc_tpu_torch.device import resolve_device
 from aivc_tpu_torch.models.elic import Elic, anchor_mask
-from aivc_tpu_torch.pipeline.codec import (
+from aivc_tpu_torch.pipeline.wave import (
     SCHED_ELIC,
-    FrameCodec,
+    WaveCodec,
     canonical,
-    configure_determinism,
     planes_to_444,
-    switch_on,
 )
 
 
-class ElicCodec(FrameCodec):
+class ElicCodec(WaveCodec):
     """Per-resolution All-Intra codec around an Elic model."""
 
     intra_only = True
@@ -78,19 +72,7 @@ class ElicCodec(FrameCodec):
         if entropy_backend != "device" or debug or audit or mesh is not None:
             raise ValueError("ELIC codes with the device backend alone, "
                              "without debug, audit or a mesh")
-        self.backend = "device"
-        self.debug = self.audit = False
-        self.rate_priority = rate_priority
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            configure_determinism(cfg)
-        self.dc_offset = switch_on("AIVC_DC_OFFSET")
-        self.elide = False
-        self.mesh = self.band = None
-        self.cfg = cfg
-        self.model = model.to(self.device).eval()
-        self._set_geometry(height, width)
-        self._set_alphabet(cfg.ac_max_val)
+        super().__init__(cfg, model, height, width, device, rate_priority)
         prior = copy.deepcopy(model.pdf_z).cpu()
         z = build_z_table(prior, scale=PROB_SCALE, ac_max=self.ac_max)
         gauss = build_gaussian_table(scale=PROB_SCALE, ac_max=self.ac_max)
@@ -154,6 +136,10 @@ class ElicCodec(FrameCodec):
                   for k, p, _ in self.steps]
         return [-(-n // kk) * kk for n in parts]
 
+    def _stream_layout(self, parsed, kk: int, frame_type: int) -> List[int]:
+        """A wave's stream at K = kk: its parts' padded lengths."""
+        return self._n_pad(kk)
+
     def _check_intra(self, frame_type: int) -> None:
         if frame_type != FRAME_I:
             raise ValueError(f"{self.cfg.name} is an intra-only model: it "
@@ -179,9 +165,9 @@ class ElicCodec(FrameCodec):
         self._check_intra(frame_type)
         m, acv, k = self.model, self.ac_max, len(frames_u8)
         with tracing.span("launch.upload"):
-            orig_dev = self._to_device_planes(frames_u8)
+            orig = self._to_device_planes(frames_u8)
         with tracing.span("launch.planes"):
-            frame = planes_to_444(*orig_dev)
+            frame = planes_to_444(**orig)
         with tracing.span("launch.nets"):
             y = m.analyze(frame)
             z = canonical(torch.clamp(torch.round(m.hyper_analyze(y)), -acv,
@@ -201,62 +187,26 @@ class ElicCodec(FrameCodec):
                 done.append(cur)
         with tracing.span("launch.nets"):
             x_hat = m.synthesize(torch.cat(done, dim=1))
-        dc = None
         with tracing.span("launch.planes"):
             out, _ = self._cast_planes(x_hat)
-            if self.dc_offset:
-                out, dc = self._dc_correct_enc(
-                    out, dict(zip(("y", "u", "v"), orig_dev)))
-            ref444 = planes_to_444(out["y"], out["u"], out["v"])
+            out, dc = self._dc_correct_enc(out, orig)
+            decoded = self._split_decoded(out, k)
         return {"k": k, "frame_type": frame_type, "z": z, "steps": steps,
-                "dc": dc, "mof": None,
-                "decoded": self._split_decoded(out, ref444, k)}
+                "dc": dc, "decoded": decoded}
 
-    def _parts(self, w, kk: int):
-        """A wave's stream, part by part (z, then the ten steps): (symbols,
-        CDF rows), each padded to a multiple of kk."""
+    def _wave_parts(self, w):
+        """K from the frame's padded total at K = 8, and the wave's stream
+        part by part (z, then the ten steps): (symbols, CDF rows), each
+        padded to a multiple of K; all of it codec bytes (column 2), so
+        K1 marks no segment inside it."""
+        kk = self._pick_k(w["frame_type"], sum(self._n_pad(8)))
         yo = self._row_off["y"]
         parts = [self._z_seg(w["z"], "z", kk)]
         for q, bins in w["steps"]:
             parts.append(self._pad_seg(q.to(torch.int32) + self.ac_max,
                                        bins + yo, kk, self._pad_sym["y"],
                                        yo))
-        return parts
-
-    def _entropy_device(self, w):
-        """One K1 launch over the wave: per frame z, then the ten steps,
-        each part padded to a multiple of K."""
-        k, frame_type = w["k"], w["frame_type"]
-        with tracing.span("finish.k1") as sp:
-            kk = self._pick_k(frame_type, sum(self._n_pad(8)))
-            parts = self._parts(w, kk)
-            sym = torch.cat([s for s, _ in parts], dim=1).contiguous()
-            rows = torch.cat([r for _, r in parts], dim=1).contiguous()
-            buf, states, seg_g = vrans.encode_batch(sym, rows, self.table,
-                                                    kk)
-            n_pad = sym.shape[1]
-            sp.note(K=kk, steps=n_pad // kk)
-        with tracing.span("finish.pull"):
-            seg_np = seg_g.cpu().numpy().astype(np.int64)
-        with tracing.span("finish.pull"):
-            states_np = states.cpu().numpy()
-        totals = n_pad - seg_np[:, 0]
-        mmax = int(totals.max())
-        with tracing.span("finish.pull"):
-            tail = buf[:, n_pad - mmax:].cpu().numpy() if mmax else None
-        with tracing.span("finish.pack"):
-            dcs = self._dc_trailers(w)
-            frame_bytes, stats = [], self._base_stats(w)
-            for i in range(k):
-                t = int(totals[i])
-                words = (tail[i, mmax - t:] if t else np.empty(0, np.uint16))
-                chunk = vrans.serialize_chunk(kk, states_np[i], words)
-                fb = bs.pack_frame({"codecnet_z": chunk}, dc=dcs[i])
-                frame_bytes.append(fb)
-                stats[i].update({"bytes": len(fb), "mode_bytes": 0,
-                                 "codec_bytes": 2 * t, "k": kk})
-            self.note_coded_wave(frame_type, frame_bytes)
-        return frame_bytes, stats
+        return kk, parts, [2] * len(parts), None
 
     # ------------------------------------------------------------------
     # Decode
@@ -271,73 +221,33 @@ class ElicCodec(FrameCodec):
             mu, bins = self._step_params(k, p, hyper, done, cur, cache)
             with tracing.span("batch.k2", K=kk, steps=n // kk):
                 yo = self._row_off["y"]
-                rows = self._gather(bins, p) + yo
-                nraw = rows.shape[1]
-                rows = F.pad(rows, (0, n - nraw), value=yo)
-                syms, st, g = vrans.decode_batch(words, st,
-                                                 rows.contiguous(),
-                                                 self.table, kk, g)
-            q = self._scatter((syms[:, :nraw] - self.ac_max).to(
-                torch.float32), self.cfg.groups[k], p)
+                v, st, g = self._k2_seg(words, st, g,
+                                        self._gather(bins, p) + yo, n, kk,
+                                        yo)
+            q = self._scatter(v, self.cfg.groups[k], p)
             cur = torch.where(self._mask[p], q + mu, cur)
             return cur, st, g
 
-    @torch.no_grad()
-    def decode_frames_batch(self, frame_bytes_list, prev_refs, next_refs,
-                            frame_type: int, idx_rate: float,
-                            backend: Optional[str] = None):
+    def _decode_planes(self, chunks, prev_refs, next_refs, frame_type: int,
+                       idx_rate: float, backend: str):
         self._check_intra(frame_type)
-        if (backend or self.backend) != "device":
+        if backend != "device":
             raise ValueError("ELIC streams carry device-backend chunks")
-        k = len(frame_bytes_list)
-        with tracing.span("batch", wave=tracing.new_wave(), k=k,
-                          frame_type=frame_type):
-            with tracing.span("batch.parse"):
-                chunks = [bs.unpack_frame(fb) for fb in frame_bytes_list]
-                parsed = [vrans.parse_chunk(c["codecnet_z"], native=False)
-                          for c in chunks]
-                kk = parsed[0][2]
-                if any(p[2] != kk for p in parsed):
-                    raise ValueError("inconsistent vrans stream counts in a "
-                                     "wave")
-                pads = self._n_pad(kk)
-                mw = max(max(p[0].size for p in parsed), 1)
-                wb = np.zeros((k, mw), np.uint16)
-                for i, p in enumerate(parsed):
-                    wb[i, :p[0].size] = p[0]
-            with tracing.span("batch.upload"):
-                words = torch.from_numpy(wb).to(self.device)
-                st = torch.from_numpy(np.stack([p[1] for p in parsed])).to(
-                    self.device)
-                g = torch.zeros(k, dtype=torch.int32, device=self.device)
-            z, st, g = self._dec_z(words, st, g, pads[0], kk, self.cfg.n,
-                                   "z")
-            with tracing.span("batch.nets"):
-                hyper = self.model.hyper_synthesize(z)
-            done: List[torch.Tensor] = []
-            cache: Dict = {}
-            for (kg, p, _), n in zip(self.steps, pads[1:]):
-                if p == 0:
-                    cur = torch.zeros((k, self.cfg.groups[kg], self.hy,
-                                       self.wy), dtype=torch.float32,
-                                      device=self.device)
-                cur, st, g = self._decode_step(kg, p, words, st, g, n, kk,
-                                               hyper, done, cur, cache)
-                if p == 1:
-                    done.append(cur)
-            with tracing.span("batch.nets"):
-                x_hat = self.model.synthesize(torch.cat(done, dim=1))
-                out, _ = self._cast_planes(x_hat)
-            if self.dc_offset:
-                dcs = [c.get("__dc__") for c in chunks]
-                if any(d is None for d in dcs):
-                    raise ValueError("dc_offset enabled but a frame carries "
-                                     "no DC trailer")
-                with tracing.span("batch.upload"):
-                    dc = torch.tensor(dcs, dtype=torch.int32,
-                                      device=self.device)
-                with tracing.span("batch.nets"):
-                    out = self._apply_dc(out, dc)
-            with tracing.span("batch.nets"):
-                ref444 = planes_to_444(out["y"], out["u"], out["v"])
-            return self._split_decoded(out, ref444, k)
+        k = len(chunks)
+        kk, pads, words, st, g = self._decode_front(chunks, frame_type)
+        z, st, g = self._dec_z(words, st, g, pads[0], kk, self.cfg.n, "z")
+        with tracing.span("batch.nets"):
+            hyper = self.model.hyper_synthesize(z)
+        done: List[torch.Tensor] = []
+        cache: Dict = {}
+        for (kg, p, _), n in zip(self.steps, pads[1:]):
+            if p == 0:
+                cur = torch.zeros((k, self.cfg.groups[kg], self.hy, self.wy),
+                                  dtype=torch.float32, device=self.device)
+            cur, st, g = self._decode_step(kg, p, words, st, g, n, kk, hyper,
+                                           done, cur, cache)
+            if p == 1:
+                done.append(cur)
+        with tracing.span("batch.nets"):
+            x_hat = self.model.synthesize(torch.cat(done, dim=1))
+            return self._cast_planes(x_hat)[0]

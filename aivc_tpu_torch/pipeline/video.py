@@ -29,9 +29,9 @@ from aivc_tpu_torch.config import FRAME_I, CodingConfig
 from aivc_tpu_torch.device import resolve_device
 from aivc_tpu_torch.gop import GopStruct, generate_gop_struct
 from aivc_tpu_torch.ops.metrics import msssim
-from aivc_tpu_torch.pipeline.codec import (
+from aivc_tpu_torch.pipeline.wave import (
     DecodedFrame,
-    FrameCodec,
+    WaveCodec,
     planes_to_444,
 )
 
@@ -103,7 +103,7 @@ def lookahead() -> int:
     return n
 
 
-def encode_gop(codec: FrameCodec, gop: GopStruct,
+def encode_gop(codec: WaveCodec, gop: GopStruct,
                frames_u8: Sequence[Dict[str, np.ndarray]], idx_rate: float,
                first_idx: int, results: List[FrameResult],
                wave_batch: int = 1):
@@ -111,7 +111,7 @@ def encode_gop(codec: FrameCodec, gop: GopStruct,
     bytes, decoded frames by absolute index).
 
     A software pipeline (aivc_tpu/pipeline/video.py:94-133): each wave's
-    device half is launched (FrameCodec.encode_frames_launch) with its
+    device half is launched (WaveCodec.encode_frames_launch) with its
     references taken from earlier waves on the device, and up to
     ``lookahead()`` launched waves wait while the oldest is finished
     (encode_frames_finish: entropy coding and packing), in coding order,
@@ -201,12 +201,12 @@ class GopStreamStore:
         return [FrameResult(**r) for r in rows]
 
 
-def _decode_gop_chunk(codec: FrameCodec, gop_bytes: bytes, wave_batch: int,
+def _decode_gop_chunk(codec: WaveCodec, gop_bytes: bytes, wave_batch: int,
                       backend: str, resumed: bool = False
                       ) -> Dict[int, DecodedFrame]:
     """Decode one packed GOP chunk (indices local to the GOP).  For a
     ``resumed`` encode, each wave's bytes also replay the encoder's K
-    policy (FrameCodec.note_coded_wave)."""
+    policy (WaveCodec.note_coded_wave)."""
     with tracing.span("video.gop"):
         gop_header, frame_chunks = bs.unpack_gop(gop_bytes)
     gop = generate_gop_struct(gop_header.gop_struct_name)
@@ -235,7 +235,7 @@ def _ai_groups(n: int, wave_batch: int):
             for s in range(0, n, wave_batch)]
 
 
-def _encode_all_intra(codec: FrameCodec, frames, idx_rate: float,
+def _encode_all_intra(codec: WaveCodec, frames, idx_rate: float,
                       name: str, wave_batch: int, store, results,
                       decoded_all) -> List[bytes]:
     """All-Intra fast path: frames are independent, so they batch across
@@ -273,7 +273,7 @@ def _encode_all_intra(codec: FrameCodec, frames, idx_rate: float,
     return chunks_out
 
 
-def encode_video(codec: FrameCodec, frames: Sequence[Dict[str, np.ndarray]],
+def encode_video(codec: WaveCodec, frames: Sequence[Dict[str, np.ndarray]],
                  coding: CodingConfig, wave_batch: int = 1,
                  stream_dir: Optional[str] = None) -> EncodeResult:
     """Encode a sequence of uint8 YUV420 frames into one bitstream.
@@ -345,7 +345,7 @@ def encode_video(codec: FrameCodec, frames: Sequence[Dict[str, np.ndarray]],
                             decoded_frames=decoded_all, fps=n_frames / elapsed)
 
 
-def decode_video(codec: FrameCodec, data: bytes,
+def decode_video(codec: WaveCodec, data: bytes,
                  wave_batch: Optional[int] = None
                  ) -> Dict[int, DecodedFrame]:
     """Decode a muxed bitstream with the model alone: the wave grouping,

@@ -4,51 +4,26 @@
 
 Runs gop_rd_loss in eval mode (the forward phase of chip_smoke.py:
 bf16-r5, a 9-frame 1_GOP_8 of synthetic frames, AIVC_WARP=pallas) once to
-warm up, then times the forward in turns with the GDN layers on their own
-route (the turns named gdn_apply: ops/gdn.py:GDN, which on the card sends
-bf16 inputs to K4 at gdn_apply's rounding points) and on the exported
-fused GDN (gdn_fused, the turns named K4; an experiment of this script
-only), ROUNDS rounds of (gdn_apply, K4, K4, gdn_apply), and one forward
-under torch.profiler.  Prints one JSON
-object: the card's name and power limit, the seconds of each turn, the
-profiled wall time, the device's busy time (the union of its kernels'
-spans), the number of kernels launched and those that took the most
-device time.
+warm up, then times ROUNDS forwards, and one forward under
+torch.profiler.  Prints one JSON object: the card's name and power
+limit, the seconds of each forward, the profiled wall time, the device's
+busy time (the union of its kernels' spans), the number of kernels
+launched and those that took the most device time.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict
 
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 ROUNDS = 5
-
-
-@contextlib.contextmanager
-def gdn_on_k4(model: torch.nn.Module):
-    """Sends each GDN layer without clamp or low-precision parameters
-    (which gdn_pallas lacks) through gdn_fused while the block runs;
-    yields the number of layers sent."""
-    from aivc_tpu_torch.ops.gdn import GDN, gdn_fused
-
-    sent = [m for m in model.modules()
-            if isinstance(m, GDN) and not m.clamp and not m.lowp]
-    for m in sent:
-        m.forward = (lambda m: lambda x: gdn_fused(
-            x, m.beta, m.gamma, m.inverse))(m)
-    try:
-        yield len(sent)
-    finally:
-        for m in sent:
-            del m.forward
 
 
 def profile_call(fn, *args, top: int = 8) -> Dict:
@@ -102,24 +77,15 @@ def main() -> int:
     f444 = frames_444(synthetic_frames(9, args.height, args.width, seed=3),
                       dev)
     smoke.rd_forward(model, cfg, f444, args.idx_rate)        # warm-up
-    with gdn_on_k4(model) as n_k4:
-        smoke.rd_forward(model, cfg, f444, args.idx_rate)
-    secs: Dict[str, List[float]] = {"gdn_apply": [], "k4": []}
-    for _ in range(ROUNDS):
-        for route in ("gdn_apply", "k4", "k4", "gdn_apply"):
-            with (gdn_on_k4(model) if route == "k4"
-                  else contextlib.nullcontext()):
-                secs[route].append(smoke.rd_forward(
-                    model, cfg, f444, args.idx_rate)["seconds"])
+    secs = [smoke.rd_forward(model, cfg, f444, args.idx_rate)["seconds"]
+            for _ in range(ROUNDS)]
     prof = profile_call(smoke.rd_forward, model, cfg, f444, args.idx_rate)
     out = {"card": smoke.device_info()["smi"],
            "frame": [args.width, args.height],
-           "padded": list(f444[0].shape[2:]), "k4_layers": n_k4,
-           "forward_s": secs,
-           "mean_s": {k: sum(v) / len(v) for k, v in secs.items()}, **prof}
+           "padded": list(f444[0].shape[2:]), "forward_s": secs,
+           "mean_s": sum(secs) / len(secs), **prof}
     if "device_busy_ms" in prof:
-        out["busy_share"] = (prof["device_busy_ms"] / 1e3
-                             / out["mean_s"]["gdn_apply"])
+        out["busy_share"] = prof["device_busy_ms"] / 1e3 / out["mean_s"]
     print(json.dumps(out))
     return 0
 

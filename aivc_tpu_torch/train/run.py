@@ -228,7 +228,7 @@ def prefetch(make, workers: int, n: int):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    from aivc_tpu_torch.device import full_float32, resolve_device
+    from aivc_tpu_torch.device import resolve_device
 
     try:
         dev = resolve_device("cpu" if args.cpu else None)
@@ -376,7 +376,7 @@ def main(argv=None) -> int:
         warm = step_s[1:]
         draw_s = noise_draw_seconds(noise.shapes, dev, noise_seed)
         per_step = sum(warm) / len(warm) if warm else step_s[0]
-        f32 = full_float32(cfg)     # the step's TF32 rule
+        f32 = cfg.full_float32     # the step's TF32 rule
         peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB"
                 if dev.type == "cuda" else "not measured (host)")
         print(f"timing: {len(step_s)} steps on {dev.type}, first "

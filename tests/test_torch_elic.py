@@ -1,9 +1,11 @@
 """ELIC in the port (models/elic.py, pipeline/elic.py) against its plain
 float32 reference (tests/torch_elic_ref.py) on seeded random weights, at
 a tiny size of its own (N 16, M 40, groups 2/2/4/8/24, 64 x 96 frames):
-the stages, the context model's causality, the staged entropy decode
-and a bit-exact round trip through encode_video / decode_video."""
+the stages, the context model's causality, the staged entropy decode,
+the finish's pinned bytes and a bit-exact round trip through
+encode_video / decode_video."""
 
+import hashlib
 import json
 
 import numpy as np
@@ -12,8 +14,9 @@ import torch
 
 import torch_elic_ref as ref
 from aivc_tpu_torch import tracing
+from aivc_tpu_torch.coding import bitstream as bs
 from aivc_tpu_torch.coding import vrans
-from aivc_tpu_torch.config import CodingConfig, ElicConfig
+from aivc_tpu_torch.config import FRAME_I, CodingConfig, ElicConfig
 from aivc_tpu_torch.models.elic import Elic
 from aivc_tpu_torch.pipeline.codec import FrameCodec, make_codec
 from aivc_tpu_torch.pipeline.elic import ElicCodec
@@ -251,8 +254,8 @@ def test_staged_plain_decode_returns_the_coded_symbols(tree, frames):
     codec = _codec(TINY, tree)
     w = codec.encode_frames_launch(frames[:2], [None] * 2, [None] * 2, 0,
                                    0.0)
-    kk = 8
-    parts = codec._parts(w, kk)
+    kk, parts, _, _ = codec._wave_parts(w)
+    assert kk == 8
     assert [s.shape[1] for s, _ in parts] == codec._n_pad(kk)
     sym = torch.cat([s for s, _ in parts], 1)
     rows = torch.cat([r for _, r in parts], 1)
@@ -267,6 +270,69 @@ def test_staged_plain_decode_returns_the_coded_symbols(tree, frames):
         back, st, g = vrans.decode_plain(words, st, r, codec.table, kk, g)
         assert torch.equal(back, s)
     assert torch.equal(g.long(), n_pad - seg_g[:, 0].long())
+
+
+# Each frame's sha256 and stats from ``encode_frames_finish`` on the
+# seeded handles of ``_finish_handle``, as ELIC's finish wrote them when
+# it was its own method (before WaveCodec held the one K1 finish).
+FINISH_PINS = {
+    1: (["4d91c3203edfe6968066c24cffcffe16ae5f8f28976a9b6a9bd4ff98aff8b278"],
+        [1323], [1266]),
+    3: (["55e458e372079dbb4d2da7c77e3f97f2bd6dab68007bfa35e92b11f1501ebf04",
+         "bce9be5a9e4bb36d1ea4182e6c41cf60fffcdc70617b8643e6889884fa0ff1cc",
+         "3f0598f85aecb0f3a65663a2977d503e080d6d04b4bdd5d4b504ad445c3a3d5d"],
+        [1311, 1317, 1351], [1254, 1260, 1294]),
+}
+
+
+def _finish_handle(codec, k: int, seed: int) -> dict:
+    """A wave handle as the launch hands it to the finish, of seeded
+    integer values: z, each step's symbols and sigma bins, a DC row a
+    frame."""
+    gen = torch.Generator().manual_seed(seed)
+    acv = codec.ac_max
+    n_bins = codec.fused_rows.shape[0] - codec._row_off["y"]
+    z = torch.clamp(torch.round(2.0 * torch.randn(
+        (k, codec.cfg.n, codec.hz, codec.wz), generator=gen)),
+        -acv, acv - 1) + 0.0
+    steps = []
+    for kg, p, _ in codec.steps:
+        n = codec.cfg.groups[kg] * codec._pos[p].numel()
+        q = torch.clamp(torch.round(3.0 * torch.randn((k, n), generator=gen)),
+                        -acv, acv - 1) + 0.0
+        steps.append((q, torch.randint(0, n_bins, (k, n), generator=gen,
+                                       dtype=torch.int32)))
+    dc = torch.randint(-9, 10, (k, 3), generator=gen, dtype=torch.int32)
+    return {"k": k, "frame_type": FRAME_I, "z": z, "steps": steps,
+            "dc": dc, "decoded": None}
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("k,seed", [(1, 11), (3, 12)])
+def test_finish_bytes_are_pinned(tree, k, seed):
+    """The finish writes the pinned bytes and stats; the decode front
+    parses them, and the K2-segment helper (the plain decode on the host)
+    gives back z, every step's symbols and the DC rows."""
+    codec = _codec(TINY, tree)
+    w = _finish_handle(codec, k, seed)
+    fbs, _, stats = codec.encode_frames_finish(w)
+    shas, n_bytes, codec_bytes = FINISH_PINS[k]
+    assert [hashlib.sha256(fb).hexdigest() for fb in fbs] == shas
+    assert stats == [{"alpha_mean": 1.0, "beta_mean": 1.0, "bytes": b,
+                      "mode_bytes": 0, "codec_bytes": c, "k": 8}
+                     for b, c in zip(n_bytes, codec_bytes)]
+    chunks = [bs.unpack_frame(fb) for fb in fbs]
+    assert [c["__dc__"] for c in chunks] == [tuple(r)
+                                             for r in w["dc"].tolist()]
+    kk, pads, words, st, g = codec._decode_front(chunks, FRAME_I)
+    assert kk == 8 and pads == codec._n_pad(kk)
+    z, st, g = codec._dec_z(words, st, g, pads[0], kk, TINY.n, "z")
+    assert torch.equal(z, w["z"])
+    yo = codec._row_off["y"]
+    for (q, bins), n in zip(w["steps"], pads[1:]):
+        back, st, g = codec._k2_seg(words, st, g, bins + yo, n, kk, yo)
+        assert torch.equal(back, q)
+    assert g.tolist() == [c // 2 for c in codec_bytes]
 
 
 def test_a_decoded_wave_takes_eleven_k2_launches(tree, frames, monkeypatch):

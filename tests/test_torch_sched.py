@@ -18,7 +18,8 @@ import torch
 
 from aivc_tpu_torch.coding import bitstream as tbs
 from aivc_tpu_torch.pipeline import video as tvideo
-from aivc_tpu_torch.pipeline.codec import SCHED_SWITCHES, FrameCodec
+from aivc_tpu_torch.pipeline.codec import FrameCodec
+from aivc_tpu_torch.pipeline.wave import SCHED_SWITCHES
 from test_torch_dense_v1 import (H, R5, TINY, W, _coding, _jax_codec, env,
                                  models)  # noqa: F401
 

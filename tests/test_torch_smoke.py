@@ -437,22 +437,3 @@ def test_chip_smoke_alone_fails(tmp_path):
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
 
-
-def test_profile_k4_route_is_scoped():
-    """profile_forward's gdn_on_k4 sends the eligible GDN layers through
-    gdn_fused only inside its block."""
-    from aivc_tpu_torch.ops import gdn as tg
-    from aivc_tpu_torch.profile_forward import gdn_on_k4
-
-    model = torch.nn.Sequential(tg.GDN(128), tg.GDN(128, clamp=16.0),
-                                tg.GDN(128, lowp=True))
-    x = torch.randn((1, 128, 16, 32), generator=torch.Generator()
-                    .manual_seed(0))
-    with torch.no_grad(), gdn_on_k4(model) as n:
-        assert n == 1
-        assert torch.equal(model[0](x), tg.gdn_fused(
-            x, model[0].beta, model[0].gamma, False))
-    assert all("forward" not in vars(m) for m in model)
-    with torch.no_grad():
-        assert torch.equal(model[0](x), tg.gdn_apply(
-            x, model[0].beta, model[0].gamma, False))
