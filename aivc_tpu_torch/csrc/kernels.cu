@@ -21,10 +21,15 @@
 // K6 pad_stage    replaces no TPU kernel: the input of each replicate-padded
 //                 bf16 convolution of the nets, padded, cast and laid out
 //                 channels-last in one pass (ops/layers.py:pad_stage).
+// K7 conv1x1      replaces no TPU kernel: ELIC's 1x1 convolutions, channels-
+//                 last on the tensor cores, with the bias, ReLU, residual
+//                 add or sigmoid gate folded in (ops/conv1x1.py).
 //
 // Each kernel is bit-identical to its plain PyTorch version beside its
-// wrapper (coding/vrans.py, ops/warp.py, ops/gdn.py), except K4's bf16
-// paths, whose tensor cores sum in their own order: within 2 bf16 ulps.
+// wrapper (coding/vrans.py, ops/warp.py, ops/gdn.py, ops/layers.py,
+// ops/conv1x1.py), except K4's bf16 paths and K7, whose tensor cores sum
+// in their own order: within 2 bf16 ulps (K4), within one bf16 ulp of the
+// first rounding and what follows from it (K7).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1753,6 +1758,354 @@ __global__ void __launch_bounds__(kStageThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// K7: a channels-last bf16 1x1 convolution on the tensor cores, with the
+// bias, the activation and the residual folded into the same pass: ELIC's
+// bottlenecks and attention gates (models/elic.py through
+// ops/conv1x1.py:conv1x1_cuda).
+//
+// Replaces no TPU kernel.  On the TPU XLA fuses a 1x1 convolution's bias
+// and the elementwise work around it into the convolution.  PyTorch ran
+// each as a pass of its own around cuDNN: the bias add after every conv,
+// the ReLUs, the residual add, the sigmoid, the gate's product and sum,
+// with cuDNN's NCHW <-> NHWC transposes around every bf16 conv.  A
+// channels-last 1x1 convolution is a plain product [P pixels x K in] .
+// [K x N out], so one kernel reads its input once, writes its output once,
+// and does the elementwise work on the way in and out.
+//
+// Three epilogues, at the unfused path's rounding points (cuDNN rounds
+// the conv to bf16, then PyTorch's bias add, ReLU, sigmoid, product and
+// sum each round once), acc the f32 product:
+//   relu      out = relu(bf16(bf16(acc) + b))                 (conv a)
+//   residual  the A operand is relu(bf16(r + b_in)), r the raw output of
+//             the 3x3 conv before it (run without its bias b_in);
+//             out = bf16(x + bf16(bf16(acc) + b))             (conv c)
+//   gate      out = bf16(x + bf16(t * bf16(sigmoid(bf16(bf16(acc) + b)))))
+//             with sigmoid as PyTorch's CUDA op: 1 / (1 + expf(-v))
+// So only the order of the f32 K-sum departs from cuDNN's.
+//
+// What bounds it on the H100: bytes.  At ELIC's widths a pixel costs 2 K N
+// operations against 2 (K + N) bytes and more (the residual, the trunk):
+// 64 operations a byte for 192 -> 96, against the card's 295.  Design:
+// * the block's weights [NT x K] (NT of the N outputs: N <= 192 in one
+//   block column, else two or three, c1_ntile) stay in shared memory for
+//   the block's life, rows padded by 16 bytes so that the eight rows an
+//   ldmatrix reads land in eight bank groups (2 K + 16 bytes a row, an
+//   odd multiple of 16); the biases of a thread's outputs in registers;
+// * tiles of kC1Pix pixels x K stream through a ring of S stages by
+//   16-byte cp.async along C, S the most that leaves room for two blocks
+//   an SM (c1_stages: two blocks of 2 stages ran 192 -> 96 1.6x as fast
+//   as one block of 4);
+// * 2 x NT / 32 warps, each 32 pixels x 32 outputs, on mma.sync
+//   m16n8k16 (bf16 in, f32 sum), both operands by ldmatrix;
+// * the epilogue on the accumulator fragments, the residual and trunk
+//   rows of the tile brought into shared memory by cp.async while the
+//   products run; the outputs staged in shared memory and written out 16
+//   bytes a thread along C;
+// * a persistent grid, blocks over (pixel tiles, output columns), enough
+//   to fill every SM slot; the ragged pixel tail is zero-filled and not
+//   stored.
+// Measured (H100, PERF.md): 72.7% of the byte bound at [8, 192 -> 96, 544,
+// 960] (relu), 72.3% at [8, 96 -> 192, 544, 960] (residual), 50.6% for the
+// gate at [8, 192, 272, 480]; bits equal to cuDNN's on those inputs.
+// A pixel's output depends only on its own row, the weights and the
+// fixed order of the k-steps: the tile shape is chosen by (K, N) alone,
+// nothing splits K, so an image gives the same bits alone and in a wave.
+// ---------------------------------------------------------------------------
+constexpr int kC1Pix = 64;                 // pixels a tile (2 warp rows)
+constexpr int kC1KMax = 320;               // widest input
+constexpr int kC1NMax = 320;               // widest output
+constexpr int kC1NTile = 192;              // most outputs a block column
+constexpr int kC1MaxThreads = kC1Pix * kC1NTile / 32;   // 384
+constexpr int kC1Segs = 4;   // 16-byte output vectors a thread a tile
+
+enum { kC1Relu = 0, kC1Residual = 1, kC1Gate = 2 };
+
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ unsigned bf16x2_rn(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  unsigned u;
+  memcpy(&u, &h, 4);
+  return u;
+}
+
+// ReLU as PyTorch's (clamp_min(v, 0): NaN kept).
+__device__ __forceinline__ float c1_relu(float v) { return v < 0.0f ? 0.0f : v; }
+
+// One output element from its rounded sum s, bias b, residual x, trunk t.
+template <int EPI>
+__device__ __forceinline__ float c1_out(float s, float b, float x, float t) {
+  const float v = round_bf16(__fadd_rn(s, b));
+  if constexpr (EPI == kC1Relu) {
+    return c1_relu(v);
+  } else if constexpr (EPI == kC1Residual) {
+    return __fadd_rn(x, v);
+  } else {
+    const float sg =
+        round_bf16(__fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-v))));
+    return __fadd_rn(x, round_bf16(__fmul_rn(t, sg)));
+  }
+}
+
+// Issues the copy of pixels [p0, p0 + kC1Pix) of a [P x K] into a stage
+// (rows of lda): 16-byte cp.async, zeros past P.  The residual epilogue's
+// c1_relu_bias walks the same chunks in the same order.
+__device__ __forceinline__ void c1_fill(__nv_bfloat16* stage,
+                                        const __nv_bfloat16* a, int p0, int P,
+                                        int K, int lda) {
+  const int kc = K >> 3;
+  for (int seg = threadIdx.x; seg < kC1Pix * kc; seg += blockDim.x) {
+    const int row = seg / kc;
+    const int col = (seg - row * kc) << 3;
+    __nv_bfloat16* dst = stage + row * lda + col;
+    if (p0 + row < P) {
+      cp_async16(dst, a + (size_t)(p0 + row) * K + col);
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// The residual epilogue's A operand: relu(bf16(r + b_in)) over the chunks
+// this thread copied (its own cp.async writes are visible to it once
+// waited for; the barrier after makes them everyone's).
+__device__ __forceinline__ void c1_relu_bias(__nv_bfloat16* stage,
+                                             const __nv_bfloat16* b_in,
+                                             int K, int lda) {
+  const int kc = K >> 3;
+  for (int seg = threadIdx.x; seg < kC1Pix * kc; seg += blockDim.x) {
+    const int row = seg / kc;
+    const int col = (seg - row * kc) << 3;
+    uint4* v = reinterpret_cast<uint4*>(stage + row * lda + col);
+    const uint4 b = *reinterpret_cast<const uint4*>(b_in + col);
+    uint4 r = *v;
+    unsigned* rv = &r.x;
+    const unsigned* bv = &b.x;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      rv[i] = bf16x2_rn(
+          c1_relu(round_bf16(__fadd_rn(bf16_lo(rv[i]), bf16_lo(bv[i])))),
+          c1_relu(round_bf16(__fadd_rn(bf16_hi(rv[i]), bf16_hi(bv[i])))));
+    }
+    *v = r;
+  }
+}
+
+// Issues the copy of the epilogue's operand rows [p0, p0 + kC1Pix) x
+// outputs [n0, n0 + nv) of a [P x N] tensor into a tile of rows of ldo
+// (16-byte cp.async; rows past P and columns past nv are left as they
+// are: nothing reads them into a stored output).
+__device__ __forceinline__ void c1_fill_out(__nv_bfloat16* tile,
+                                            const __nv_bfloat16* src, int p0,
+                                            int P, int N, int n0, int nv,
+                                            int NT, int ldo) {
+  const int segs_row = NT >> 3;
+  for (int seg = threadIdx.x; seg < kC1Pix * segs_row; seg += blockDim.x) {
+    const int row = seg / segs_row;
+    const int col = (seg - row * segs_row) << 3;
+    if (p0 + row < P && col < nv) {
+      cp_async16(tile + row * ldo + col,
+                 src + (size_t)(p0 + row) * N + n0 + col);
+    }
+  }
+}
+
+// All but the newest n commit groups done (n in 0 .. 4).
+__device__ __forceinline__ void c1_wait(int n) {
+  switch (n) {
+    case 4: cp_async_wait<4>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 1: cp_async_wait<1>(); break;
+    default: cp_async_wait<0>(); break;
+  }
+}
+
+// a [P x K], w [N x K], bias [N], b_in [K] (residual), res and trunk
+// [P x N] (residual: res; gate: both), out [P x N]; all bf16, rows
+// contiguous.  Block (x, y): output columns [y NT, y NT + NT) of every
+// gridDim.x-th pixel tile from x; 2 NT / 32 warps.
+//
+// Commit groups: the A tiles of the ring, and for the residual and the
+// gate one more a tile, its res / trunk rows, issued after the top
+// barrier into a single tile (ot, tt) and waited for before the
+// epilogue; the prologue commits an empty group after each A tile so
+// that the top of every iteration waits for the same count.  The
+// epilogue runs on the fragments: each thread's rounded sums, its 8
+// biases (in registers), res / trunk pairs from shared memory, the
+// result written over res (or into ot for relu), then the tile goes
+// out 16 bytes a thread along C.
+template <int EPI>
+__global__ void __launch_bounds__(kC1MaxThreads)
+    conv1x1_tc_kernel(const __nv_bfloat16* __restrict__ a,
+                      const __nv_bfloat16* __restrict__ w,
+                      const __nv_bfloat16* __restrict__ bias,
+                      const __nv_bfloat16* __restrict__ b_in,
+                      const __nv_bfloat16* __restrict__ res,
+                      const __nv_bfloat16* __restrict__ trunk, int P, int K,
+                      int N, int NT, int S,
+                      __nv_bfloat16* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char c1_smem[];
+  constexpr bool kOperands = EPI != kC1Relu;
+  const int lda = K + 8;    // A and weight rows: 2 K + 16 bytes
+  const int ldo = NT + 8;   // output rows: 2 NT + 16 bytes
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(c1_smem);
+  __nv_bfloat16* as = ws + NT * lda;
+  __nv_bfloat16* ot = as + S * kC1Pix * lda;   // res, then the output
+  __nv_bfloat16* tt = ot + kC1Pix * ldo;       // trunk (gate)
+  __nv_bfloat16* bis = tt + (EPI == kC1Gate ? kC1Pix * ldo : 0);
+  const unsigned ws_s = (unsigned)__cvta_generic_to_shared(ws);
+  const unsigned as_s = (unsigned)__cvta_generic_to_shared(as);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wp = warp % (kC1Pix / 32);   // 32 pixels
+  const int wn = warp / (kC1Pix / 32);   // 32 outputs
+  const int n0 = blockIdx.y * NT;
+  const int nv = N - n0 < NT ? N - n0 : NT;   // outputs of this column
+  const int n_tiles = (P + kC1Pix - 1) / kC1Pix;
+  const int my_tiles =
+      (int)blockIdx.x < n_tiles
+          ? (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x
+          : 0;
+  const int kc = K >> 3;
+
+  // The column's weights (zero rows past N), with tile 0's commit group;
+  // b_in by plain stores; this thread's biases in registers.
+  for (int seg = threadIdx.x; seg < NT * kc; seg += blockDim.x) {
+    const int row = seg / kc;
+    const int col = (seg - row * kc) << 3;
+    __nv_bfloat16* dst = ws + row * lda + col;
+    if (row < nv) {
+      cp_async16(dst, w + (size_t)(n0 + row) * K + col);
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  if constexpr (EPI == kC1Residual) {
+    for (int i = threadIdx.x; i < K; i += blockDim.x) bis[i] = b_in[i];
+  }
+  float bv[4][2];
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = wn * 32 + ni * 8 + (lane & 3) * 2 + e;
+      bv[ni][e] = col < nv ? __bfloat162float(bias[n0 + col]) : 0.0f;
+    }
+  // The ring: tile t in stage t % S, S - 1 tiles ahead.
+  for (int t = 0; t < S - 1; ++t) {
+    if (t < my_tiles) {
+      c1_fill(as + t * kC1Pix * lda, a,
+              ((int)blockIdx.x + t * (int)gridDim.x) * kC1Pix, P, K, lda);
+    }
+    cp_async_commit();
+    if constexpr (kOperands) cp_async_commit();
+  }
+  __syncthreads();   // b_in is in
+
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;   // A: pixels
+  const int lcol = (lane >> 4) * 8;                      //    k
+  const int brow = (lane & 7) + (lane >> 4) * 8;         // B: outputs
+  const int bcol = ((lane >> 3) & 1) * 8;                //    k
+  const int segs_row = NT >> 3;
+  for (int it = 0; it < my_tiles; ++it) {
+    const int p0 = ((int)blockIdx.x + it * (int)gridDim.x) * kC1Pix;
+    const int slot = it % S;
+    c1_wait(kOperands ? 2 * (S - 2) : S - 2);   // tile it is in
+    if constexpr (EPI == kC1Residual) {
+      c1_relu_bias(as + slot * kC1Pix * lda, bis, K, lda);
+    }
+    __syncthreads();   // tile it is everyone's; tile it - 1 is out
+    if constexpr (kOperands) {
+      c1_fill_out(ot, res, p0, P, N, n0, nv, NT, ldo);
+      if constexpr (EPI == kC1Gate) {
+        c1_fill_out(tt, trunk, p0, P, N, n0, nv, NT, ldo);
+      }
+      cp_async_commit();
+    }
+    const int ahead = it + S - 1;
+    if (ahead < my_tiles) {
+      c1_fill(as + (ahead % S) * kC1Pix * lda, a,
+              p0 + (S - 1) * (int)gridDim.x * kC1Pix, P, K, lda);
+    }
+    cp_async_commit();
+
+    float acc[2][4][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
+    const unsigned st_s = as_s + slot * kC1Pix * lda * 2;
+#pragma unroll 2
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      unsigned af[2][4], bf[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        ldsm_x4(st_s + ((wp * 32 + mi * 16 + lrow) * lda + k0 + lcol) * 2,
+                af[mi]);
+      }
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        ldsm_x4(ws_s + ((wn * 32 + nb * 16 + brow) * lda + k0 + bcol) * 2,
+                bf[nb]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_bf16(acc[mi][ni], af[mi], bf[ni >> 1][(ni & 1) * 2],
+                   bf[ni >> 1][(ni & 1) * 2 + 1]);
+    }
+    if constexpr (kOperands) {
+      cp_async_wait<1>();   // this tile's res / trunk (not the A ahead)
+      __syncthreads();
+    }
+
+    // Epilogue on the fragments: rows (pixels) wp*32 + mi*16 + lane/4
+    // (+8), columns (outputs) wn*32 + ni*8 + 2*(lane%4) (+1).
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = wp * 32 + mi * 16 + (lane >> 2) + h * 8;
+          const int col = wn * 32 + ni * 8 + (lane & 3) * 2;
+          unsigned* o = reinterpret_cast<unsigned*>(ot + row * ldo + col);
+          unsigned xv = 0u, tv = 0u;
+          if constexpr (kOperands) xv = *o;
+          if constexpr (EPI == kC1Gate) {
+            tv = *reinterpret_cast<const unsigned*>(tt + row * ldo + col);
+          }
+          *o = bf16x2_rn(
+              c1_out<EPI>(round_bf16(acc[mi][ni][h * 2]), bv[ni][0],
+                          bf16_lo(xv), bf16_lo(tv)),
+              c1_out<EPI>(round_bf16(acc[mi][ni][h * 2 + 1]), bv[ni][1],
+                          bf16_hi(xv), bf16_hi(tv)));
+        }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kC1Segs; ++j) {
+      const int seg = threadIdx.x + j * blockDim.x;
+      const int row = seg / segs_row;
+      const int col = (seg - row * segs_row) << 3;
+      if (p0 + row < P && col < nv) {
+        *reinterpret_cast<uint4*>(out + (size_t)(p0 + row) * N + n0 + col) =
+            *reinterpret_cast<const uint4*>(ot + row * ldo + col);
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
 // A K2 block: min(K, kDecodeThreads) threads, at least one warp.
 // kDecodeThreads (1024) was K2's fastest of 1024, 512 and 256 threads at
 // K = 2048 on the H100 (PERF.md).
@@ -1943,6 +2296,92 @@ cudaError_t gdn_layer_launch(const void* x, const void* g_hi,
       static_cast<const __nv_bfloat16*>(g_hi),
       static_cast<const __nv_bfloat16*>(g_lo), beta, HW, inverse, vec,
       static_cast<typename L::Out*>(out));
+  return cudaGetLastError();
+}
+
+size_t c1_smem_bytes(int epi, int K, int NT, int S) {
+  return 2 * ((size_t)NT * (K + 8) + (size_t)S * kC1Pix * (K + 8) +
+              (size_t)(epi == kC1Gate ? 2 : 1) * kC1Pix * (NT + 8) + K);
+}
+
+// Shared memory of one H100 SM, of which each resident block also takes
+// 1 KB for the system, and the most one block may have (227 KB).
+constexpr size_t kSmemPerSm = 233472;
+constexpr int kMaxSmemBlock = 232448;
+
+// K7's ring: the most stages (4 to 2) that leave room for two blocks an
+// SM, else the most that fit one.  A function of (EPI, K, NT).
+int c1_stages(int epi, int K, int NT) {
+  for (int blocks = 2; blocks >= 1; --blocks) {
+    for (int s = 4; s >= 2; --s) {
+      const size_t b = c1_smem_bytes(epi, K, NT, s);
+      if (b <= (size_t)kMaxSmemBlock && blocks * (b + 1024) <= kSmemPerSm) {
+        return s;
+      }
+    }
+  }
+  return 0;
+}
+
+// K7's block column: the fewest columns of at most kC1NTile outputs (a
+// multiple of 32) whose block fits shared memory (N <= 192 in one column,
+// 320 in two, the gate at K 320 in three).  A function of (EPI, K, N).
+int c1_ntile(int epi, int K, int N) {
+  for (int cols = (N + kC1NTile - 1) / kC1NTile; cols <= N / 32 + 1;
+       ++cols) {
+    const int per = (N + cols - 1) / cols;
+    const int nt = (per + 31) / 32 * 32;
+    if (c1_stages(epi, K, nt) > 0) return nt;
+  }
+  return 0;
+}
+
+// A persistent launch of conv1x1_tc_kernel<EPI>: enough blocks to fill
+// every SM slot once over the output columns, at most one per pixel tile.
+// The slots of each (K, NT) are found at its first launch on each device
+// and kept, since the nets launch K7 about a hundred times a wave.
+template <int EPI>
+cudaError_t conv1x1_launch(const void* a, const void* w, const void* bias,
+                           const void* b_in, const void* res,
+                           const void* trunk, int P, int K, int N,
+                           void* out, cudaStream_t stream) {
+  static long slots[64][kC1KMax / 16 + 1][kC1NTile / 32 + 1] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  const int NT = c1_ntile(EPI, K, N);
+  if (NT == 0) return cudaErrorInvalidValue;
+  const int S = c1_stages(EPI, K, NT);
+  const size_t smem = c1_smem_bytes(EPI, K, NT, S);
+  const int threads = kC1Pix * NT / 32;
+  long& sl = slots[dev][K / 16][NT / 32];
+  if (sl == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = set_smem(conv1x1_tc_kernel<EPI>, kMaxSmemBlock);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, conv1x1_tc_kernel<EPI>, threads, smem);
+    }
+    if (err != cudaSuccess) return err;
+    sl = (long)sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const long cols = (N + NT - 1) / NT;
+  const long n_tiles = (P + kC1Pix - 1) / kC1Pix;
+  const long per_col = (sl + cols - 1) / cols;
+  const dim3 grid((unsigned)(per_col < n_tiles ? per_col : n_tiles),
+                  (unsigned)cols);
+  conv1x1_tc_kernel<EPI><<<grid, threads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a),
+      static_cast<const __nv_bfloat16*>(w),
+      static_cast<const __nv_bfloat16*>(bias),
+      static_cast<const __nv_bfloat16*>(b_in),
+      static_cast<const __nv_bfloat16*>(res),
+      static_cast<const __nv_bfloat16*>(trunk), P, K, N, NT, S,
+      static_cast<__nv_bfloat16*>(out));
   return cudaGetLastError();
 }
 
@@ -2263,6 +2702,42 @@ int aivc_warp_vclamped(const float* x, const float* flow, int B, int C,
                                                         (float)vmax, out);
   }
   return (int)cudaGetLastError();
+}
+
+// K7.  a bf16 [P, K] (channels-last pixels), w bf16 [N, K], bias bf16
+// [N]; epi 0 relu, 1 residual (b_in bf16 [K], res bf16 [P, N]), 2 gate
+// (res, trunk bf16 [P, N]).  K and N multiples of 16 from 16 to 320,
+// every pointer 16-byte aligned.  Out: bf16 [P, N].
+int aivc_conv1x1(const void* a, const void* w, const void* bias,
+                 const void* b_in, const void* res, const void* trunk, int P,
+                 int K, int N, int epi, void* out, cudaStream_t stream) {
+  if (P < 0 || K < 16 || K > kC1KMax || K % 16 != 0 || N < 16 ||
+      N > kC1NMax || N % 16 != 0 || epi < 0 || epi > 2) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const void* need[6] = {a, w, bias, epi == 1 ? b_in : a,
+                         epi == 0 ? a : res, epi == 2 ? trunk : a};
+  for (const void* ptr : need) {
+    if (ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (P == 0) return (int)cudaGetLastError();
+  cudaError_t err;
+  if (epi == 0) {
+    err = conv1x1_launch<kC1Relu>(a, w, bias, b_in, res, trunk, P, K, N, out,
+                                  stream);
+  } else if (epi == 1) {
+    err = conv1x1_launch<kC1Residual>(a, w, bias, b_in, res, trunk, P, K, N,
+                                      out, stream);
+  } else {
+    err = conv1x1_launch<kC1Gate>(a, w, bias, b_in, res, trunk, P, K, N,
+                                  out, stream);
+  }
+  return (int)err;
 }
 
 }  // extern "C"

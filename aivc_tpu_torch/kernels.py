@@ -6,9 +6,9 @@ it.  The library is built at first use into ``aivc_tpu_torch/_build/``,
 keyed by a hash of the source and the flags, so a fresh checkout builds it
 itself.  Nothing here runs at import time.
 
-Each wrapper of a kernel (coding/vrans.py, ops/warp.py, ops/gdn.py) adds
-one to its entry of ``LAUNCHES`` where it launches the kernel, and nowhere
-else.  The rANS wrappers also add the dependent steps each launch walks
+Each wrapper of a kernel (coding/vrans.py, ops/warp.py, ops/gdn.py,
+ops/layers.py, ops/conv1x1.py) adds one to its entry of ``LAUNCHES``
+where it launches the kernel, and nowhere else.  The rANS wrappers also add the dependent steps each launch walks
 (n_pad / K) to ``STEPS``, on the host, with no synchronisation.  The GDN
 layers' kernel (ops/gdn.py:gdn_layer_cuda, K4 at gdn_apply's rounding
 points) counts in ``LAUNCHES["gdn_layer"]``, apart from the exported
@@ -17,7 +17,11 @@ it (ops/gdn.py:GDN) adds one to ``FALLBACKS["gdn_layer"]``, so that the
 layers' hit share is LAUNCHES / (LAUNCHES + FALLBACKS) of "gdn_layer".
 The conv stage K6 (ops/layers.py:pad_stage_cuda) counts the same way:
 ``LAUNCHES["conv_stage"]``, and a ConvBlock or UpBlock call on the card
-that pads its input the other way, ``FALLBACKS["conv_stage"]``.
+that pads its input the other way, ``FALLBACKS["conv_stage"]``.  So does
+K7 (ops/conv1x1.py:conv1x1_cuda): ``LAUNCHES["conv1x1"]``, and in
+``FALLBACKS["conv1x1"]`` each 1x1 conv of an ELIC Bottleneck or Attention
+call on the card that took the unfused route (two a Bottleneck, the gate
+of an Attention), so that the share is one of 1x1 convs.
 """
 
 from __future__ import annotations
@@ -47,9 +51,9 @@ MAX_SMEM = 232448
 
 LAUNCHES = {"rans_encode": 0, "rans_decode": 0, "warp_packed": 0,
             "gdn_fused": 0, "warp_vclamped": 0, "gdn_layer": 0,
-            "conv_stage": 0}
+            "conv_stage": 0, "conv1x1": 0}
 STEPS = {"rans_encode": 0, "rans_decode": 0}
-FALLBACKS = {"gdn_layer": 0, "conv_stage": 0}
+FALLBACKS = {"gdn_layer": 0, "conv_stage": 0, "conv1x1": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: dict = {}
@@ -143,6 +147,9 @@ def lib() -> ctypes.CDLL:
         handle.aivc_pad_stage.argtypes = [_P, _I, _I, _I, _I, _I, _I, _I, _I,
                                           _P, _P]
         handle.aivc_pad_stage.restype = _I
+        handle.aivc_conv1x1.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                        _I, _P, _P]
+        handle.aivc_conv1x1.restype = _I
         handle.aivc_warp_vclamped.argtypes = [_P, _P, _I, _I, _I, _I, _I,
                                               _P, _P]
         handle.aivc_warp_vclamped.restype = _I

@@ -42,6 +42,23 @@ Departures from the paper, all of the codec's making:
 * scales are bounded below by 0.11 and coded with a Gaussian quantised
   to the codec's 64 log-spaced scale bins (coding/cdf.py), symbols
   clipped to +-ac_max_val.
+
+The staged route of g_a and g_s (bf16 on the card, no autograd graph:
+``ops/layers.py:takes_stage``, and every 1x1 width one that kernel K7
+takes): the activations stay channels-last bf16 from the transform's
+entry to its exit.  The frame (g_a) or y_hat (g_s) enters through kernel
+K6 (``pad_stage``, pad 0; the frame's 3 channels with zeros up to 8), the
+strided convs run as ``Conv.staged`` with their cached channels-last
+weights, the transposed convs with a bf16 channels-last weight made once
+per parameter version (``TConv.staged``), and every bottleneck and gate
+through K7 (ops/conv1x1.py): conv a with its bias and ReLU, the 3x3 conv
+without its bias, conv c taking that bias and ReLU on its load and the
+residual in its epilogue, the gate its bias, sigmoid, product and sum.
+The transform returns NCHW float32 (``nchw_f32``), as on the other route,
+which the host, float32 and training take as before.  K7's launches count
+in ``kernels.LAUNCHES["conv1x1"]``; each 1x1 conv of a Bottleneck or
+Attention call on the card on the other route in
+``kernels.FALLBACKS["conv1x1"]``.
 """
 
 from __future__ import annotations
@@ -52,9 +69,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from aivc_tpu_torch import kernels
 from aivc_tpu_torch.config import ElicConfig
+from aivc_tpu_torch.ops import conv1x1 as c1
+from aivc_tpu_torch.ops import layers
 from aivc_tpu_torch.ops.entropy_models import FactorizedPrior
-from aivc_tpu_torch.ops.layers import DTYPES, Conv
+from aivc_tpu_torch.ops.layers import DTYPES, Conv, nchw_f32
 
 SCALE_MIN = 0.11
 
@@ -76,6 +96,7 @@ class TConv(nn.Module):
         self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
         self.bias = nn.Parameter(torch.zeros(cout))
         self.dt = DTYPES[dtype]
+        self._staged = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dt
@@ -83,6 +104,35 @@ class TConv(nn.Module):
         w = self.weight.transpose(0, 1).contiguous().to(dt)
         return F.conv_transpose2d(x.to(dt), w, self.bias.to(dt), stride=2,
                                   padding=k // 2, output_padding=1)
+
+    def staged_params(self):
+        """(weight [cin, co, k, k] bf16 channels-last, bias [co] bf16),
+        co the outputs rounded up to 8 with zeros (g_s's last conv: 3 -> 8,
+        which cuDNN's NHWC kernels run 1.16x as fast as 3 on the H100):
+        made again only after the parameters change, keyed as
+        ``Conv.staged_params`` keys its cache."""
+        p = (self.weight, self.bias)
+        key = None if any(t.is_inference() for t in p) else tuple(
+            v for t in p for v in (t._version, t.data_ptr()))
+        if key is None or self._staged is None or self._staged[0] != key:
+            with torch.no_grad():
+                pad = -self.weight.shape[0] % 8
+                w = F.pad(self.weight.transpose(0, 1),
+                          (0, 0, 0, 0, 0, pad))
+                self._staged = (key, (
+                    w.to(self.dt).contiguous(
+                        memory_format=torch.channels_last),
+                    F.pad(self.bias, (0, pad)).to(self.dt)))
+        return self._staged[1]
+
+    def staged(self, x: torch.Tensor) -> torch.Tensor:
+        """The staged route: x bf16 channels-last; out channels-last (a
+        view of the first outputs where they were rounded up)."""
+        w, b = self.staged_params()
+        k = self.weight.shape[-1]
+        y = F.conv_transpose2d(x, w, b, stride=2, padding=k // 2,
+                               output_padding=1)
+        return y[:, :self.weight.shape[0]]
 
 
 class MaskedConv(Conv):
@@ -101,6 +151,12 @@ class MaskedConv(Conv):
                         self.bias.to(dt), padding=self.padding)
 
 
+def _k7_params(conv: Conv):
+    """A 1x1 conv's cached bf16 (weight [N, K], bias [N]) for K7."""
+    w, b = conv.staged_params()
+    return w.flatten(1), b
+
+
 class Bottleneck(nn.Module):
     def __init__(self, c: int, dtype: str):
         super().__init__()
@@ -109,7 +165,17 @@ class Bottleneck(nn.Module):
         self.c = Conv(c // 2, c, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if layers._on_card(x):
+            kernels.FALLBACKS["conv1x1"] += 2
         return x + self.c(torch.relu(self.b(torch.relu(self.a(x)))))
+
+    def staged(self, x: torch.Tensor) -> torch.Tensor:
+        """The staged route: x bf16 channels-last, out the same."""
+        h = c1.conv1x1(x, *_k7_params(self.a), "relu")
+        w, bias_in = self.b.staged_params()
+        r = F.conv2d(h, w, None, padding=self.b.padding)
+        return c1.conv1x1(r, *_k7_params(self.c), "residual",
+                          bias_in=bias_in, residual=x)
 
 
 class Attention(nn.Module):
@@ -121,11 +187,22 @@ class Attention(nn.Module):
         self.gate = Conv(c, c, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if layers._on_card(x):
+            kernels.FALLBACKS["conv1x1"] += 1
         t = b = x
         for i in range(3):
             t = getattr(self, f"trunk_{i}")(t)
             b = getattr(self, f"branch_{i}")(b)
         return x + t * torch.sigmoid(self.gate(b))
+
+    def staged(self, x: torch.Tensor) -> torch.Tensor:
+        """The staged route: x bf16 channels-last, out the same."""
+        t = b = x
+        for i in range(3):
+            t = getattr(self, f"trunk_{i}").staged(t)
+            b = getattr(self, f"branch_{i}").staged(b)
+        return c1.conv1x1(b, *_k7_params(self.gate), "gate", residual=x,
+                          trunk=t)
 
 
 class Stack(nn.Module):
@@ -142,6 +219,12 @@ class Stack(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for name in self.order:
             x = torch.relu(x) if name is None else getattr(self, name)(x)
+        return x
+
+    def staged(self, x: torch.Tensor) -> torch.Tensor:
+        """Each layer's staged route in order (g_a and g_s: no ReLU)."""
+        for name in self.order:
+            x = getattr(self, name).staged(x)
         return x
 
 
@@ -184,6 +267,9 @@ class Elic(nn.Module):
                           ("up_1", TConv(n, 3 * n // 2, d)), RELU,
                           ("conv_0", _conv(3 * n // 2, 2 * m, 3, d))])
         self.pdf_z = FactorizedPrior(n)
+        # K7 takes every 1x1 conv of the bottlenecks and gates.
+        self.k7_widths = all(c1.fits(k, o) for c in (n, m)
+                             for k, o in ((c, c // 2), (c // 2, c), (c, c)))
         ch, cc = cfg.ctx_hidden
         ah, ao = cfg.agg_hidden
         done = 0
@@ -202,8 +288,22 @@ class Elic(nn.Module):
             done += g
 
     # -- stages (float32 in and out) --------------------------------------
+    def takes_stage(self, x: torch.Tensor, first: nn.Module) -> bool:
+        """The staged route for a transform whose first layer is
+        ``first``: ops/layers.py:takes_stage, and widths K7 takes."""
+        return self.k7_widths and layers.takes_stage(x, first)
+
+    def _staged(self, stack: Stack, x: torch.Tensor,
+                channels: Optional[int] = None) -> torch.Tensor:
+        x = x.detach()
+        x = layers.pad_stage(x.contiguous(memory_format=kernels.layout(x)),
+                             0, channels)
+        return nchw_f32(stack.staged(x))
+
     def analyze(self, x: torch.Tensor) -> torch.Tensor:
         """Padded 4:4:4 frame [B, 3, H, W] -> y [B, M, H/16, W/16]."""
+        if self.takes_stage(x, self.g_a.conv_0):
+            return self._staged(self.g_a, x, self.g_a.conv_0.stage_channels)
         return self.g_a(x.to(self.dt)).float()
 
     def hyper_analyze(self, y: torch.Tensor) -> torch.Tensor:
@@ -238,4 +338,6 @@ class Elic(nn.Module):
 
     def synthesize(self, y_hat: torch.Tensor) -> torch.Tensor:
         """y_hat [B, M, h, w] -> the 4:4:4 frame [B, 3, 16 h, 16 w]."""
+        if self.takes_stage(y_hat, self.g_s.att_0.gate):
+            return self._staged(self.g_s, y_hat)
         return self.g_s(y_hat.to(self.dt)).float()

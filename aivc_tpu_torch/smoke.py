@@ -91,6 +91,7 @@ from aivc_tpu_torch.coding import range_coder, vrans
 from aivc_tpu_torch.config import FRAME_B, FRAME_P, CodingConfig
 from aivc_tpu_torch.gop import generate_gop_struct
 from aivc_tpu_torch.io.yuv import YuvReader, YuvWriter, parse_geometry
+from aivc_tpu_torch.ops import conv1x1 as c1_ops
 from aivc_tpu_torch.ops import gdn as gdn_ops
 from aivc_tpu_torch.ops import layers as layer_ops
 from aivc_tpu_torch.ops import warp as warp_ops
@@ -192,6 +193,8 @@ KERNEL_SOURCES = {
                       "aivc_tpu/ops/warp_pallas.py:113"),
     # K6, the input of each replicate-padded bf16 conv of the nets
     "conv_stage": ("aivc_tpu_torch/csrc/kernels.cu", "none"),
+    # K7, ELIC's 1x1 convs with their bias and epilogue
+    "conv1x1": ("aivc_tpu_torch/csrc/kernels.cu", "none"),
 }
 FORWARD_GOP = "1_GOP_8"
 
@@ -1009,6 +1012,213 @@ def check_conv_stage(device: torch.device, reps: int = 10,
                    pad=pad, channels=got.shape[1])
         recs.append(rec)
     return dict(recs[0], cases=recs, launches=launches)
+
+
+def bf16_step(t: torch.Tensor, up: bool) -> torch.Tensor:
+    """The bf16 neighbour of each value of bf16 ``t`` toward +inf (``up``)
+    or -inf, through zero (+0 and -0 step to the smallest subnormal of
+    the direction's sign); finite values only."""
+    i = t.view(torch.int16).to(torch.int32) & 0xFFFF
+    neg = i >= 0x8000
+    mag = i & 0x7FFF
+    grows = ~neg if up else neg
+    cross = (mag == 0) & ~grows
+    mag = torch.where(grows, mag + 1, torch.where(cross, 1, mag - 1))
+    neg = torch.where(cross, ~neg, neg)
+    bits = torch.where(neg, mag | 0x8000, mag)
+    bits = torch.where(bits >= 0x8000, bits - 0x10000, bits)
+    return bits.to(torch.int16).view(torch.bfloat16)
+
+
+def _bf16_directed(v: torch.Tensor, up: bool) -> torch.Tensor:
+    """f32 v rounded to bf16 toward +inf (``up``) or -inf."""
+    r = v.to(torch.bfloat16)
+    off = r.float() < v if up else r.float() > v
+    return torch.where(off, bf16_step(r, up), r)
+
+
+@torch.no_grad()
+def conv1x1_band(x, weight, bias, epilogue, bias_in=None, residual=None,
+                 trunk=None):
+    """(lo, hi) float32: the outputs K7 may give where the plain version
+    (its own order of the sum) gives its own.  The tensor cores sum the K
+    products in another order than cuDNN: each sum is within K 2^-23 of
+    the sum of |products| of the exact one (a truncating f32 adder), so
+    the two within 2 K 2^-23 of it (e), and the plain version's rounded
+    sum s lies within half a bf16 ulp of its own.  So the kernel's rounded
+    sum lies between bf16 floor(step_down(s) - e) and ceil(step_up(s) +
+    e): one bf16 ulp of the first rounding, more only where the sum
+    cancels.  Every epilogue after it is monotone in that sum (the gate
+    decreasing where the trunk is negative), so the output lies between
+    the plain epilogue at the two ends."""
+    n, k = weight.shape
+    a = x
+    if epilogue == "residual":
+        a = torch.relu(x + bias_in.view(1, -1, 1, 1))
+    w4 = weight.view(n, k, 1, 1)
+    s = F.conv2d(a, w4)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        mag = F.conv2d(a.float().abs(), w4.float().abs())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    e = 2.0 * k * 2.0 ** -23 * mag
+    lo = _bf16_directed(bf16_step(s, False).float() - e, False)
+    hi = _bf16_directed(bf16_step(s, True).float() + e, True)
+    ends = [c1_ops.epilogue_plain(t, bias, epilogue, residual, trunk).float()
+            for t in (lo, hi)]
+    return torch.minimum(*ends), torch.maximum(*ends)
+
+
+def conv1x1_within(out, x, weight, bias, epilogue, bias_in=None,
+                   residual=None, trunk=None) -> float:
+    """Share of K7's outputs ``out`` inside ``conv1x1_band`` of its
+    inputs, an image at a time (the band of a 1080p wave of 8 would hold
+    tens of GB); 1 where every one is."""
+    inside = 0
+    for i in range(x.shape[0]):
+        def one(t):
+            return None if t is None else t[i:i + 1]
+        lo, hi = conv1x1_band(one(x), weight, bias, epilogue, bias_in,
+                              one(residual), one(trunk))
+        o = out[i:i + 1].float()
+        inside += int(((o >= lo) & (o <= hi)).sum())
+    return inside / out.numel()
+
+
+# K7's cases (K, N, epilogue, [B, H, W]): the 1x1 convs of ELIC-N192-M320's
+# transforms at their shapes in a 1080p wave of 8: a bottleneck's conv a
+# and conv c at 544 x 960, the attention's gate at 272 x 480, and the
+# M-wide ones (g_a's last attention, g_s's first) at 68 x 120.
+CONV1X1_CASES = (
+    (192, 96, "relu", (8, 544, 960)),
+    (96, 192, "residual", (8, 544, 960)),
+    (192, 192, "gate", (8, 272, 480)),
+    (320, 160, "relu", (8, 68, 120)),
+    (160, 320, "residual", (8, 68, 120)),
+    (320, 320, "gate", (8, 68, 120)))
+
+
+def conv1x1_inputs(device, k, n, shape, seed, layout=torch.channels_last):
+    """Seeded bf16 (x, weight, bias, bias_in, residual, trunk) of one K7
+    case: activations of unit scale in ``layout``, weights of 1 / sqrt(k),
+    biases of 0.3."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, h, w = shape
+
+    def act(c):
+        return torch.randn((b, c, h, w), generator=g, device=device).to(
+            torch.bfloat16).contiguous(memory_format=layout)
+
+    def vec(*size, scale):
+        return (torch.randn(size, generator=g, device=device) * scale).to(
+            torch.bfloat16)
+
+    return (act(k), vec(n, k, scale=k ** -0.5), vec(n, scale=0.3),
+            vec(k, scale=0.3), act(n), act(n))
+
+
+@torch.no_grad()
+def check_conv1x1(device: torch.device, reps: int = 10,
+                  cases=CONV1X1_CASES) -> Dict:
+    """K7 (ops/conv1x1.py:conv1x1, the kernel on the card) at each case's
+    shape: every output within ``conv1x1_band`` of its plain version, the
+    share that differs from it, the time against its bound (x, the
+    residual and the trunk read once, the output written once; the
+    products on the tensor cores), the plain version's time, and the
+    library passes the module ran before it on NCHW tensors (cuDNN's conv
+    with its bias pass, then the epilogue's elementwise passes)."""
+    recs, launches = [], 0
+    for i, (k, n, epi, shape) in enumerate(cases):
+        x, w, b, b_in, res, trunk = conv1x1_inputs(device, k, n, shape, i)
+        args = (x, w, b, epi, b_in, res, trunk)
+        before = kernels.LAUNCHES["conv1x1"]
+        got = c1_ops.conv1x1(*args)
+        launches += kernels.LAUNCHES["conv1x1"] - before
+        plain = c1_ops.conv1x1_plain(*args)
+        inside = conv1x1_within(got, *args)
+        if inside != 1.0:
+            raise AssertionError(f"conv1x1 {k} -> {n} {epi} {shape}: "
+                                 f"{1 - inside:.3e} of the outputs outside "
+                                 f"the band of its plain version")
+        differ = float((got != plain).float().mean())
+        ms = time_ms(lambda: c1_ops.conv1x1(*args), device, reps)
+        plain_ms = time_ms(lambda: c1_ops.conv1x1_plain(*args), device, reps)
+        nchw = [t.contiguous() for t in (x, res, trunk)]
+        w4 = w.view(n, k, 1, 1)
+
+        def library():
+            if epi == "relu":
+                return torch.relu(F.conv2d(nchw[0], w4, b))
+            if epi == "residual":
+                return nchw[1] + F.conv2d(
+                    torch.relu(nchw[0] + b_in.view(1, -1, 1, 1)), w4, b)
+            return nchw[1] + nchw[2] * torch.sigmoid(F.conv2d(nchw[0], w4, b))
+
+        lib_ms = time_ms(library, device, reps)
+        extra = {"relu": 0, "residual": 1, "gate": 2}[epi]
+        px = x.numel() // k
+        rec = _record("conv1x1", 0.0, ms, plain_ms,
+                      2 * px * (k + n * (1 + extra)) + 2 * n * k,
+                      2 * px * k * n, library_ms=lib_ms,
+                      ops_per_s=BF16_TC_OPS_PER_S)
+        rec.update(k=k, n=n, epilogue=epi, shape=shape, differing=differ)
+        recs.append(rec)
+        del x, w, b, b_in, res, trunk, args, got, plain, nchw
+    return dict(recs[0], cases=recs, launches=launches)
+
+
+def seeded_elic(cfg, device, seed: int = 7, gain: float = 6.0):
+    """An ELIC of ``cfg`` on ``device`` in eval mode, its weights normal
+    of std 1 / sqrt(fan_in) (g_a's last conv times ``gain``, so that a
+    good share of the y symbols is non-zero), biases of std 0.1."""
+    from aivc_tpu_torch.models.elic import Elic
+
+    model = Elic(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in sorted(model.named_parameters()):
+            v = torch.randn(p.shape, generator=gen)
+            p.copy_(v / float(np.sqrt(p[0].numel())) if name.endswith(
+                "weight") else 0.1 * v)
+        model.g_a.conv_3.weight.mul_(gain)
+    return model.to(device).eval()
+
+
+def elic_wave(device: torch.device, frames: int = 2, h: int = 1080,
+              w: int = 1920) -> Dict:
+    """One All-Intra wave of ``frames`` 1080p frames through ELIC-N192-M320
+    on seeded weights (ElicCodec): encoded, decoded, the decode checked
+    bit for bit against the encoder's reconstruction, with K7's launches
+    and fallbacks over the wave."""
+    from aivc_tpu_torch.config import ElicConfig
+    from aivc_tpu_torch.pipeline.codec import make_codec
+
+    cfg = ElicConfig()
+    codec = make_codec(cfg, seeded_elic(cfg, device), h, w, device=device)
+    clip = synthetic_frames(frames, h, w, seed=4)
+    ai = CodingConfig(coding_config="AI")
+    encode_video(codec, clip, ai, wave_batch=frames)     # warm-up
+    kernels.reset_launches()
+    t = time.perf_counter()
+    res = encode_video(codec, clip, ai, wave_batch=frames)
+    sync(device)
+    enc_s = time.perf_counter() - t
+    t = time.perf_counter()
+    dec = decode_video(codec, res.bitstream)
+    sync(device)
+    dec_s = time.perf_counter() - t
+    for i in range(frames):
+        for c in ("y", "u", "v"):
+            if not np.array_equal(dec[i].planes[c],
+                                  res.decoded_frames[i].planes[c]):
+                raise AssertionError(f"ELIC frame {i} plane {c}: the decode "
+                                     f"differs from the encoder's")
+    return {"frames": frames, "bytes": len(res.bitstream),
+            "encode_s": enc_s, "decode_s": dec_s,
+            "launches": kernels.LAUNCHES["conv1x1"],
+            "fallbacks": kernels.FALLBACKS["conv1x1"]}
 
 
 @torch.inference_mode()

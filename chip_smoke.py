@@ -26,7 +26,13 @@ port's entry points with models_ckpt/bf16-r5:
   channels-last (the bf16 nets' layout), bit for bit as NCHW; then the
   conv stage K6 (ops/layers.py:pad_stage_cuda) at the codec's shapes, bit
   for bit against its plain version, timed against its byte bound, its
-  plain version and the library passes it replaced.
+  plain version and the library passes it replaced; then K7
+  (ops/conv1x1.py, ELIC's 1x1 convs with their bias and epilogue) at
+  ELIC-N192-M320's six widths and 1080p shapes, within one bf16 ulp of
+  the first rounding of its plain version, timed the same way; then one
+  All-Intra wave of ELIC-N192-M320 (seeded weights) coded and decoded
+  bit-exactly, with the share of its 1x1 convs that took K7, which must
+  be 1.
 
 The main phase also prints the steps K1 walked in the clip's encode and
 K2 in its decode, with their estimated shares of the encode and decode
@@ -390,7 +396,32 @@ def main() -> int:
     if rec_stage["launches"] != len(smoke.CONV_STAGE_CASES):
         raise AssertionError(f"conv_stage launched {rec_stage['launches']} "
                              f"times in {len(smoke.CONV_STAGE_CASES)} checks")
-    records += [rec4, rec5, rec_layer, rec_stage]
+    rec_c1 = smoke.check_conv1x1(dev)
+    for r in rec_c1["cases"]:
+        ph.say(f"kernel conv1x1 {r['k']} -> {r['n']} {r['epilogue']} "
+               f"{list(r['shape'])}: within one bf16 ulp of the first "
+               f"rounding of its plain version, {r['differing']:.3e} of the "
+               f"outputs differ; {r['ms']:.4f} ms (bound "
+               f"{r['bound_ms']:.4f} ms by {r['bound_by']}, "
+               f"{100 * r['bound_ms'] / r['ms']:.1f}%; plain "
+               f"{r['plain_ms']:.4f} ms; library (cuDNN's NCHW conv, its "
+               f"bias pass and the epilogue's passes) "
+               f"{r['library_ms']:.4f} ms)")
+    if rec_c1["launches"] != len(smoke.CONV1X1_CASES):
+        raise AssertionError(f"conv1x1 launched {rec_c1['launches']} times "
+                             f"in {len(smoke.CONV1X1_CASES)} checks")
+    wave = smoke.elic_wave(dev)
+    c1_calls = wave["launches"] + wave["fallbacks"]
+    ph.say(f"elic: one All-Intra wave of {wave['frames']} 1080p frames, "
+           f"ELIC-N192-M320 on seeded weights: {wave['bytes']} B, decoded "
+           f"bit-exactly; encode {wave['encode_s']:.3f} s, decode "
+           f"{wave['decode_s']:.3f} s; the 1x1 convs took K7 in "
+           f"{wave['launches']} of {c1_calls} (hit share "
+           f"{wave['launches'] / max(c1_calls, 1):.4f})")
+    if wave["fallbacks"] or not wave["launches"]:
+        raise AssertionError(f"{wave['fallbacks']} of ELIC's 1x1 convs "
+                             f"missed K7")
+    records += [rec4, rec5, rec_layer, rec_stage, rec_c1]
 
     # -- training path ----------------------------------------------------
     # No kernel lies on it: the training forward takes the plain float
@@ -635,6 +666,7 @@ def main() -> int:
     launches["gdn_fused"] = rec4["launches"]
     launches["gdn_layer"] = main_launches["gdn_layer"]
     launches["conv_stage"] = main_launches["conv_stage"]
+    launches["conv1x1"] = wave["launches"]
     # K3 on a row window: the spatial mesh codec's launches, both ranks.
     launches["warp_packed_band"] = sum(la["warp_packed"]
                                        for la in sp["launches"])

@@ -1,6 +1,6 @@
-"""Kernels K1-K6 on the card against their plain versions, the GDN
-layers' route to K4, the bf16 nets' route to K6, the codec's closed loop
-and the RD forward's launches on the card.  Imports no JAX, so it runs on
+"""Kernels K1-K7 on the card against their plain versions, the GDN
+layers' route to K4, the bf16 nets' route to K6, ELIC's route to K7, the
+codec's closed loop and the RD forward's launches on the card.  Imports no JAX, so it runs on
 the card's machine:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -1418,3 +1418,163 @@ def test_conv_stage_rejects_bad_inputs(card):
         tl.pad_stage_cuda(x, -1)
     with pytest.raises(ValueError):     # fewer channels out than in
         tl.pad_stage_cuda(x, 2, 4)
+
+
+# K7: the six (K, N) of ELIC-N192-M320's 1x1 convs, each with every
+# epilogue, at the codec's 544 x 960 and 272 x 480 in a wave of 8 and at a
+# ragged 3 x 37 x 53 (the last tile runs past the pixels).
+C1_WIDTHS = [(192, 96), (96, 192), (192, 192), (320, 160), (160, 320),
+             (320, 320)]
+C1_SHAPES = [(8, 544, 960), (8, 272, 480), (3, 37, 53)]
+
+
+@pytest.mark.parametrize("shape", C1_SHAPES)
+@pytest.mark.parametrize("epilogue", ["relu", "residual", "gate"])
+@pytest.mark.parametrize("k, n", C1_WIDTHS)
+def test_conv1x1_within_one_ulp_of_plain(card, k, n, epilogue, shape):
+    """K7 against its plain version: every output inside
+    smoke.conv1x1_band, i.e. the tensor cores' order of the K-sum moves
+    the first rounding by at most one bf16 ulp (more only by the two
+    orders' f32 error where the sum cancels), and every rounding after it
+    follows that sum through the monotone epilogue."""
+    from aivc_tpu_torch import smoke
+    from aivc_tpu_torch.ops import conv1x1 as c1
+
+    args = smoke.conv1x1_inputs(card, k, n, shape, k + n + len(epilogue))
+    x, w, b, b_in, res, trunk = args
+    before = kernels.LAUNCHES["conv1x1"]
+    got = c1.conv1x1(x, w, b, epilogue, b_in, res, trunk)
+    assert kernels.LAUNCHES["conv1x1"] == before + 1
+    assert got.shape == (shape[0], n, shape[1], shape[2])
+    assert got.dtype == torch.bfloat16
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert smoke.conv1x1_within(got, x, w, b, epilogue, b_in, res,
+                                trunk) == 1.0
+
+
+@pytest.mark.parametrize("k, n", C1_WIDTHS)
+@pytest.mark.parametrize("hw", [(37, 53), (68, 120)])
+def test_conv1x1_frame_alone_equals_it_in_a_wave(card, k, n, hw):
+    """Each output pixel depends on its own input row alone: a frame gives
+    the same bits alone as inside a wave of 8 (on 37 x 53 its pixels start
+    at another place of a tile), for every epilogue."""
+    from aivc_tpu_torch import smoke
+    from aivc_tpu_torch.ops import conv1x1 as c1
+
+    x, w, b, b_in, res, trunk = smoke.conv1x1_inputs(card, k, n, (8, *hw),
+                                                     k * n)
+    for epilogue in ("relu", "residual", "gate"):
+        wave = c1.conv1x1(x, w, b, epilogue, b_in, res, trunk)
+        for i in (0, 5):
+            one = [t[i:i + 1].contiguous(memory_format=torch.channels_last)
+                   for t in (x, res, trunk)]
+            alone = c1.conv1x1(one[0], w, b, epilogue, b_in, one[1], one[2])
+            assert torch.equal(alone, wave[i:i + 1])
+
+
+def test_conv1x1_rejects_an_unaligned_base(card):
+    from aivc_tpu_torch.ops import conv1x1 as c1
+
+    big = torch.zeros(8 + 2 * 32 * 5 * 7, dtype=torch.bfloat16, device=card)
+    x = big[8:].view(2, 5, 7, 32).permute(0, 3, 1, 2)
+    w = torch.zeros((16, 32), dtype=torch.bfloat16, device=card)
+    b = torch.zeros(16, dtype=torch.bfloat16, device=card)
+    assert torch.equal(c1.conv1x1(x, w, b, "relu"),
+                       c1.conv1x1_plain(x, w, b, "relu"))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        c1.conv1x1(big[4:4 + 2 * 32 * 5 * 7].view(2, 5, 7, 32).permute(
+            0, 3, 1, 2), w, b, "relu")
+
+
+def _elic_pair(card, cfg):
+    """The seeded ELIC of ``cfg`` on the card in bf16 and in float32."""
+    import dataclasses
+
+    from aivc_tpu_torch import smoke
+
+    return (smoke.seeded_elic(cfg, card),
+            smoke.seeded_elic(dataclasses.replace(cfg, dtype="float32"),
+                              card))
+
+
+# The staged transforms against the unstaged ones on the card, measured as
+# the RMS of their difference over the RMS of the unstaged route's own
+# difference from the float32 model: both are bf16 computations of the
+# same function that round at the same points, in other orders of the sums
+# (K7, and cuDNN's NHWC algorithms against its NCHW ones), so each departs
+# from float32 about as far as the other, and their difference is at most
+# about sqrt(2) times that departure; the limit leaves room above it
+# (measured on the H100: g_a 0.80, g_s 0.002, K7 giving cuDNN's bits).
+STAGED_RMS_RATIO = 2.0
+
+
+@pytest.mark.parametrize("stage", ["analyze", "synthesize"])
+def test_elic_staged_transforms_match_unstaged(card, monkeypatch, stage):
+    """ELIC-N192-M320's g_a and g_s on the staged route (K6, channels-last
+    bf16, K7 in every bottleneck and gate) against the unstaged route,
+    within STAGED_RMS_RATIO of the bf16 route's own distance from
+    float32, with no fallback and every 1x1 conv on K7."""
+    from aivc_tpu_torch.config import ElicConfig
+    from aivc_tpu_torch.models import elic as me
+
+    model, model32 = _elic_pair(card, ElicConfig())
+    g = torch.Generator(device=card).manual_seed(9)
+    if stage == "analyze":
+        x = torch.rand((2, 3, 128, 192), generator=g, device=card)
+    else:
+        x = torch.round(torch.randn((2, 320, 8, 12), generator=g,
+                                    device=card) * 2)
+    with torch.no_grad():
+        kernels.reset_launches()
+        staged = getattr(model, stage)(x)
+        assert kernels.FALLBACKS["conv1x1"] == 0
+        assert kernels.LAUNCHES["conv1x1"] == 2 * 21 + 2
+        monkeypatch.setattr(me.Elic, "takes_stage", lambda *a: False)
+        plain = getattr(model, stage)(x)
+        assert kernels.FALLBACKS["conv1x1"] == 2 * 21 + 2
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            ref = getattr(model32, stage)(x)
+        finally:
+            torch.backends.cudnn.allow_tf32 = True
+    assert staged.dtype == torch.float32 and staged.is_contiguous()
+    assert staged.shape == plain.shape == ref.shape
+
+    def rms(t):
+        return float(t.double().pow(2).mean().sqrt())
+
+    ratio = rms(staged - plain) / rms(plain - ref)
+    print(f"{stage}: rms(staged - unstaged) {rms(staged - plain):.4e}, "
+          f"rms(unstaged - f32) {rms(plain - ref):.4e}, rms(staged - f32) "
+          f"{rms(staged - ref):.4e}, ratio {ratio:.3f}")
+    assert ratio <= STAGED_RMS_RATIO
+
+
+def test_elic_small_wave_on_k7_bit_exact(card):
+    """An ELIC whose 1x1 widths K7 takes (N 32, M 64: 32 -> 16 -> 32, 64 ->
+    32 -> 64) codes 5 frames All-Intra in waves of 2 bit-exactly on the
+    card, every bottleneck and gate of g_a and g_s on K7 (no fallback)."""
+    from aivc_tpu_torch import smoke
+    from aivc_tpu_torch.config import CodingConfig, ElicConfig
+    from aivc_tpu_torch.pipeline.codec import make_codec
+    from aivc_tpu_torch.pipeline.video import (decode_video, encode_video,
+                                               synthetic_frames)
+
+    cfg = ElicConfig(name="elic-small", n=32, m=64,
+                     groups=(4, 4, 8, 16, 32), ctx_hidden=(12, 8),
+                     agg_hidden=(24, 16), dtype="bfloat16")
+    codec = make_codec(cfg, smoke.seeded_elic(cfg, card), 64, 96,
+                       device=card)
+    frames = synthetic_frames(5, 64, 96, seed=3)
+    kernels.reset_launches()
+    res = encode_video(codec, frames, CodingConfig(coding_config="AI"),
+                       wave_batch=2)
+    dec = decode_video(codec, res.bitstream)
+    for i in range(5):
+        for c in ("y", "u", "v"):
+            assert np.array_equal(dec[i].planes[c],
+                                  res.decoded_frames[i].planes[c])
+    # g_a and g_s on each encoded wave, g_s on each decoded one: 44 a
+    # transform.
+    assert kernels.LAUNCHES["conv1x1"] == 44 * (3 + 3 + 3)
+    assert kernels.FALLBACKS["conv1x1"] == 0

@@ -273,9 +273,13 @@ def test_kernel_params_of_inference_tensors(monkeypatch):
 def test_reset_launches_clears_fallbacks():
     kernels.FALLBACKS["gdn_layer"] = 3
     kernels.FALLBACKS["conv_stage"] = 4
+    kernels.FALLBACKS["conv1x1"] = 6
     kernels.LAUNCHES["gdn_layer"] = 2
     kernels.LAUNCHES["conv_stage"] = 5
+    kernels.LAUNCHES["conv1x1"] = 7
     kernels.reset_launches()
-    assert kernels.FALLBACKS == {"gdn_layer": 0, "conv_stage": 0}
+    assert kernels.FALLBACKS == {"gdn_layer": 0, "conv_stage": 0,
+                                 "conv1x1": 0}
     assert kernels.LAUNCHES["gdn_layer"] == 0
     assert kernels.LAUNCHES["conv_stage"] == 0
+    assert kernels.LAUNCHES["conv1x1"] == 0
